@@ -1,0 +1,545 @@
+"""Compiled schedule execution engine, rank-stacked on one device.
+
+The numpy half is a copy of ``repro.comm.exec_engine``: one compile pass
+derives every round's ``(perm, send_ids, recv_ids, reduce)`` table, folds
+consecutive rounds that share a permutation, reduce-flag and chunk count
+into one :class:`RoundGroup`, and memoizes the result process-wide by
+:meth:`Schedule.fingerprint`; :func:`compile_all_to_all` is the O(n·blk)
+slot-addressed all-to-all compile.  Compiling additionally asserts that a
+rank's ``recv_ids`` within one round are distinct, which the rank-stacked
+scatter below relies on.
+
+Execution is the torch half.  The reference runs one rank per device and
+lowers each round to a ``ppermute``; here all ``n`` ranks live on one
+device as the leading axis of a global ``(n, n_chunks, *chunk)`` buffer,
+and each round is
+
+* a gather of every rank's ``send_ids`` rows, read straight from the
+  sending rank (the round's permutation is folded into that gather's row
+  index, since ``got[dst] = payload[src]``), then
+* a gather–add–scatter (reduce) or a scatter (store) into ``recv_ids``.
+
+Advanced-index gathers and ``index_put_`` without accumulation are used
+instead of ``index_add_`` (atomics on CUDA): with distinct ``recv_ids`` per
+rank every receiver sees the same adds in the same order as the reference,
+so fp32 results are bit-identical to it.  A :class:`RoundGroup` is a Python
+loop over its rounds; the per-round index tensors are uploaded to the
+device once per ``(CompiledSchedule, device)`` and cached.
+"""
+
+from __future__ import annotations
+
+import threading
+from collections import OrderedDict
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.schedules import Round, Schedule
+
+from .errors import ScheduleExecutionError
+
+__all__ = [
+    "CompiledSchedule",
+    "ExecStats",
+    "RoundGroup",
+    "clear_exec_caches",
+    "compile_all_to_all",
+    "compile_schedule",
+    "device_tables",
+    "exec_stats",
+    "execute_all_to_all_compact",
+    "execute_compiled",
+    "note_fallback_dispatch",
+    "note_fused_dispatch",
+    "round_tables",
+]
+
+
+# ----------------------------------------------------------- round tables
+
+
+def round_tables(
+    rnd: Round, n: int, *, ctx: str = ""
+) -> Tuple[List[Tuple[int, int]], np.ndarray, np.ndarray, bool]:
+    """Static per-round tables: ``(perm, send_ids[n,k], recv_ids[n,k], reduce)``.
+
+    ``ctx`` prefixes every :class:`ScheduleExecutionError` so compile-time
+    failures name the round and schedule they came from.
+    """
+
+    def err(msg: str) -> ScheduleExecutionError:
+        return ScheduleExecutionError(f"{ctx}{msg}" if ctx else msg)
+
+    if not rnd.is_permutation():
+        raise err("round is not a permutation (Tx/Rx > 1)")
+    senders = {t.src for t in rnd.transfers}
+    if len(senders) != n:
+        raise err(f"round must have all {n} ranks sending, got {len(senders)}")
+    ks = {len(t.chunks) for t in rnd.transfers}
+    if len(ks) != 1:
+        raise err(f"non-uniform chunk counts per rank: {ks}")
+    k = ks.pop()
+    if k == 0:
+        raise err("schedule has no chunk metadata (e.g. swing)")
+    reduces = {t.reduce for t in rnd.transfers}
+    if len(reduces) != 1:
+        raise err("mixed reduce/store within one round")
+    perm = sorted((t.src, t.dst) for t in rnd.transfers)
+    send_ids = np.zeros((n, k), dtype=np.int32)
+    recv_ids = np.zeros((n, k), dtype=np.int32)
+    for t in rnd.transfers:
+        send_ids[t.src] = np.asarray(t.chunks, dtype=np.int32)
+        recv_ids[t.dst] = np.asarray(t.chunks, dtype=np.int32)
+    for r in range(n):
+        if len(set(recv_ids[r].tolist())) != k:
+            # the rank-stacked scatter writes each receive slot once; a
+            # repeated slot would make the result depend on write order
+            raise err(f"rank {r} receives chunk ids {recv_ids[r].tolist()} "
+                      "with repeats")
+    return perm, send_ids, recv_ids, reduces.pop()
+
+
+def _ctx(schedule: Schedule, i: int) -> str:
+    return (
+        f"{schedule.collective}/{schedule.algorithm} "
+        f"round {i}/{schedule.num_rounds}: "
+    )
+
+
+# ------------------------------------------------------- compiled schedule
+
+
+@dataclass(frozen=True)
+class RoundGroup:
+    """Consecutive rounds sharing ``(perm, reduce, k)``, tables stacked."""
+
+    perm: Tuple[Tuple[int, int], ...]
+    reduce: bool
+    send_ids: np.ndarray  # (rounds, n, k) int32, read-only
+    recv_ids: np.ndarray  # (rounds, n, k) int32, read-only
+
+    @property
+    def rounds(self) -> int:
+        return self.send_ids.shape[0]
+
+
+@dataclass(frozen=True)
+class CompiledSchedule:
+    """A schedule lowered once: validated, stacked, group-folded tables.
+
+    ``final_slots`` is only set by :func:`compile_all_to_all`: row ``r`` maps
+    origin (group-local) rank ``o`` to the slot of rank ``r``'s buffer that
+    holds the block ``o → r`` after the last round.
+    """
+
+    fingerprint: str
+    collective: str
+    algorithm: str
+    n: int  # table rows == schedule.n (the axis span)
+    num_rounds: int
+    groups: Tuple[RoundGroup, ...]
+    final_slots: Optional[np.ndarray] = None  # (n, m) int32 — compact a2a
+
+
+def _freeze(a: np.ndarray) -> np.ndarray:
+    a.flags.writeable = False
+    return a
+
+
+def _fold_groups(
+    tables: List[Tuple[List[Tuple[int, int]], np.ndarray, np.ndarray, bool]]
+) -> Tuple[RoundGroup, ...]:
+    """Stack consecutive rounds with equal (perm, reduce, k) into groups."""
+    groups: List[RoundGroup] = []
+    i = 0
+    while i < len(tables):
+        perm, send, recv, reduce = tables[i]
+        j = i + 1
+        while j < len(tables):
+            p2, s2, _, r2 = tables[j]
+            if p2 != perm or r2 != reduce or s2.shape != send.shape:
+                break
+            j += 1
+        groups.append(
+            RoundGroup(
+                perm=tuple(perm),
+                reduce=reduce,
+                send_ids=_freeze(np.stack([t[1] for t in tables[i:j]])),
+                recv_ids=_freeze(np.stack([t[2] for t in tables[i:j]])),
+            )
+        )
+        i = j
+    return tuple(groups)
+
+
+def compile_schedule(schedule: Schedule) -> CompiledSchedule:
+    """Lower ``schedule`` to stacked round-group tables (memoized by
+    :meth:`Schedule.fingerprint`)."""
+    fp = schedule.fingerprint()
+    cached = _COMPILED.get(fp)
+    if cached is not None:
+        return cached
+    tables = [
+        round_tables(rnd, schedule.n, ctx=_ctx(schedule, i))
+        for i, rnd in enumerate(schedule.rounds)
+    ]
+    compiled = CompiledSchedule(
+        fingerprint=fp,
+        collective=schedule.collective,
+        algorithm=schedule.algorithm,
+        n=schedule.n,
+        num_rounds=schedule.num_rounds,
+        groups=_fold_groups(tables),
+    )
+    _COMPILED.put(fp, compiled)
+    return compiled
+
+
+# ------------------------------------------------ compact (O(n)) all-to-all
+
+
+def compile_all_to_all(
+    schedule: Schedule, m: int, local_of: Tuple[int, ...]
+) -> Optional[CompiledSchedule]:
+    """Slot-addressed all-to-all: O(m·blk) state instead of O(m²·blk).
+
+    The dense path keeps an origin×target grid so any set of in-flight
+    blocks can coexist; but every generated all-to-all schedule keeps at
+    most ``m`` live blocks per rank, so ``m`` slots suffice.  This compile
+    statically simulates the chunk metadata: each rank starts holding its
+    ``m`` outgoing blocks dest-major (slot ``t`` = block for group-local
+    rank ``t``, matching ``x.reshape(m, …)``), each round's sends vacate
+    slots and its receives land on free ones (gather-before-scatter, so a
+    slot sent from this round can be reused this round), and a final
+    ``(len(local_of), m)`` table maps origins to slots for the post-pass
+    gather.
+
+    Args:
+      schedule: an all_to_all schedule over ``len(local_of)`` ranks with
+        group-local chunk ids ``o*m + t`` (full-axis: ``local_of`` is the
+        identity and ``m == schedule.n``).
+      m: group size (blocks per rank).
+      local_of: global rank → group-local index.
+
+    Returns ``None`` whenever the metadata cannot be slot-addressed — a
+    sender not holding a chunk it sends, a duplicated live block, a reduce
+    round, or an unmet post-condition — in which case callers use the
+    dense path.  Memoized by ``(fingerprint, local_of)``; the sentinel for
+    "checked, infeasible" is cached too so the simulation runs once.
+    """
+    n_rows = schedule.n
+    if len(local_of) != n_rows:
+        raise ScheduleExecutionError(
+            f"local_of covers {len(local_of)} ranks, schedule has {n_rows}"
+        )
+    key = (schedule.fingerprint(), m, tuple(local_of))
+    cached = _COMPILED.get(key)
+    if cached is not None:
+        return None if cached is _INFEASIBLE else cached
+
+    compiled = _compile_all_to_all(schedule, m, tuple(local_of))
+    _COMPILED.put(key, _INFEASIBLE if compiled is None else compiled)
+    return compiled
+
+
+def _compile_all_to_all(
+    schedule: Schedule, m: int, local_of: Tuple[int, ...]
+) -> Optional[CompiledSchedule]:
+    n_rows = schedule.n
+    # pos[r]: chunk id -> slot, for the blocks rank r currently holds
+    pos: List[Dict[int, int]] = [
+        {local_of[r] * m + t: t for t in range(m)} for r in range(n_rows)
+    ]
+    tables = []
+    for i, rnd in enumerate(schedule.rounds):
+        perm, send_ids, recv_ids, reduce = round_tables(
+            rnd, n_rows, ctx=_ctx(schedule, i)
+        )
+        if reduce:
+            return None  # all-to-all never reduces; metadata says otherwise
+        k = send_ids.shape[1]
+        send_slots = np.zeros((n_rows, k), dtype=np.int32)
+        recv_slots = np.zeros((n_rows, k), dtype=np.int32)
+        # gather phase: every send leaves its slot (frees it for this
+        # round's receive — the executor gathers payloads before scattering)
+        for t in rnd.transfers:
+            for j, c in enumerate(t.chunks):
+                slot = pos[t.src].pop(c, None)
+                if slot is None:
+                    return None  # sender does not hold this chunk
+                send_slots[t.src, j] = slot
+        # scatter phase: receives land on free slots, ascending order
+        for t in rnd.transfers:
+            held = set(pos[t.dst].values())
+            free = [s for s in range(m) if s not in held]
+            if len(t.chunks) > len(free):
+                return None  # more live blocks than slots
+            for j, c in enumerate(t.chunks):
+                if c in pos[t.dst]:
+                    return None  # duplicated live block
+                pos[t.dst][c] = free[j]
+                recv_slots[t.dst, j] = free[j]
+        tables.append((perm, send_slots, recv_slots, False))
+
+    final_slots = np.zeros((n_rows, m), dtype=np.int32)
+    for r in range(n_rows):
+        for o in range(m):
+            slot = pos[r].get(o * m + local_of[r])
+            if slot is None:
+                return None  # post-condition unmet: block (o -> r) missing
+            final_slots[r, o] = slot
+    return CompiledSchedule(
+        fingerprint=schedule.fingerprint(),
+        collective=schedule.collective,
+        algorithm=schedule.algorithm,
+        n=n_rows,
+        num_rounds=schedule.num_rounds,
+        groups=_fold_groups(tables),
+        final_slots=_freeze(final_slots),
+    )
+
+
+# --------------------------------------------------------------- execution
+
+
+@dataclass(frozen=True)
+class DeviceRound:
+    """One round's index tensors on the executing device.
+
+    ``src_rows[d]`` is the rank that sends to rank ``d`` and ``src_ids[d]``
+    the chunk ids it sends, so ``buf[src_rows, src_ids]`` is the permuted
+    payload every receiver gets; ``recv_ids[d]`` are its receive slots.
+    """
+
+    reduce: bool
+    src_rows: torch.Tensor  # (n, 1) int64
+    src_ids: torch.Tensor   # (n, k) int64
+    recv_ids: torch.Tensor  # (n, k) int64
+
+
+@dataclass(frozen=True)
+class DeviceTables:
+    rows: torch.Tensor                  # (n, 1) int64: arange(n)
+    rounds: Tuple[DeviceRound, ...]
+    final_slots: Optional[torch.Tensor]  # (n, m) int64 — compact a2a
+
+
+def _upload(compiled: CompiledSchedule, device: torch.device) -> DeviceTables:
+    n = compiled.n
+
+    def dev(a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a, dtype=np.int64), device=device)
+
+    rounds = []
+    for grp in compiled.groups:
+        src_of = np.zeros(n, dtype=np.int64)
+        for src, dst in grp.perm:
+            src_of[dst] = src
+        for i in range(grp.rounds):
+            rounds.append(
+                DeviceRound(
+                    reduce=grp.reduce,
+                    src_rows=dev(src_of[:, None]),
+                    src_ids=dev(grp.send_ids[i][src_of]),
+                    recv_ids=dev(grp.recv_ids[i]),
+                )
+            )
+    final = None if compiled.final_slots is None else dev(compiled.final_slots)
+    return DeviceTables(
+        rows=dev(np.arange(n)[:, None]), rounds=tuple(rounds), final_slots=final
+    )
+
+
+def device_tables(compiled: CompiledSchedule, device: torch.device) -> DeviceTables:
+    """``compiled``'s round tables on ``device``, uploaded once and cached.
+
+    The rank-stacked counterpart of the reference's per-communicator device
+    table upload: a steady-state loop copies no index table to the device.
+    """
+    key = (id(compiled), str(device))
+    hit = _DEVICE_TABLES.get(key)
+    # the entry pins its CompiledSchedule, so an id is never reused while
+    # its entry lives; the identity check guards against a stale entry
+    if hit is not None and hit[0] is compiled:
+        return hit[1]
+    tables = _upload(compiled, device)
+    _DEVICE_TABLES.put(key, (compiled, tables))
+    return tables
+
+
+def apply_round(buf: torch.Tensor, rows: torch.Tensor, rnd: DeviceRound,
+                transform=None) -> None:
+    """Run one round on the rank-stacked ``(n, n_chunks, …)`` buffer, in place.
+
+    ``transform`` (``None`` or a function of the payload) models the wire,
+    e.g. int8 quantization; it sees the sending ranks' payloads in receiver
+    order.
+    """
+    got = buf[rnd.src_rows, rnd.src_ids]  # (n, k, …): gather + permutation
+    if transform is not None:
+        got = transform(got)
+    if rnd.reduce:
+        got = buf[rows, rnd.recv_ids] + got
+    buf[rows, rnd.recv_ids] = got
+
+
+def execute_compiled(chunks: torch.Tensor, compiled: CompiledSchedule) -> torch.Tensor:
+    """Run a compiled schedule on a rank-stacked ``(n, n_chunks, …)`` buffer.
+
+    Updates ``chunks`` in place (callers hand in a buffer they own, so no
+    second copy of the state is made) and returns it.  Bit-identical to the
+    per-round reference interpreter: same gathers, same permutation per
+    round, same add/store order per receiver.
+    """
+    if chunks.shape[0] != compiled.n:
+        raise ScheduleExecutionError(
+            f"buffer has {chunks.shape[0]} ranks, schedule spans {compiled.n}"
+        )
+    tables = device_tables(compiled, chunks.device)
+    for rnd in tables.rounds:
+        apply_round(chunks, tables.rows, rnd)
+    return chunks
+
+
+def execute_all_to_all_compact(
+    blocks: torch.Tensor, compiled: CompiledSchedule
+) -> torch.Tensor:
+    """Slot-compiled all-to-all: run the rounds, then gather origin-major.
+
+    ``blocks`` is the rank-stacked ``(n, m, blk, …)`` dest-major buffer,
+    updated in place; the return is ``(n, m, blk, …)`` origin-major.
+    """
+    out = execute_compiled(blocks, compiled)
+    tables = device_tables(compiled, blocks.device)
+    return out[tables.rows, tables.final_slots]
+
+
+# ------------------------------------------------------- caches & counters
+
+
+class _LruCache:
+    """Lock-guarded bounded LRU with hit/miss/eviction accounting."""
+
+    def __init__(self, max_entries: int) -> None:
+        self._store: "OrderedDict[Any, Any]" = OrderedDict()
+        self.max_entries = max_entries
+        self._lock = threading.Lock()
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+
+    def get(self, key):
+        with self._lock:
+            val = self._store.get(key)
+            if val is not None:
+                self.hits += 1
+                self._store.move_to_end(key)
+            else:
+                self.misses += 1
+            return val
+
+    def put(self, key, value) -> None:
+        with self._lock:
+            self._store[key] = value
+            self._store.move_to_end(key)
+            while len(self._store) > self.max_entries:
+                self._store.popitem(last=False)
+                self.evictions += 1
+
+    def clear(self) -> None:
+        with self._lock:
+            self._store.clear()
+            self.hits = self.misses = self.evictions = 0
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._store)
+
+
+_INFEASIBLE = object()  # cached "slot compile checked and rejected" sentinel
+
+_COMPILED = _LruCache(max_entries=256)  # fingerprint → CompiledSchedule
+_DEVICE_TABLES = _LruCache(max_entries=256)  # (compiled, device) → tables
+
+# Overlap counters, filled by repro_torch.comm.fusion: dispatches that
+# streamed producer tiles into collective rounds (vs. took the sequential
+# fallback), how many chunks were streamed, and how many payload bytes
+# moved while later tiles were still pending.
+_OVERLAP_LOCK = threading.Lock()
+_FUSED_DISPATCHES = 0
+_FALLBACK_DISPATCHES = 0
+_CHUNKS_STREAMED = 0
+_BYTES_HIDDEN = 0
+
+
+def note_fused_dispatch(chunks_streamed: int, bytes_hidden: int) -> None:
+    """Record one fused dispatch and its overlap volume."""
+    global _FUSED_DISPATCHES, _CHUNKS_STREAMED, _BYTES_HIDDEN
+    with _OVERLAP_LOCK:
+        _FUSED_DISPATCHES += 1
+        _CHUNKS_STREAMED += int(chunks_streamed)
+        _BYTES_HIDDEN += int(bytes_hidden)
+
+
+def note_fallback_dispatch() -> None:
+    """Record one dispatch where fusion was requested but fell back."""
+    global _FALLBACK_DISPATCHES
+    with _OVERLAP_LOCK:
+        _FALLBACK_DISPATCHES += 1
+
+
+@dataclass(frozen=True)
+class ExecStats:
+    """Process-wide execution-engine counters (see ``exec_stats()``)."""
+
+    compiled_hits: int
+    compiled_misses: int
+    compiled_size: int
+    device_table_hits: int
+    device_table_misses: int
+    device_table_size: int
+    fused_dispatches: int = 0
+    fallback_dispatches: int = 0
+    chunks_streamed: int = 0
+    bytes_hidden: int = 0
+
+
+def exec_stats() -> ExecStats:
+    """Snapshot of the engine's process-wide caches and counters.
+
+    * ``compiled_*`` — the schedule→stacked-tables compile cache.
+    * ``device_table_*`` — the per-(compiled schedule, device) index-table
+      uploads; a warm steady state only hits.
+    * ``fused_*``/``fallback_*``/``chunks_streamed``/``bytes_hidden`` —
+      counters from ``repro_torch.comm.fusion`` (see
+      :func:`note_fused_dispatch`).
+    """
+    with _OVERLAP_LOCK:
+        fused, fallback = _FUSED_DISPATCHES, _FALLBACK_DISPATCHES
+        streamed, hidden = _CHUNKS_STREAMED, _BYTES_HIDDEN
+    return ExecStats(
+        compiled_hits=_COMPILED.hits,
+        compiled_misses=_COMPILED.misses,
+        compiled_size=len(_COMPILED),
+        device_table_hits=_DEVICE_TABLES.hits,
+        device_table_misses=_DEVICE_TABLES.misses,
+        device_table_size=len(_DEVICE_TABLES),
+        fused_dispatches=fused,
+        fallback_dispatches=fallback,
+        chunks_streamed=streamed,
+        bytes_hidden=hidden,
+    )
+
+
+def clear_exec_caches() -> None:
+    """Drop compiled and uploaded tables and zero all counters (tests)."""
+    global _FUSED_DISPATCHES, _FALLBACK_DISPATCHES
+    global _CHUNKS_STREAMED, _BYTES_HIDDEN
+    _COMPILED.clear()
+    _DEVICE_TABLES.clear()
+    with _OVERLAP_LOCK:
+        _FUSED_DISPATCHES = _FALLBACK_DISPATCHES = 0
+        _CHUNKS_STREAMED = _BYTES_HIDDEN = 0

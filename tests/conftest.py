@@ -56,3 +56,7 @@ def pytest_configure(config):
         "markers",
         "multidevice: drives >1 host device via an XLA_FLAGS subprocess",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (a CUDA kernel has no CPU mode); skips without one",
+    )

@@ -3,19 +3,30 @@
 
     python3 chip_smoke.py
 
-Builds the port's kernels from the sources in this checkout (K1, the
-CUDA C++ matmul, with ``nvcc``; K2, the Triton RMSNorm, at first launch),
-holds each kernel against its plain PyTorch version, and then drives the
-port's main path at the tensor-parallel widths of Mistral-Large-123B
-(``d_model`` 12288, ``d_ff`` 28672, TP = 8 ranks stacked on one card,
-4096 tokens per rank):
+Builds the port's kernels from the sources in this checkout (K1, K3 and
+K4, CUDA C++, with one ``nvcc`` each, all started together; K2, the Triton
+RMSNorm, at first launch), holds each kernel against its plain PyTorch
+version at the shapes its path gives it, and then drives the port's two
+main paths:
 
-    PcclSession(H100_DGX) → communicator("x", 8) → planned all_reduce,
-    reduce_scatter, all_gather and all_to_all, ring_ef8 all_reduce,
-    fused matmul → reduce-scatter (K1), fused all-reduce → RMSNorm (K2).
+1. collectives at the tensor-parallel widths of Mistral-Large-123B
+   (``d_model`` 12288, ``d_ff`` 28672, TP = 8 ranks stacked on one card,
+   4096 tokens per rank):
 
-Every check that fails raises, so the script exits non-zero and prints no
-result line.  It exits non-zero at once when CUDA is not available or the
+       PcclSession(H100_DGX) → communicator("x", 8) → planned all_reduce,
+       reduce_scatter, all_gather and all_to_all, ring_ef8 all_reduce,
+       fused matmul → reduce-scatter (K1), fused all-reduce → RMSNorm (K2);
+
+2. serving Zamba2-2.7B at its published widths and depth (54 Mamba-2
+   layers, 9 shared-attention calls, random weights from seed 0):
+   ``ServeEngine.generate`` on 4 requests of 4096, 3072, 2048 and 1024
+   prompt tokens, 16 new tokens each, whose prefill runs flash attention
+   (K3) and the SSD scan (K4).
+
+A parity phase then holds Zamba2's prefill with the kernels against its
+plain path in fp32 (6 layers, batch 2, 512 tokens), and teacher-forced
+decode against a longer prefill.  Every check that fails raises, so the
+script exits non-zero and prints no result line.  It exits non-zero at once when CUDA is not available or the
 ``repro_torch`` package is not beside it.  The last line is the device
 summary ``{"ok": true, "device": {...}}``; the line before it is the
 kernels' JSON record, and the line before that the card's name and power
@@ -30,6 +41,8 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import replace
 from pathlib import Path
 
 SRC = Path(__file__).resolve().parent / "src"
@@ -42,6 +55,23 @@ D_FF = 28672
 BLOCKS = (128, 128, 128)
 EPS = 1e-5
 SEED = 0
+
+# Zamba2-2.7B serving (src/repro_torch/configs/zamba2_2_7b.py): batch 4,
+# ragged prompts up to 4096 tokens, 16 new tokens each
+SERVE_PROMPTS = (4096, 3072, 2048, 1024)
+SERVE_NEW_TOKENS = 16
+SERVE_TP = 8
+# K3 at the serving prefill (B, S, H, K, D); the GQA and ragged cases
+FLASH_SHAPES = {"serving": (4, 4096, 32, 32, 80), "gqa": (2, 256, 8, 2, 64),
+                "ragged": (1, 200, 32, 32, 80)}
+# K4 at the serving prefill (B, S, H, P, N, chunk), shared B/C; the per-head
+# and ragged cases
+SSD_SHAPES = {"serving": (4, 4096, 80, 64, 64, 64), "per_head": (2, 512, 8, 64, 64, 64),
+              "ragged": (2, 1000, 80, 64, 64, 64)}
+# parity: Zamba2 at full widths in fp32, cut to one shared-attention group
+PARITY_LAYERS, PARITY_BATCH, PARITY_PROMPT = 6, 2, 512
+PARITY_TOL = 1e-3      # same algorithms, fp32 sums in other orders
+CONTINUATION_TOL = 2e-2  # tests/test_models_smoke.py's decode-vs-prefill tolerance
 
 # Published peaks of one H100 SXM (dense): bf16 tensor cores, fp32 CUDA
 # cores, HBM bandwidth.  Bounds are stated against these.
@@ -58,6 +88,12 @@ KERNEL_TOL = {
     ("matmul", "float32"): (2e-5, 1e-4),
     ("rmsnorm", "bfloat16"): (2e-2, 2e-2),
     ("rmsnorm", "float32"): (2e-5, 2e-5),
+    # K3/K4 fp32: sums over up to T = 4096 products (K3) and 64-step chunk
+    # products with exp decays (K4) in another order than the plain version
+    ("flash", "bfloat16"): (2e-2, 2e-2),
+    ("flash", "float32"): (1e-4, 1e-4),
+    ("ssd", "bfloat16"): (2e-2, 2e-2),
+    ("ssd", "float32"): (1e-4, 1e-4),
 }
 
 
@@ -183,6 +219,90 @@ def kernel_phase(torch, gen, dtype_name: str) -> dict:
     log(f"  rmsnorm[{dtype_name}] ({rows}x{d}): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
         f"library {lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), "
         f"{nbytes / ms / 1e6:.1f} GB/s")
+    return out
+
+
+def flash_kernel_phase(torch, gen, dtype_name: str) -> dict:
+    """K3 against its plain version at the serving, GQA and ragged shapes;
+    timed at the serving shape beside SDPA."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash import attention_reference, flash_attention_cuda
+
+    dt = getattr(torch, dtype_name)
+    dev = torch.device("cuda")
+    out = {}
+    for case, (B, S, H, K, D) in FLASH_SHAPES.items():
+        q, k, v = (torch.randn(B, S, h, D, generator=gen, device=dev).to(dt) for h in (H, K, K))
+        for causal in ((True,) if case != "ragged" else (True, False)):
+            got = flash_attention_cuda(q, k, v, causal=causal)
+            # the plain version one batch row at a time: its fp32 (S, T)
+            # scores for the whole serving batch would take ~9 GB each
+            want = torch.cat([attention_reference(q[b:b + 1], k[b:b + 1], v[b:b + 1], causal=causal)
+                              for b in range(B)])
+            log(f"  flash {case} {(B, S, H, K, D)} causal={causal}:")
+            err = compare(torch, got, want, "flash", dtype_name)
+            del got, want
+        if case != "serving":
+            continue
+        ms = time_ms(torch, lambda: flash_attention_cuda(q, k, v, causal=True), 3)
+        plain_ms = time_ms(torch, lambda: [attention_reference(q[b:b + 1], k[b:b + 1], v[b:b + 1])
+                                           for b in range(B)], 2)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), 5)
+        del qt, kt, vt
+        flops = 2.0 * B * H * S * S * D  # causal: half of QKᵀ and PV, 2 ops per MAC
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        b_ms, b_by = bound(flops, nbytes, dtype_name)
+        out["flash"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                            bound_by=b_by, library_ms=lib_ms, shape=[B, S, H, K, D])
+        log(f"  flash[{dtype_name}] {(B, S, H, K, D)} causal: kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms (per batch row), SDPA {lib_ms:.3f} ms, bound {b_ms:.3f} ms "
+            f"({b_by}), {flops / ms / 1e9:.1f} TFLOP/s")
+        del q, k, v
+    return out
+
+
+def ssd_kernel_phase(torch, gen, dtype_name: str) -> dict:
+    """K4 against its plain version with a non-zero initial state at the
+    serving shape (shared B/C), per-head B/C and a ragged S; timed at the
+    serving shape."""
+    from repro_torch.kernels.ssd import ssd_cuda, ssd_reference
+
+    dt = getattr(torch, dtype_name)
+    dev = torch.device("cuda")
+    out = {}
+    for case, (B, S, H, P, N, L) in SSD_SHAPES.items():
+        bc = (B, S, H, N) if case == "per_head" else (B, S, N)
+        X = torch.randn(B, S, H, P, generator=gen, device=dev).to(dt)
+        la = -torch.rand(B, S, H, generator=gen, device=dev) * 0.3
+        Bm = (torch.randn(*bc, generator=gen, device=dev) * 0.3).to(dt)
+        Cm = (torch.randn(*bc, generator=gen, device=dev) * 0.3).to(dt)
+        init = torch.randn(B, H, P, N, generator=gen, device=dev) * 0.1
+        Y, fin = ssd_cuda(X, la, Bm, Cm, chunk=L, initial_state=init)
+        Yr, finr = ssd_reference(X, la, Bm, Cm, chunk=L, initial_state=init)
+        log(f"  ssd {case} X {(B, S, H, P)} B/C {bc} chunk {L}, initial state:")
+        err = compare(torch, Y, Yr, "ssd", dtype_name)
+        err = max(err, compare(torch, fin, finr, "ssd", dtype_name))
+        check(fin.dtype == dt, f"ssd[{dtype_name}] final state in {fin.dtype}, not X's dtype")
+        del Y, Yr, fin, finr
+        if case != "serving":
+            continue
+        ms = time_ms(torch, lambda: ssd_cuda(X, la, Bm, Cm, chunk=L, initial_state=init), 5)
+        plain_ms = time_ms(torch, lambda: ssd_reference(X, la, Bm, Cm, chunk=L,
+                                                        initial_state=init), 2)
+        nc = -(-S // L)
+        # per (b, h, chunk): C Bᵀ (L·L·N), W X (L·L·P), C Rᵀ and the state update (L·P·N each)
+        flops = 2.0 * B * H * nc * (L * L * N + L * L * P + 2 * L * P * N)
+        nbytes = (2 * X.numel() + Bm.numel() + Cm.numel() + B * H * P * N) * X.element_size() \
+            + (la.numel() + init.numel()) * 4
+        b_ms, b_by = bound(flops, nbytes, dtype_name)
+        out["ssd"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                          bound_by=b_by, library_ms=None, shape=[B, S, H, P, N, L])
+        log(f"  ssd[{dtype_name}] X {(B, S, H, P)} N {N} chunk {L}: kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), "
+            f"{nbytes / ms / 1e6:.1f} GB/s")
+        del X, la, Bm, Cm, init
     return out
 
 
@@ -370,6 +490,215 @@ def warm_timings(torch, r) -> None:
             f"unfused {u1:.3f} / {u2:.3f} ms")
 
 
+# ------------------------------------------------------- serve path phase
+
+
+def zamba2_config(use_pallas: bool, **cut):
+    from repro_torch.configs import get_config
+
+    return replace(get_config("zamba2-2.7b"), use_pallas=use_pallas, **cut)
+
+
+def serve_path(torch, cfg, device, prompts, new_tokens, seed=SEED) -> dict:
+    """Zamba2 serving, as a user calls it: a ServeEngine on the card with
+    random weights, ``generate`` on ragged requests.  Returns what it
+    produced, for the checks made after the counted window."""
+    import numpy as np
+
+    from repro_torch import PcclSession
+    from repro_torch.core import cost_model as cm
+    from repro_torch.kernels.flash import flash_attention_cuda
+    from repro_torch.kernels.ssd import ssd_cuda
+    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+
+    t = time.perf_counter()
+    engine = ServeEngine(cfg, EngineConfig(batch_size=len(prompts),
+                                           max_len=max(prompts) + new_tokens, tp=SERVE_TP),
+                         seed=seed, session=PcclSession(cm.H100_DGX, device=device),
+                         device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    log(f"  engine built, {sum(p.numel() for p in engine.params.parameters()) / 1e9:.3f} B "
+        f"parameters: {time.perf_counter() - t:.3f} s")
+
+    # watch the model's two entry points: the logits each returns, and the
+    # kernel launches made before decode began
+    seen = {"finite": [], "at_first_decode": None}
+    prefill, decode_step = engine.model.prefill, engine.model.decode_step
+
+    def watched_prefill(*args, **kwargs):
+        logits, state = prefill(*args, **kwargs)
+        seen["finite"].append(torch.isfinite(logits).all())
+        seen["prefill_logits_shape"] = tuple(logits.shape)
+        return logits, state
+
+    def watched_decode(*args, **kwargs):
+        if seen["at_first_decode"] is None:
+            seen["at_first_decode"] = (flash_attention_cuda.launches, ssd_cuda.launches)
+        logits, state = decode_step(*args, **kwargs)
+        seen["finite"].append(torch.isfinite(logits).all())
+        return logits, state
+
+    engine.model.prefill, engine.model.decode_step = watched_prefill, watched_decode
+    rng = np.random.default_rng(seed)
+    requests = [Request(prompt=rng.integers(0, cfg.vocab, size=n).astype(np.int32),
+                        max_new_tokens=new_tokens) for n in prompts]
+    t = time.perf_counter()
+    engine.generate(requests)
+    wall = time.perf_counter() - t
+    engine.model.prefill, engine.model.decode_step = prefill, decode_step
+    return dict(engine=engine, requests=requests, seen=seen, wall=wall,
+                launches_end=(flash_attention_cuda.launches, ssd_cuda.launches))
+
+
+def check_serve(torch, r, cfg) -> dict:
+    """What the serve path produced: kernel launches per phase, finite
+    logits, tokens in range; the engine's timings and communication report."""
+    engine, seen, requests = r["engine"], r["seen"], r["requests"]
+    groups = cfg.n_layers // cfg.hybrid.shared_attn_every
+    k3_prefill, k4_prefill = seen["at_first_decode"]
+    k3_end, k4_end = r["launches_end"]
+    log(f"  launches: prefill K3 {k3_prefill}, K4 {k4_prefill}; decode K3 {k3_end - k3_prefill}, "
+        f"K4 {k4_end - k4_prefill}")
+    check(k3_prefill == groups, f"prefill launched K3 {k3_prefill} times, not {groups}")
+    check(k4_prefill == cfg.n_layers, f"prefill launched K4 {k4_prefill} times, not {cfg.n_layers}")
+    check((k3_end, k4_end) == (k3_prefill, k4_prefill), "decode launched K3 or K4")
+    check(seen["prefill_logits_shape"] == (len(requests), 1, cfg.vocab),
+          f"prefill logits shape {seen['prefill_logits_shape']}")
+    check(all(bool(f.item()) for f in seen["finite"]), "serving produced non-finite logits")
+    check(all(len(q.generated) == q.max_new_tokens for q in requests), "a request came up short")
+    check(all(0 <= t < cfg.vocab for q in requests for t in q.generated),
+          "a generated token is out of the vocabulary")
+    tm = engine.timings
+    n_new = sum(len(q.generated) for q in requests)
+    prompt_tokens = sum(len(q.prompt) for q in requests)
+    out = dict(prefill_ms=tm["prefill_s"] * 1e3,
+               decode_ms_per_token=tm["decode_s"] * 1e3 / max(tm["decode_steps"], 1),
+               tokens_per_s=n_new / (tm["prefill_s"] + tm["decode_s"]),
+               decode_tokens_per_s=len(requests) * tm["decode_steps"] / max(tm["decode_s"], 1e-9),
+               wall_s=r["wall"])
+    rep = engine.comm_report()
+    log(f"  {len(requests)} requests, prompts {[len(q.prompt) for q in requests]} "
+        f"({prompt_tokens} tokens, left-padded to {max(len(q.prompt) for q in requests)}), "
+        f"{n_new} new tokens: prefill {out['prefill_ms']:.1f} ms, decode "
+        f"{out['decode_ms_per_token']:.2f} ms per step of {len(requests)} tokens "
+        f"({out['decode_tokens_per_s']:.1f} tokens/s), {out['tokens_per_s']:.1f} new tokens/s "
+        f"end to end, generate {r['wall']:.3f} s")
+    log(f"  comm_report: TP={rep['tp']} all_reduce {rep['algorithm']}, planned "
+        f"{rep['sim_comm_s'] * 1e3:.3f} ms over {rep['events']} collectives (H100_DGX fabric model)")
+    log(f"  first tokens: {[q.generated[:4] for q in requests]}")
+    return out
+
+
+def _kernel_times(torch, prof):
+    """Device time (ms) of a profiled window by kernel class, from the
+    profiler's device-side events, and the heaviest kernels of ``other``."""
+    cuda = torch.autograd.DeviceType.CUDA
+    out = {"flash (K3)": 0.0, "ssd (K4)": 0.0, "matmul (cuBLAS)": 0.0, "other": 0.0}
+    other = []
+    for e in prof.key_averages():
+        if e.device_type != cuda:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        name = e.key.lower()
+        if "flash_fwd_kernel" in name:
+            key = "flash (K3)"
+        elif "ssd_kernel" in name:
+            key = "ssd (K4)"
+        elif any(w in name for w in ("gemm", "cutlass", "xmma", "cublas", "nvjet")):
+            key = "matmul (cuBLAS)"
+        else:
+            key = "other"
+            other.append((us / 1e3, e.count, e.key[:60]))
+        out[key] += us / 1e3
+    return out, sorted(other, reverse=True)[:4]
+
+
+def profile_serve(torch, engine, prompts, wall_prefill_ms, wall_decode_ms, steps=2) -> dict:
+    """Where a warm prefill and a warm decode step spend the card's time:
+    device time by kernel class (``torch.profiler``), and the share of the
+    unprofiled wall time the card was busy."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    S = max(prompts)
+    toks = np.zeros((len(prompts), S), np.int64)
+    rng = np.random.default_rng(SEED)
+    for i, n in enumerate(prompts):
+        toks[i, S - n:] = rng.integers(0, engine.cfg.vocab, size=n)
+    tokens = torch.from_numpy(toks).to(engine.device)
+    # device-side events only on the card (the CPU rehearsal records host ops)
+    acts = [ProfilerActivity.CUDA] if engine.device.type == "cuda" else [ProfilerActivity.CPU]
+    out = {}
+    with torch.inference_mode():
+        with profile(activities=acts) as prof:
+            logits, state = engine.model.prefill(engine.params, {"tokens": tokens},
+                                                 max_len=engine.ecfg.max_len)
+            torch.cuda.synchronize()
+        out["prefill"] = (*_kernel_times(torch, prof), wall_prefill_ms, 1)
+        nxt = logits[:, -1].argmax(-1, keepdim=True)
+        with profile(activities=acts) as prof:
+            for _ in range(steps):
+                logits, state = engine.model.decode_step(engine.params, state, nxt)
+                nxt = logits[:, -1].argmax(-1, keepdim=True)
+            torch.cuda.synchronize()
+        out["decode step"] = (*_kernel_times(torch, prof), wall_decode_ms, steps)
+    stats = {}
+    for what, (times, other, wall, n) in out.items():
+        times = {k: v / n for k, v in times.items()}
+        busy = sum(times.values())
+        if busy == 0.0:
+            log(f"  profile {what}: the profiler saw no device time")
+            continue
+        parts = ", ".join(f"{k} {v:.2f}" for k, v in times.items())
+        log(f"  profile {what}: device busy {busy:.2f} ms of {wall:.2f} ms wall "
+            f"({100 * busy / wall:.1f} % busy, {100 * (1 - busy / wall):.1f} % idle); {parts} ms")
+        log(f"    heaviest of other (ms, launches, kernel): "
+            + "; ".join(f"{ms / n:.2f}, {c // n}, {k}" for ms, c, k in other))
+        stats[what] = dict(device_ms=busy, wall_ms=wall, **times)
+    return stats
+
+
+def parity_phase(torch, device) -> dict:
+    """Zamba2 at full widths in fp32, 6 layers: prefill logits with K3/K4
+    against the plain path, and teacher-forced decode against a longer
+    prefill."""
+    from repro_torch.models import build_model
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    cut = dict(n_layers=PARITY_LAYERS, dtype="float32")
+    kernels, plain = build_model(zamba2_config(True, **cut)), build_model(zamba2_config(False, **cut))
+    params = kernels.init(gen, device)
+    cfg = kernels.cfg
+    tokens = torch.randint(0, cfg.vocab, (PARITY_BATCH, PARITY_PROMPT), generator=gen,
+                           device=device)
+    out = {}
+    with torch.inference_mode():
+        got, _ = kernels.prefill(params, {"tokens": tokens})
+        want, _ = plain.prefill(params, {"tokens": tokens})
+        err = (got - want).abs().max().item()
+        ok = bool(torch.isclose(got, want, rtol=PARITY_TOL, atol=PARITY_TOL).all().item())
+        log(f"  prefill logits, kernels vs plain path (fp32, {PARITY_LAYERS} layers, batch "
+            f"{PARITY_BATCH} x {PARITY_PROMPT}): max_abs_err={err:.3e} "
+            f"(tol rtol=atol={PARITY_TOL}, max |logit| {want.abs().max().item():.3f})")
+        check(bool(torch.isfinite(got).all().item()) and ok,
+              "Zamba2 prefill with the kernels disagrees with the plain path")
+        out["prefill_max_abs_err"] = err
+        _, state = kernels.prefill(params, {"tokens": tokens[:, :-2]})
+        for i in (PARITY_PROMPT - 2, PARITY_PROMPT - 1):
+            step, state = kernels.decode_step(params, state, tokens[:, i:i + 1])
+        err = (step[:, -1] - got[:, -1]).abs().max().item()
+        ok = bool(torch.isclose(step[:, -1], got[:, -1], rtol=CONTINUATION_TOL,
+                                atol=CONTINUATION_TOL).all().item())
+        log(f"  decode after a {PARITY_PROMPT - 2}-token prefill vs the {PARITY_PROMPT}-token "
+            f"prefill's last logits: max_abs_err={err:.3e} (tol {CONTINUATION_TOL})")
+        check(ok, "teacher-forced decode disagrees with the longer prefill")
+        out["continuation_max_abs_err"] = err
+    return out
+
+
 # ---------------------------------------------------------------------- main
 
 
@@ -396,13 +725,27 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash import flash_attention_cuda
+    from repro_torch.kernels.flash import kernel as k3
     from repro_torch.kernels.matmul import kernel as k1
     from repro_torch.kernels.matmul import matmul_cuda
     from repro_torch.kernels.rmsnorm import rmsnorm_triton
+    from repro_torch.kernels.ssd import kernel as k4
+    from repro_torch.kernels.ssd import ssd_cuda
+
+    def timed_build(source):
+        t = time.perf_counter()
+        build.build(source)
+        return time.perf_counter() - t
 
     t = time.perf_counter()
-    build.load(k1.SOURCE)
-    log(f"build: nvcc {k1.SOURCE.name} for sm_90a: {time.perf_counter() - t:.2f} s")
+    sources = (k1.SOURCE, k3.SOURCE, k4.SOURCE)
+    with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, all at once
+        took = list(pool.map(timed_build, sources))
+    for source, sec in zip(sources, took):
+        build.load(source)
+        log(f"build: nvcc {source.name} for sm_90a: {sec:.2f} s")
+    log(f"build: all CUDA sources: {time.perf_counter() - t:.2f} s")
     t = time.perf_counter()
     probe = torch.ones(2, 8, device="cuda")
     rmsnorm_triton(probe, torch.ones(8, device="cuda"))
@@ -414,17 +757,33 @@ def main() -> int:
     t = time.perf_counter()
     kernels = {name: kernel_phase(torch, gen, name) for name in ("bfloat16", "float32")}
     torch.cuda.empty_cache()
-    log(f"  phase kernels: {time.perf_counter() - t:.3f} s")
+    log(f"  phase kernels K1, K2: {time.perf_counter() - t:.3f} s")
+    t = time.perf_counter()
+    for name in ("bfloat16", "float32"):
+        kernels[name].update(flash_kernel_phase(torch, gen, name))
+        torch.cuda.empty_cache()
+        kernels[name].update(ssd_kernel_phase(torch, gen, name))
+        torch.cuda.empty_cache()
+    log(f"  phase kernels K3, K4: {time.perf_counter() - t:.3f} s")
 
-    log(f"== main path: Mistral-Large-123B widths, TP={TP} rank-stacked, {TOKENS} tokens/rank")
-    matmul_cuda.launches = 0
-    rmsnorm_triton.launches = 0
+    counters = (matmul_cuda, rmsnorm_triton, flash_attention_cuda, ssd_cuda)
+
+    def reset_counts():
+        for fn in counters:
+            fn.launches = 0
+
+    def read_counts():
+        return {"matmul": matmul_cuda.launches, "rmsnorm": rmsnorm_triton.launches,
+                "flash": flash_attention_cuda.launches, "ssd": ssd_cuda.launches}
+
+    log(f"== main path 1: Mistral-Large-123B widths, TP={TP} rank-stacked, {TOKENS} tokens/rank")
+    reset_counts()
     t = time.perf_counter()
     results = main_path(torch, gen, torch.device("cuda"))
-    launches = {"matmul": matmul_cuda.launches, "rmsnorm": rmsnorm_triton.launches}
-    log(f"  phase main path: {time.perf_counter() - t:.3f} s; kernel launches {launches}")
-    check(launches["matmul"] > 0, "the main path never launched K1")
-    check(launches["rmsnorm"] > 0, "the main path never launched K2")
+    path1 = read_counts()
+    log(f"  phase main path 1: {time.perf_counter() - t:.3f} s; kernel launches {path1}")
+    check(path1["matmul"] > 0, "main path 1 never launched K1")
+    check(path1["rmsnorm"] > 0, "main path 1 never launched K2")
     log(f"  peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     log("== checks of the main path's results")
@@ -435,23 +794,63 @@ def main() -> int:
     t = time.perf_counter()
     warm_timings(torch, results)
     del results
+    torch.cuda.empty_cache()
     log(f"  phase warm timings: {time.perf_counter() - t:.3f} s")
+
+    cfg = zamba2_config(True)
+    log(f"== main path 2: serve {cfg.name} ({cfg.n_layers} Mamba-2 layers, d_model "
+        f"{cfg.d_model}, {cfg.dtype}), prompts {SERVE_PROMPTS}, {SERVE_NEW_TOKENS} new tokens")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t = time.perf_counter()
+    served = serve_path(torch, cfg, torch.device("cuda"), SERVE_PROMPTS, SERVE_NEW_TOKENS)
+    path2 = read_counts()
+    log(f"  phase main path 2: {time.perf_counter() - t:.3f} s; kernel launches {path2}")
+    check(path2["flash"] > 0, "main path 2 never launched K3")
+    check(path2["ssd"] > 0, "main path 2 never launched K4")
+    serve_stats = check_serve(torch, served, cfg)
+    log(f"  peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    t = time.perf_counter()
+    engine = served["engine"]
+    again = [type(q)(prompt=q.prompt, max_new_tokens=q.max_new_tokens) for q in served["requests"]]
+    engine.generate(again)
+    warm = engine.timings
+    log(f"  warm generate: prefill {warm['prefill_s'] * 1e3:.1f} ms, decode "
+        f"{warm['decode_s'] * 1e3 / warm['decode_steps']:.2f} ms per step; "
+        f"same tokens: {[q.generated for q in again] == [q.generated for q in served['requests']]}")
+    serve_stats.update(warm_prefill_ms=warm["prefill_s"] * 1e3,
+                       warm_decode_ms_per_token=warm["decode_s"] * 1e3 / warm["decode_steps"])
+    serve_stats["profile"] = profile_serve(torch, engine, SERVE_PROMPTS, serve_stats["warm_prefill_ms"],
+                                           serve_stats["warm_decode_ms_per_token"])
+    del served, engine, again
+    torch.cuda.empty_cache()
+    log(f"  phase warm generate: {time.perf_counter() - t:.3f} s")
+
+    log("== parity: Zamba2 prefill with the kernels against the plain path on the card")
+    t = time.perf_counter()
+    parity = parity_phase(torch, torch.device("cuda"))
+    log(f"  phase parity: {time.perf_counter() - t:.3f} s")
+    log("serve: " + json.dumps({**serve_stats, **parity}))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
 
     sources = {
         "matmul": ("cuda", "src/repro_torch/kernels/matmul/csrc/matmul.cu",
-                   "src/repro/kernels/matmul/kernel.py:52"),
+                   "src/repro/kernels/matmul/kernel.py:52", path1),
         "rmsnorm": ("triton", "src/repro_torch/kernels/rmsnorm/kernel.py",
-                    "src/repro/kernels/rmsnorm/kernel.py:37"),
+                    "src/repro/kernels/rmsnorm/kernel.py:37", path1),
+        "flash": ("cuda", "src/repro_torch/kernels/flash/csrc/flash.cu",
+                  "src/repro/kernels/flash/kernel.py:79", path2),
+        "ssd": ("cuda", "src/repro_torch/kernels/ssd/csrc/ssd.cu",
+                "src/repro/kernels/ssd/kernel.py:80", path2),
     }
     for name in sources:
         log(f"  {name}[float32]: " + json.dumps(kernels["float32"][name]))
     record = {"kernels": []}
-    for name, (route, source, replaces) in sources.items():
+    for name, (route, source, replaces, counts) in sources.items():
         k = kernels["bfloat16"][name]
         record["kernels"].append({
             "name": name, "route": route, "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "launches": counts[name], "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"], "dtype": "bfloat16", "shape": k["shape"],
         })

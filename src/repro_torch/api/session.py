@@ -68,6 +68,7 @@ from repro_torch.core.pccl import (
 )
 from repro_torch.core.planner import PlanStructure, trans_cache_stats
 from repro_torch.core.topology import Edge, Topology, degrade_topology, ring
+from repro_torch.device import resolve_device
 
 if TYPE_CHECKING:  # pragma: no cover
     from .communicator import Communicator
@@ -352,20 +353,6 @@ class StructureCache(PlanCache):
         return total
 
 
-def _resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
-    """``None`` → the current CUDA device; CUDA without CUDA raises."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "PcclSession runs on CUDA by default, and CUDA is not "
-                "available; pass device='cpu' to run on the CPU"
-            )
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
-
-
 class PcclSession:
     """Stateful planning session over one photonic fabric.
 
@@ -413,7 +400,7 @@ class PcclSession:
         max_structure_bytes: int = 256 * 1024 * 1024,
         device: Optional[Union[str, torch.device]] = None,
     ) -> None:
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         self.hw = hw
         self.thread_fabric = thread_fabric
         self.cache = PlanCache(max_entries=max_cached_plans)

@@ -2,15 +2,15 @@
 
 Arrays cross as numpy: the caller turns the reference's arrays into numpy
 (``np.asarray``) and :func:`from_reference` puts them on the port's
-device.  This slice covers its own parameters — the fused matmul's
-projection weight ``w``, the RMSNorm ``gamma`` and an
-``ErrorFeedbackState`` ``residual``; the model parameter trees come with
-the model slice.
+device.  :func:`from_reference` covers the collectives' parameters — the
+fused matmul's projection weight ``w``, the RMSNorm ``gamma`` and an
+``ErrorFeedbackState`` ``residual``; :func:`model_params_from_reference`
+carries a whole model's parameter tree.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Union
+from typing import Any, Dict, Mapping, Union
 
 import numpy as np
 import torch
@@ -44,4 +44,45 @@ def from_reference(
         if rank is not None and np.ndim(a) != rank:
             raise ValueError(f"parameter {name!r} needs rank {rank}, got shape {np.shape(a)}")
         out[name] = _to_tensor(a).to(device)
+    return out
+
+
+def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def model_params_from_reference(cfg, tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The port model's ``state_dict`` from the reference's parameter tree.
+
+    ``tree`` is the reference's unboxed tree (``repro.models.module.unbox``)
+    as nested dicts of numpy arrays, for the model ``cfg`` builds.  Keys are
+    the tree's paths joined by ``.``; values are CPU tensors equal to the
+    arrays bit for bit.  Raises ``KeyError`` on a missing or an extra key
+    and ``ValueError`` on a wrong shape.
+    """
+    from repro_torch.models import build_model
+
+    want = build_model(cfg).param_shapes()
+    got = _flatten(tree)
+    missing = sorted(set(want) - set(got))
+    extra = sorted(set(got) - set(want))
+    if missing or extra:
+        raise KeyError(
+            f"model_params_from_reference({cfg.name}): missing {missing}, extra {extra}"
+        )
+    out = {}
+    for name, shape in want.items():
+        a = got[name]
+        if tuple(np.shape(a)) != tuple(shape):
+            raise ValueError(
+                f"model_params_from_reference({cfg.name}): {name} has shape "
+                f"{tuple(np.shape(a))}, the port needs {tuple(shape)}"
+            )
+        out[name] = _to_tensor(a)
     return out

@@ -7,4 +7,6 @@ CPU tensor to the plain version.
 
 * ``matmul``  — K1, CUDA C++ (``matmul/csrc/matmul.cu``).
 * ``rmsnorm`` — K2, Triton.
+* ``flash``   — K3, CUDA C++ (``flash/csrc/flash.cu``).
+* ``ssd``     — K4, CUDA C++ (``ssd/csrc/ssd.cu``).
 """

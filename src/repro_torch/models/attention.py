@@ -1,0 +1,180 @@
+"""Attention: GQA/MQA with a KV cache (the GQA half of ``repro.models.attention``).
+
+Four execution modes per layer:
+
+* train   — full causal attention, no cache (K3 when ``cfg.use_pallas``);
+* prefill — causal attention that also fills the KV cache (K3 likewise);
+* decode  — one query token against a fixed-capacity cache;
+* bidir   — non-causal self-attention (encoders).
+
+Decode writes the new key and value into the cache **in place** at the
+cache's length (the reference writes through a one-hot ``where``, which on
+one device only costs a copy of the cache per step) and returns the same
+cache with its length advanced.  MLA and cross-attention wait for their
+model families (ROADMAP Queue 1).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash import ops as flash_ops
+
+from .layers import apply_rope
+from .module import ParamSpec, normal_init
+
+NEG_INF = -1e30
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor        # (B, T, K, Dh)
+    v: torch.Tensor        # (B, T, K, Dv)
+    length: torch.Tensor   # () int32 — valid prefix
+
+
+def init_cache(batch: int, max_len: int, n_kv: int, dh: int, dv: int, dtype,
+               device=None) -> KVCache:
+    return KVCache(
+        k=torch.zeros((batch, max_len, n_kv, dh), dtype=dtype, device=device),
+        v=torch.zeros((batch, max_len, n_kv, dv), dtype=dtype, device=device),
+        length=torch.zeros((), dtype=torch.int32, device=device),
+    )
+
+
+# ------------------------------------------------------------------- GQA
+
+
+def init_gqa(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    d, H, K, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    return {
+        "wq": normal_init((d, H, Dh)),
+        "wk": normal_init((d, K, Dh)),
+        "wv": normal_init((d, K, Dh)),
+        "wo": normal_init((H, Dh, d), fan_in=H * Dh),
+    }
+
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+            q_positions: torch.Tensor, kv_valid_len: Optional[torch.Tensor]) -> torch.Tensor:
+    """q: (B,S,H,D); k/v: (B,T,K,D). Grouped (GQA) softmax attention, fp32
+    softmax. q_positions: (B,S) absolute positions for causal masking.
+    kv_valid_len limits attention to the cache's valid prefix."""
+    B, S, H, D = q.shape
+    T, K = k.shape[1], k.shape[2]
+    G = H // K
+    qg = q.reshape(B, S, K, G, D)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k).float()
+    scores = scores / math.sqrt(D)
+    kv_pos = torch.arange(T, device=q.device)[None, None, None, None, :]
+    mask = torch.ones((B, 1, 1, S, T), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (kv_pos <= q_positions[:, None, None, :, None])
+    if kv_valid_len is not None:
+        mask = mask & (kv_pos < kv_valid_len)
+    scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v)
+    return out.reshape(B, S, H, D)
+
+
+def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bsd,dhk->bshk") as one contiguous matmul."""
+    d, h, k = w.shape
+    return (x @ w.reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
+
+
+def apply_gqa(
+    p,
+    cfg: ModelConfig,
+    x: torch.Tensor,
+    *,
+    positions: torch.Tensor,
+    cache: Optional[KVCache] = None,
+    mode: str = "train",            # train | prefill | decode | bidir
+    rope_style: Optional[str] = None,
+) -> Tuple[torch.Tensor, Optional[KVCache]]:
+    dt = x.dtype
+    B, S, _ = x.shape
+    style = rope_style if rope_style is not None else cfg.rope_style
+    q = _project(x, p["wq"].to(dt))
+    k = _project(x, p["wk"].to(dt))
+    v = _project(x, p["wv"].to(dt))
+    q = apply_rope(q, positions, style=style)
+    k = apply_rope(k, positions, style=style)
+
+    new_cache = None
+    if mode == "bidir":  # encoder self-attention
+        ctx = _attend(q, k, v, causal=False, q_positions=positions, kv_valid_len=None)
+    elif mode in ("train", "prefill"):
+        if mode == "prefill":
+            assert cache is not None
+            cache.k[:, :S] = k
+            cache.v[:, :S] = v
+            cache.length.fill_(S)
+            new_cache = cache
+        if cfg.use_pallas:
+            ctx = flash_ops.flash_attention(q, k, v, causal=True)
+        elif cfg.attention_impl == "blocked":
+            ctx = _attend_blocked(q, k, v, causal=True)
+        else:
+            ctx = _attend(q, k, v, causal=True, q_positions=positions, kv_valid_len=None)
+    elif mode == "decode":
+        assert cache is not None and S == 1
+        idx = cache.length.long().reshape(1)
+        cache.k.index_copy_(1, idx, k.to(cache.k.dtype))
+        cache.v.index_copy_(1, idx, v.to(cache.v.dtype))
+        cache.length.add_(1)
+        new_cache = cache
+        ctx = _attend(q, cache.k, cache.v, causal=False, q_positions=positions,
+                      kv_valid_len=cache.length)
+    else:
+        raise ValueError(mode)
+    H, Dh = ctx.shape[2], ctx.shape[3]
+    out = ctx.reshape(B, S, H * Dh) @ p["wo"].to(dt).reshape(H * Dh, -1)
+    return out, new_cache
+
+
+def _attend_blocked(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+    block_q: int = 1024, block_k: int = 1024,
+) -> torch.Tensor:
+    """Online-softmax attention over KV blocks (the flash decomposition in
+    plain torch), skipping KV blocks strictly above the causal diagonal.
+    Assumes aligned q/kv windows (q position i attends kv ≤ i)."""
+    B, S, H, D = q.shape
+    T, K = k.shape[1], k.shape[2]
+    G = H // K
+    bq, bk = min(block_q, S), min(block_k, T)
+    assert S % bq == 0 and T % bk == 0, (S, T, bq, bk)
+    scale = 1.0 / math.sqrt(D)
+
+    outs = []
+    for i in range(S // bq):
+        qi = q[:, i * bq:(i + 1) * bq].reshape(B, bq, K, G, D).float() * scale
+        m = torch.full((B, K, G, bq, 1), NEG_INF, device=q.device)
+        l = torch.zeros((B, K, G, bq, 1), device=q.device)
+        acc = torch.zeros((B, K, G, bq, D), device=q.device)
+        q_hi = (i + 1) * bq - 1
+        for j in range(T // bk):
+            if causal and j * bk > q_hi:
+                break  # fully masked block: skipped
+            kj = k[:, j * bk:(j + 1) * bk].float()
+            vj = v[:, j * bk:(j + 1) * bk].float()
+            s = torch.einsum("bqkgd,btkd->bkgqt", qi, kj)
+            if causal and (j + 1) * bk - 1 > i * bq:  # diagonal block
+                qpos = i * bq + torch.arange(bq, device=q.device)[:, None]
+                kpos = j * bk + torch.arange(bk, device=q.device)[None, :]
+                s = torch.where(kpos <= qpos, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            pbl = torch.exp(s - m_new)
+            alpha = torch.exp(m - m_new)
+            l = alpha * l + pbl.sum(dim=-1, keepdim=True)
+            acc = alpha * acc + torch.einsum("bkgqt,btkd->bkgqd", pbl, vj)
+            m = m_new
+        o = (acc / torch.clamp(l, min=1e-30)).permute(0, 3, 1, 2, 4)  # (B,bq,K,G,D)
+        outs.append(o.reshape(B, bq, H, D))
+    return torch.cat(outs, dim=1).to(q.dtype)

@@ -1,0 +1,138 @@
+"""Common layers: norms, embeddings, RoPE variants, MLPs.
+
+A port of ``repro.models.layers``.  Matmuls run in the activation dtype
+(bf16 by default) with fp32 parameters cast at use; norms accumulate in
+fp32.  Two numeric traps of the reference are kept on purpose:
+``jax.nn.gelu`` defaults to the tanh approximation, and ``jnp.take``
+clamps out-of-range ids (token ids on the serving path are in range, so a
+plain index is the same).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+from .module import ParamSpec, normal_init, ones_init, zeros_init
+
+# ------------------------------------------------------------------- norms
+
+
+def init_norm(d: int, norm_type: str) -> Dict[str, ParamSpec]:
+    p = {"scale": ones_init((d,))}
+    if norm_type == "layernorm":
+        p["bias"] = zeros_init((d,))
+    return p
+
+
+def apply_norm(p, x: torch.Tensor, *, eps: float, norm_type: str) -> torch.Tensor:
+    dt = x.dtype
+    x32 = x.float()
+    if norm_type == "rmsnorm":
+        var = x32.square().mean(-1, keepdim=True)
+        y = x32 * torch.rsqrt(var + eps) * p["scale"]
+    elif norm_type == "layernorm":
+        mu = x32.mean(-1, keepdim=True)
+        var = x32.var(-1, keepdim=True, unbiased=False)
+        y = (x32 - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
+    else:
+        raise ValueError(norm_type)
+    return y.to(dt)
+
+
+# -------------------------------------------------------------- embeddings
+
+
+def init_embedding(vocab: int, d: int) -> ParamSpec:
+    return normal_init((vocab, d), scale=0.02)
+
+
+def embed_lookup(table: torch.Tensor, ids: torch.Tensor, dtype) -> torch.Tensor:
+    # gather, then cast: the same values as casting the whole table first
+    return table[ids].to(dtype)
+
+
+def logits_projection(table_or_w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Vocab logits in fp32, for a stable softmax-xent."""
+    return x.float() @ table_or_w.float().t()
+
+
+def sinusoidal_positions(n: int, d: int, device=None) -> torch.Tensor:
+    pos = torch.arange(n, device=device, dtype=torch.float32)[:, None]
+    dim = torch.arange(d // 2, device=device, dtype=torch.float32)[None, :]
+    inv = torch.exp(-math.log(10000.0) * 2 * dim / d)
+    ang = pos * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)  # (n, d)
+
+
+# -------------------------------------------------------------------- RoPE
+
+
+def rope_tables(positions: torch.Tensor, dim: int, base: float = 10000.0):
+    """cos/sin tables for the given positions. positions: (...,S)."""
+    exps = torch.arange(0, dim, 2, device=positions.device).float() / dim
+    inv = 1.0 / (base ** exps)
+    ang = positions[..., None].float() * inv  # (...,S,dim/2)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, *, style: str = "full",
+               base: float = 10000.0) -> torch.Tensor:
+    """x: (B,S,H,D). ``full`` rotates all D dims (llama half-split pairing);
+    ``chatglm_2d`` rotates only the first half of D with interleaved pairing."""
+    if style == "none" or style == "sinusoidal":
+        return x
+    B, S, H, D = x.shape
+    dt = x.dtype
+    xf = x.float()
+    if style == "full":
+        cos, sin = rope_tables(positions, D, base)           # (B,S,D/2)
+        cos = cos[:, :, None, :]
+        sin = sin[:, :, None, :]
+        x1, x2 = xf.chunk(2, dim=-1)
+        out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+        return out.to(dt)
+    if style == "chatglm_2d":
+        half = D // 2
+        cos, sin = rope_tables(positions, half, base)        # (B,S,half/2)
+        cos = cos[:, :, None, :]
+        sin = sin[:, :, None, :]
+        rot, passth = xf[..., :half], xf[..., half:]
+        x1 = rot[..., 0::2]
+        x2 = rot[..., 1::2]
+        r1 = x1 * cos - x2 * sin
+        r2 = x2 * cos + x1 * sin
+        rot_out = torch.stack([r1, r2], dim=-1).reshape(rot.shape)
+        return torch.cat([rot_out, passth], dim=-1).to(dt)
+    raise ValueError(f"unknown rope style {style}")
+
+
+# --------------------------------------------------------------------- MLP
+
+
+def init_mlp(d: int, f: int, mlp_type: str) -> Dict[str, ParamSpec]:
+    if mlp_type == "swiglu":
+        return {
+            "wi_gate": normal_init((d, f)),
+            "wi_up": normal_init((d, f)),
+            "wo": normal_init((f, d)),
+        }
+    return {"wi": normal_init((d, f)), "wo": normal_init((f, d))}
+
+
+def apply_mlp(p, x: torch.Tensor, *, mlp_type: str) -> torch.Tensor:
+    dt = x.dtype
+    if mlp_type == "swiglu":
+        g = x @ p["wi_gate"].to(dt)
+        u = x @ p["wi_up"].to(dt)
+        h = F.silu(g) * u
+    elif mlp_type == "gelu":
+        h = F.gelu(x @ p["wi"].to(dt), approximate="tanh")  # jax.nn.gelu's default
+    elif mlp_type == "relu2":
+        h = torch.relu(x @ p["wi"].to(dt)).square()
+    else:
+        raise ValueError(mlp_type)
+    return h @ p["wo"].to(dt)

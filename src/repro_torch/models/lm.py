@@ -1,0 +1,206 @@
+"""Model builders: the ``Model`` interface and Zamba2's ``HybridLM``.
+
+A port of ``repro.models.lm`` for the hybrid family.  ``build_model(cfg)``
+returns a :class:`Model` exposing:
+
+* ``init(generator, device=None)``          → :class:`ParamTree` (an ``nn.Module``)
+* ``prefill(params, batch, max_len=None)``  → (last-position logits, decode state)
+* ``decode_step(params, state, tokens)``    → (logits, new state)
+* ``init_decode_state(batch, max_len, device)`` → zeroed cache/state tree
+
+Parameters are fp32 (``param_dtype``) and cast to the activation dtype at
+use.  The layer stack is a Python loop over the stacked ``(L, …)``
+parameters (the reference's ``lax.scan``).  Entry points run on CUDA unless
+the caller asks for the CPU, and raise without CUDA.  The other families
+(dense, MoE, VLM, audio, xLSTM) raise ``NotImplementedError`` until they are
+ported.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+
+from . import attention as A
+from . import ssm as SSM
+from .layers import (
+    apply_mlp,
+    apply_norm,
+    embed_lookup,
+    init_embedding,
+    init_mlp,
+    init_norm,
+    logits_projection,
+)
+from .module import ParamTree, init_tree, layer, normal_init, shapes_of, stack_init
+
+Batch = Dict[str, torch.Tensor]
+
+
+def _positions(B: int, S: int, device=None) -> torch.Tensor:
+    return torch.arange(S, device=device)[None].expand(B, S)
+
+
+class Model:
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+
+    # -- to be provided by subclasses ------------------------------------
+    def specs(self):  # pragma: no cover - interface
+        """The parameter tree as :class:`~repro_torch.models.module.ParamSpec` s."""
+        raise NotImplementedError
+
+    def prefill(self, params, batch: Batch, max_len: Optional[int] = None):
+        raise NotImplementedError
+
+    def decode_step(self, params, state, tokens: torch.Tensor):
+        raise NotImplementedError
+
+    def init_decode_state(self, batch: int, max_len: int, device=None):
+        raise NotImplementedError
+
+    # -- conveniences ------------------------------------------------------
+    def init(self, generator: torch.Generator, device=None) -> ParamTree:
+        """Random parameters from ``generator`` (on ``device``; CUDA by default)."""
+        return init_tree(self.specs(), generator, resolve_device(device))
+
+    def param_shapes(self) -> Dict[str, tuple]:
+        """``state_dict`` name → shape, without drawing any parameter."""
+        return shapes_of(self.specs())
+
+    def cache_dtype(self):
+        return self.cfg.act_dtype()
+
+
+def _with_norm(init_fn, cfg):
+    return {"ln": init_norm(cfg.d_model, cfg.norm_type), "p": init_fn(cfg)}
+
+
+# ===========================================================================
+# Zamba2 hybrid: Mamba2 stack + one shared attention block with LoRA
+# ===========================================================================
+
+
+class HybridLM(Model):
+    def __init__(self, cfg: ModelConfig):
+        super().__init__(cfg)
+        hc = cfg.hybrid
+        assert cfg.n_layers % hc.shared_attn_every == 0
+        self.n_groups = cfg.n_layers // hc.shared_attn_every
+        self.per_group = hc.shared_attn_every
+
+    def specs(self):
+        cfg = self.cfg
+        r = cfg.hybrid.lora_rank
+        d, H, K, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        lora = {
+            name: {
+                "a": normal_init((d, r), scale=0.02),
+                "b": normal_init((r, heads, Dh), scale=0.02),
+            }
+            for name, heads in [("q", H), ("k", K), ("v", K)]
+        }
+        shared = {
+            "ln1": init_norm(d, cfg.norm_type),
+            "attn": A.init_gqa(cfg),
+            "ln2": init_norm(d, cfg.norm_type),
+            "ffn": init_mlp(d, cfg.d_ff, cfg.mlp_type),
+        }
+        return {
+            "embed": init_embedding(cfg.vocab, d),
+            "lm_head": normal_init((cfg.vocab, d), scale=0.02),
+            "ln_f": init_norm(d, cfg.norm_type),
+            "shared": shared,
+            "mamba": stack_init(_with_norm(SSM.init_mamba2, cfg), self.n_groups * self.per_group),
+            "lora": stack_init(lora, self.n_groups),
+        }
+
+    def _shared_attn(self, params, lora, cfg, x, positions, cache, mode):
+        """Shared transformer block with per-invocation LoRA on q/k/v."""
+        sp = params["shared"]
+        h = apply_norm(sp["ln1"], x, eps=cfg.norm_eps, norm_type=cfg.norm_type)
+        p_attn = dict(sp["attn"])
+        # effective weights: w + a @ b  (rank-r update per invocation)
+        for name, wname in [("q", "wq"), ("k", "wk"), ("v", "wv")]:
+            a, b = lora[name]["a"], lora[name]["b"]
+            delta = (a @ b.reshape(b.shape[0], -1)).reshape(a.shape[0], *b.shape[1:])
+            p_attn[wname] = sp["attn"][wname] + delta
+        a_out, new_cache = A.apply_gqa(p_attn, cfg, h, positions=positions, cache=cache, mode=mode)
+        x = x + a_out
+        h = apply_norm(sp["ln2"], x, eps=cfg.norm_eps, norm_type=cfg.norm_type)
+        return x + apply_mlp(sp["ffn"], h, mlp_type=cfg.mlp_type), new_cache
+
+    def _stack(self, params, x, positions, states, mode):
+        cfg = self.cfg
+        G, Pg = self.n_groups, self.per_group
+        ms, kv = states["mamba"], states["attn"]
+        convs, ssms = [], []
+        for g in range(G):
+            for j in range(Pg):
+                lp = layer(params["mamba"], g * Pg + j)
+                mst = SSM.Mamba2State(ms.conv[g, j], ms.ssm[g, j])
+                z = apply_norm(lp["ln"], x, eps=cfg.norm_eps, norm_type=cfg.norm_type)
+                out, new_st = SSM.apply_mamba2(lp["p"], cfg, z, state=mst, mode=mode)
+                if new_st is None:
+                    new_st = mst
+                x = x + out
+                convs.append(new_st.conv)
+                ssms.append(new_st.ssm)
+            cache = A.KVCache(kv.k[g], kv.v[g], kv.length[g])
+            # the cache views are written in place, so ``kv`` holds the result
+            x, _ = self._shared_attn(params, layer(params["lora"], g), cfg, x, positions,
+                                     cache, mode)
+        mamba = SSM.Mamba2State(
+            conv=torch.stack(convs).reshape(G, Pg, *convs[0].shape),
+            ssm=torch.stack(ssms).reshape(G, Pg, *ssms[0].shape),
+        )
+        return x, {"mamba": mamba, "attn": kv}
+
+    def init_decode_state(self, batch: int, max_len: int, device=None):
+        cfg = self.cfg
+        G, Pg = self.n_groups, self.per_group
+        device = resolve_device(device)
+        m_one = SSM.init_mamba2_state(cfg, batch, torch.float32, device)
+        kv_one = A.init_cache(batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim,
+                              cfg.resolved_head_dim, self.cache_dtype(), device)
+        return {
+            "mamba": SSM.Mamba2State(*(a[None, None].repeat(G, Pg, *([1] * a.ndim)) for a in m_one)),
+            "attn": A.KVCache(*(a[None].repeat(G, *([1] * a.ndim)) for a in kv_one)),
+        }
+
+    def prefill(self, params, batch: Batch, max_len: Optional[int] = None):
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        x = embed_lookup(params["embed"], tokens, cfg.act_dtype())
+        B, S = x.shape[:2]
+        states = self.init_decode_state(B, max_len or S + 64, x.device)
+        x, new_states = self._stack(params, x, _positions(B, S, device=x.device), states,
+                                    "prefill")
+        x = apply_norm(params["ln_f"], x, eps=cfg.norm_eps, norm_type=cfg.norm_type)
+        return logits_projection(params["lm_head"], x[:, -1:]), new_states
+
+    def decode_step(self, params, state, tokens: torch.Tensor):
+        """One token per row; the KV caches in ``state`` advance in place."""
+        cfg = self.cfg
+        x = embed_lookup(params["embed"], tokens, cfg.act_dtype())
+        B = x.shape[0]
+        # a copy: the caches' lengths advance in place during the step
+        positions = state["attn"].length[0].clone().expand(B, 1)
+        x, new_states = self._stack(params, x, positions, state, "decode")
+        x = apply_norm(params["ln_f"], x, eps=cfg.norm_eps, norm_type=cfg.norm_type)
+        return logits_projection(params["lm_head"], x), new_states
+
+
+# ===========================================================================
+
+def build_model(cfg: ModelConfig) -> Model:
+    if cfg.family == "hybrid":
+        return HybridLM(cfg)
+    raise NotImplementedError(
+        f"build_model: the {cfg.family} family ({cfg.name}) is not ported yet "
+        "(ROADMAP Queue 1, item 10); the port builds the hybrid family (zamba2-2.7b)"
+    )

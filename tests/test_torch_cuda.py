@@ -1,4 +1,4 @@
-"""The port on the card: its CUDA and Triton kernels and its main path.
+"""The port on the card: its CUDA and Triton kernels, its main path and its model.
 
 Every test here needs an NVIDIA GPU (a CUDA kernel has no CPU mode), so
 each carries the ``cuda`` marker and skips without one.  On a machine with
@@ -8,7 +8,9 @@ a card and the CUDA toolkit::
 
 The file imports no JAX, so it runs where only the port is installed.
 Tolerances: kernel against plain version fp32 rtol 2e-5 / atol 2e-4 (K1's
-fp32 sum runs in another order), bf16 2e-2; everything else bit for bit.
+fp32 sum runs in another order), bf16 2e-2; K3 and K4 fp32 rtol and atol
+1e-4 (sums of up to T products and an online softmax in another order);
+everything else bit for bit.
 """
 
 import math
@@ -117,3 +119,115 @@ def test_fused_seams_bit_identical_to_unfused(dev, dtype):
     out = fusion.fused_all_reduce_rmsnorm(comm, a, gamma)
     assert rmsnorm_triton.launches == k2 + 1
     assert torch.equal(out, rmsnorm(comm.all_reduce(a), gamma))
+
+
+def _flash_inputs(dev, B, S, H, K, D, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(B, n, h, D, generator=g, device=dev).to(dtype)
+            for n, h in ((S, H), (S, K), (S, K))]
+
+
+@pytest.mark.parametrize("B,S,H,K,D", [
+    (2, 256, 8, 2, 64),     # GQA 4:1
+    (1, 200, 4, 4, 80),     # ragged S, Zamba2's head dim
+    (1, 130, 6, 3, 128),    # ragged S, largest head dim
+    (2, 64, 2, 1, 16),      # MQA, one tile
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain(dev, B, S, H, K, D, dtype):
+    from repro_torch.kernels.flash import attention_reference, flash_attention, flash_attention_cuda
+
+    q, k, v = _flash_inputs(dev, B, S, H, K, D, dtype)
+    for causal in (True, False):
+        before = flash_attention_cuda.launches
+        got = flash_attention(q, k, v, causal=causal)
+        assert flash_attention_cuda.launches == before + 1
+        assert got.dtype == dtype and got.shape == q.shape
+        want = attention_reference(q, k, v, causal=causal)
+        tol = dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 else dict(rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+def _ssd_inputs(dev, B, S, H, P, N, dtype, per_head, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    X = torch.randn(B, S, H, P, generator=g, device=dev).to(dtype)
+    la = -torch.rand(B, S, H, generator=g, device=dev) * 0.3
+    bc = (B, S, H, N) if per_head else (B, S, N)
+    Bm = (torch.randn(*bc, generator=g, device=dev) * 0.3).to(dtype)
+    Cm = (torch.randn(*bc, generator=g, device=dev) * 0.3).to(dtype)
+    init = torch.randn(B, H, P, N, generator=g, device=dev) * 0.1
+    return X, la, Bm, Cm, init
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk,per_head", [
+    (2, 256, 4, 64, 64, 64, False),   # Zamba2's widths, shared B/C
+    (1, 200, 3, 32, 64, 64, True),    # S % chunk != 0, per-head B/C
+    (2, 96, 2, 16, 16, 32, False),
+    (1, 128, 2, 128, 64, 64, True),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_matches_plain(dev, B, S, H, P, N, chunk, per_head, dtype):
+    from repro_torch.kernels.ssd import ssd, ssd_cuda, ssd_reference
+
+    X, la, Bm, Cm, init = _ssd_inputs(dev, B, S, H, P, N, dtype, per_head)
+    tol = dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 else dict(rtol=1e-4, atol=1e-4)
+    for state in (None, init):
+        before = ssd_cuda.launches
+        Y, fin = ssd(X, la, Bm, Cm, chunk=chunk, initial_state=state)
+        assert ssd_cuda.launches == before + 1
+        assert Y.dtype == fin.dtype == dtype  # the final state in X's dtype, as the plain version
+        Yr, finr = ssd_reference(X, la, Bm, Cm, chunk=chunk, initial_state=state)
+        torch.testing.assert_close(Y.float(), Yr.float(), **tol)
+        torch.testing.assert_close(fin.float(), finr.float(), **tol)
+
+
+def test_flash_and_ssd_refuse_what_they_cannot_take(dev):
+    from repro_torch.kernels.flash import flash_attention_cuda
+    from repro_torch.kernels.ssd import ssd_cuda
+
+    q, k, v = _flash_inputs(dev, 1, 64, 2, 2, 32, torch.float32)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_cuda(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=False)
+    with pytest.raises(ValueError, match="one dtype"):
+        flash_attention_cuda(q, k.to(torch.bfloat16), v)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_cuda(*_flash_inputs(dev, 1, 8, 1, 1, 160, torch.float32))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_cuda(q.cpu(), k.cpu(), v.cpu())
+    X, la, Bm, Cm, init = _ssd_inputs(dev, 1, 64, 2, 16, 16, torch.float32, False)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_cuda(X, la, torch.cat([Bm, Bm], dim=-1)[..., :16], Cm, chunk=32)
+    with pytest.raises(ValueError, match="float32"):
+        ssd_cuda(X, la.to(torch.bfloat16), Bm, Cm, chunk=32)
+    with pytest.raises(ValueError, match="shared memory"):
+        ssd_cuda(*_ssd_inputs(dev, 1, 64, 1, 256, 256, torch.float32, False)[:4], chunk=256)
+
+
+def test_zamba2_reduced_pallas_path_matches_plain_on_the_card(dev):
+    """Reduced Zamba2: prefill and decode logits with K3/K4 against the
+    plain path, on the card, in fp32."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash import flash_attention_cuda
+    from repro_torch.kernels.ssd import ssd_cuda
+    from repro_torch.models import build_model
+
+    cfg = get_config("zamba2-2.7b").reduced()
+    params = build_model(cfg).init(torch.Generator(device=dev).manual_seed(0), dev)
+    tokens = torch.randint(0, cfg.vocab, (2, 40), generator=torch.Generator().manual_seed(1)).to(dev)
+    out = {}
+    with torch.inference_mode():
+        for use_pallas in (False, True):
+            m = build_model(dataclasses.replace(cfg, use_pallas=use_pallas))
+            k3, k4 = flash_attention_cuda.launches, ssd_cuda.launches
+            logits, state = m.prefill(params, {"tokens": tokens[:, :38]})
+            groups = cfg.n_layers // cfg.hybrid.shared_attn_every
+            assert flash_attention_cuda.launches - k3 == (groups if use_pallas else 0)
+            assert ssd_cuda.launches - k4 == (cfg.n_layers if use_pallas else 0)
+            out[use_pallas] = [logits]
+            for i in (38, 39):
+                logits, state = m.decode_step(params, state, tokens[:, i:i + 1])
+                out[use_pallas].append(logits)
+    for a, b in zip(out[True], out[False]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)

@@ -48,7 +48,8 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
     assert "BAD []" in proc.stdout
 
 
-@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")), ids=lambda p: str(p.relative_to(PKG)))
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
 def test_sources_import_no_jax_and_no_repro(path):
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):
@@ -80,13 +81,19 @@ def test_session_defaults_to_cuda_and_raises_without_it():
     assert comm.split([0, 1, 0, 1]).device == comm.device
 
 
-def test_kernel_sources_are_in_the_package():
-    from repro_torch.kernels.build import NVCC_FLAGS, library_path
-    from repro_torch.kernels.matmul.kernel import SOURCE
+@pytest.mark.parametrize("name", ["matmul", "flash", "ssd"])
+def test_kernel_sources_are_in_the_package(name):
+    import importlib
 
-    assert SOURCE.exists() and SOURCE.suffix == ".cu"
+    from repro_torch.kernels.build import NVCC_FLAGS, library_path
+
+    source = importlib.import_module(f"repro_torch.kernels.{name}.kernel").SOURCE
+    assert source.exists() and source.suffix == ".cu"
+    assert source.parent == PKG / "kernels" / name / "csrc"
     assert "arch=compute_90a,code=sm_90a" in NVCC_FLAGS
-    lib = library_path(SOURCE)
-    assert lib.parent.name == "_build" and lib.name.startswith("matmul-")
+    lib = library_path(source)
+    assert lib.parent.name == "_build" and lib.name.startswith(f"{name}-")
+    # every source names the TPU kernel it replaces
+    assert f"src/repro/kernels/{name}/kernel.py::" in source.read_text()
     # the build directory is ignored by git
     assert "src/repro_torch/_build/" in (ROOT / ".gitignore").read_text()

@@ -1,4 +1,4 @@
-"""The port's kernels K1 (matmul) and K2 (RMSNorm) against the JAX package.
+"""The port's kernels K1–K4 against the JAX package.
 
 On the CPU the port's entry points run each kernel's plain version; it is
 held against the reference's Pallas kernel in interpret mode on the same
@@ -14,13 +14,27 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp
 
+from repro.kernels.flash.kernel import flash_attention_pallas
 from repro.kernels.matmul.kernel import matmul_pallas
 from repro.kernels.matmul.ops import tiles_exactly as ref_tiles_exactly
 from repro.kernels.rmsnorm.kernel import rmsnorm_pallas
+from repro.kernels.ssd import ref as ref_ssd
+from repro.kernels.ssd.kernel import ssd_pallas
+from repro_torch.kernels.flash import flash_attention, flash_attention_cuda
 from repro_torch.kernels.matmul import matmul, matmul_cuda, matmul_reference, tiles_exactly
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_reference, rmsnorm_triton
+from repro_torch.kernels.ssd import ssd, ssd_cuda, ssd_decode_step
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _first_matmul():
+    """One plain float32 matmul before any comparison.  In a fresh process
+    with several OpenMP threads, the first batched MKL product on the CPU
+    can come out wrong (observed with torch 2.13.0+cpu: errors near 1e-4 in
+    the first ``ssd_reference`` call, none once a plain matmul has run)."""
+    torch.ones(64, 64) @ torch.ones(64, 64)
 
 
 def _tol(name):
@@ -154,3 +168,137 @@ def test_plain_versions_match_reference_refs():
         rmsnorm_reference(torch.from_numpy(x), torch.from_numpy(g)).numpy(),
         np.asarray(ref_rms(jnp.asarray(x), jnp.asarray(g))), rtol=2e-6, atol=2e-6,
     )
+
+
+# --------------------------------------------------------------------- K3
+@pytest.mark.parametrize("B,S,H,K,D", [
+    (1, 128, 4, 4, 32),     # MHA
+    (2, 256, 8, 2, 64),     # GQA 4:1
+    (1, 256, 4, 1, 128),    # MQA
+    (2, 384, 6, 3, 64),     # non-pow2 heads
+])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_flash_matches_pallas(B, S, H, K, D, dtype):
+    rng = np.random.default_rng(0)
+    qkv = [rng.normal(size=(B, S, h, D)).astype(np.float32) for h in (H, K, K)]
+    (jq, tq), (jk, tk), (jv, tv) = (_both(a, dtype) for a in qkv)
+    want = flash_attention_pallas(jq, jk, jv, causal=True, block_q=128, block_k=128, interpret=True)
+    got = flash_attention(tq, tk, tv, causal=True)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    np.testing.assert_allclose(_f32(got), _f32(want), **_tol(dtype))
+
+
+def test_flash_non_causal_matches_pallas():
+    rng = np.random.default_rng(1)
+    (jq, tq), (jk, tk), (jv, tv) = (
+        _both(rng.normal(size=(1, 128, 2, 32)).astype(np.float32), "float32") for _ in range(3)
+    )
+    want = flash_attention_pallas(jq, jk, jv, causal=False, interpret=True)
+    got = flash_attention(tq, tk, tv, causal=False)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("bq,bk", [(64, 64), (128, 64), (64, 128), (256, 256)])
+def test_flash_matches_pallas_at_every_block(bq, bk):
+    """The port's result depends on no block size; Pallas's at each."""
+    rng = np.random.default_rng(2)
+    jq, tq = _both(rng.normal(size=(1, 256, 2, 32)).astype(np.float32), "float32")
+    want = flash_attention_pallas(jq, jq, jq, causal=True, block_q=bq, block_k=bk, interpret=True)
+    got = flash_attention(tq, tq, tq, causal=True)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=2e-5, atol=2e-5)
+
+
+def test_flash_preconditions():
+    q = torch.zeros(1, 8, 4, 16)
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention(q, torch.zeros(1, 6, 2, 16), torch.zeros(1, 6, 2, 16), causal=True)
+    with pytest.raises(ValueError, match="multiple of K"):
+        flash_attention(q, torch.zeros(1, 8, 3, 16), torch.zeros(1, 8, 3, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention(q.to("meta"), q.to("meta"), q.to("meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_cuda(q, q, q)
+    # ragged S runs: the port masks edges instead of asserting S % block == 0
+    assert flash_attention(torch.ones(1, 7, 2, 16), torch.ones(1, 7, 2, 16),
+                           torch.ones(1, 7, 2, 16)).shape == (1, 7, 2, 16)
+
+
+# --------------------------------------------------------------------- K4
+def _ssd_arrays(rng, B, S, H, P, N, per_head=True):
+    bc = (B, S, H, N) if per_head else (B, S, N)
+    return (rng.normal(size=(B, S, H, P)).astype(np.float32),
+            (-np.abs(rng.normal(size=(B, S, H))) * 0.3).astype(np.float32),
+            (rng.normal(size=bc) * 0.3).astype(np.float32),
+            (rng.normal(size=bc) * 0.3).astype(np.float32))
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [
+    (1, 128, 2, 16, 16, 32),
+    (2, 96, 3, 32, 64, 32),    # padding path
+    (1, 256, 4, 64, 64, 64),
+    (1, 64, 1, 128, 64, 64),
+])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_ssd_matches_pallas(B, S, H, P, N, chunk, dtype):
+    X, la, Bm, Cm = _ssd_arrays(np.random.default_rng(0), B, S, H, P, N)
+    (jX, tX), (jB, tB), (jC, tC) = (_both(a, dtype) for a in (X, Bm, Cm))
+    Y, fin = ssd_pallas(jX, jnp.asarray(la), jB, jC, chunk=chunk, interpret=True)
+    got_Y, got_fin = ssd(tX, torch.from_numpy(la), tB, tC, chunk=chunk)
+    assert got_Y.dtype == tX.dtype and got_fin.dtype == tX.dtype
+    np.testing.assert_allclose(_f32(got_Y), _f32(Y), **_tol(dtype))
+    np.testing.assert_allclose(_f32(got_fin), _f32(fin), **_tol(dtype))
+
+
+def test_ssd_shared_bc_matches_pallas():
+    X, la, Bm, Cm = _ssd_arrays(np.random.default_rng(3), 1, 128, 2, 16, 8, per_head=False)
+    Y, fin = ssd_pallas(*(jnp.asarray(a) for a in (X, la, Bm, Cm)), chunk=32, interpret=True)
+    got_Y, got_fin = ssd(*(torch.from_numpy(a) for a in (X, la, Bm, Cm)), chunk=32)
+    np.testing.assert_allclose(got_Y.numpy(), np.asarray(Y), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(got_fin.numpy(), np.asarray(fin), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("per_head,S", [(False, 96), (True, 100)])
+def test_ssd_initial_state_matches_reference(per_head, S):
+    """Pallas refuses an initial state; ``ssd_reference`` defines it."""
+    rng = np.random.default_rng(4)
+    X, la, Bm, Cm = _ssd_arrays(rng, 2, S, 3, 16, 8, per_head=per_head)
+    init = rng.normal(size=(2, 3, 16, 8)).astype(np.float32)
+    Y, fin = ref_ssd.ssd_reference(*(jnp.asarray(a) for a in (X, la, Bm, Cm)), chunk=32,
+                                   initial_state=jnp.asarray(init))
+    got_Y, got_fin = ssd(*(torch.from_numpy(a) for a in (X, la, Bm, Cm)), chunk=32,
+                         initial_state=torch.from_numpy(init))
+    np.testing.assert_allclose(got_Y.numpy(), np.asarray(Y), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(got_fin.numpy(), np.asarray(fin), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_ssd_decode_step_matches_reference(shared, dtype):
+    rng = np.random.default_rng(5)
+    B, H, P, N = 2, 3, 16, 8
+    bc = (B, N) if shared else (B, H, N)
+    state = rng.normal(size=(B, H, P, N)).astype(np.float32)
+    x = rng.normal(size=(B, H, P)).astype(np.float32)
+    la = (-np.abs(rng.normal(size=(B, H))) * 0.3).astype(np.float32)
+    Bm, Cm = (rng.normal(size=bc).astype(np.float32) for _ in range(2))
+    (js, ts), (jx, tx), (jB, tB), (jC, tC) = (_both(a, dtype) for a in (state, x, Bm, Cm))
+    y, st = ref_ssd.ssd_decode_step(js, jx, jnp.asarray(la), jB, jC)
+    got_y, got_st = ssd_decode_step(ts, tx, torch.from_numpy(la), tB, tC)
+    assert got_y.dtype == tx.dtype and got_st.dtype == ts.dtype
+    np.testing.assert_allclose(_f32(got_y), _f32(y), **_tol(dtype))
+    np.testing.assert_allclose(_f32(got_st), _f32(st), **_tol(dtype))
+
+
+def test_ssd_preconditions():
+    X = torch.zeros(1, 8, 2, 4)
+    la, Bm = torch.zeros(1, 8, 2), torch.zeros(1, 8, 4)
+    with pytest.raises(ValueError, match="la"):
+        ssd(X, torch.zeros(1, 8, 3), Bm, Bm)
+    with pytest.raises(ValueError, match="B/C"):
+        ssd(X, la, Bm, torch.zeros(1, 8, 2, 4))
+    with pytest.raises(ValueError, match="initial_state"):
+        ssd(X, la, Bm, Bm, initial_state=torch.zeros(1, 2, 4, 5))
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd(X.to("meta"), la.to("meta"), Bm.to("meta"), Bm.to("meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_cuda(X, la, Bm, Bm)

@@ -3,11 +3,15 @@
 
     python3 chip_smoke.py
 
-Builds the port's kernels from the sources in this checkout (K1, K3 and
-K4, CUDA C++, with one ``nvcc`` each, all started together; K2, the Triton
-RMSNorm, at first launch), holds each kernel against its plain PyTorch
-version at the shapes its path gives it, and then drives the port's two
-main paths:
+Builds the port's kernels from the sources in this checkout (K1 and K3,
+two CUDA C++ routes each: the tensor-core kernels ``*_sm90.cu`` for bf16
+and the CUDA-core kernels for fp32; K4, CUDA C++; one ``nvcc`` per source,
+all started together; K2, the Triton RMSNorm, at first launch), shows
+what ``ptxas`` allotted the tensor-core kernels (registers, shared memory,
+no spills) and that their SASS holds ``HGMMA``, holds each kernel against
+its plain PyTorch version at the shapes its path gives it, checks which
+route each K1 and K3 call took, and then drives the port's two main
+paths:
 
 1. collectives at the tensor-parallel widths of Mistral-Large-123B
    (``d_model`` 12288, ``d_ff`` 28672, TP = 8 ranks stacked on one card,
@@ -37,6 +41,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -156,6 +161,49 @@ def bound(flops: float, nbytes: float, dtype: str):
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes")
 
 
+def expected_route(dtype_name: str) -> str:
+    """K1's and K3's route at the main-path shapes: the tensor cores for
+    bf16 (K, N and D are multiples of 16), the CUDA cores for fp32."""
+    return "wgmma" if dtype_name == "bfloat16" else "fma"
+
+
+def ptxas_summary(source) -> list:
+    """Registers, shared memory and spills ``ptxas -v`` reported for each
+    tensor-core kernel (``*sm90_kernel*``) of ``source``'s build."""
+    from repro_torch.kernels import build
+
+    rows, name, props = [], None, {}
+    for line in build.ptxas_report(source).splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", line)
+        if m:
+            name = m.group(1)
+            props = next((r for r in rows if r["entry"] == name), None)
+            if props is None:
+                props = {"entry": name}
+                rows.append(props)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            props["spill_stores"], props["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            props["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            props["static_smem"] = int(sm.group(1)) if sm else 0
+    return [r for r in rows if "sm90_kernel" in r["entry"]]
+
+
+def sass_count(source, opcode: str) -> int:
+    """How many ``opcode`` instructions the built library's SASS holds."""
+    from repro_torch.kernels import build
+
+    cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
+    proc = subprocess.run([str(cuobjdump), "-sass", str(build.library_path(source))],
+                          capture_output=True, text=True, timeout=120)
+    check(proc.returncode == 0, f"cuobjdump failed on {source.name}: {proc.stderr.strip()}")
+    return len(re.findall(rf"\b{opcode}\b", proc.stdout))
+
+
 # ------------------------------------------------------------ kernel phase
 
 
@@ -174,7 +222,12 @@ def kernel_phase(torch, gen, dtype_name: str) -> dict:
     M, K, N = TP * TOKENS, D_FF // TP, D_MODEL
     x = torch.randn(M, K, generator=gen, device=dev).to(dt)
     w = (torch.randn(K, N, generator=gen, device=dev) / math.sqrt(K)).to(dt)
+    route = expected_route(dtype_name)
+    before = dict(matmul_cuda.launches_by_route)
     got = matmul_cuda(x, w)
+    check(matmul_cuda.launches_by_route[route] == before[route] + 1,
+          f"matmul[{dtype_name}] did not take the {route} route")
+    log(f"  matmul[{dtype_name}] took the {route} route")
     want = matmul_reference(x, w, block_k=BLOCKS[2])
     err = compare(torch, got, want, "matmul", dtype_name)
     chunks = torch.cat([matmul_cuda(c, w) for c in x.split(TOKENS)])
@@ -188,7 +241,7 @@ def kernel_phase(torch, gen, dtype_name: str) -> dict:
     nbytes = (M * K + K * N + M * N) * x.element_size()
     b_ms, b_by = bound(flops, nbytes, dtype_name)
     out["matmul"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                         bound_by=b_by, library_ms=lib_ms, shape=[M, K, N])
+                         bound_by=b_by, library_ms=lib_ms, shape=[M, K, N], kernel_route=route)
     log(f"  matmul[{dtype_name}] ({M}x{K})@({K}x{N}): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
         f"torch.matmul {lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), "
         f"{flops / ms / 1e9:.1f} TFLOP/s")
@@ -235,12 +288,16 @@ def flash_kernel_phase(torch, gen, dtype_name: str) -> dict:
     for case, (B, S, H, K, D) in FLASH_SHAPES.items():
         q, k, v = (torch.randn(B, S, h, D, generator=gen, device=dev).to(dt) for h in (H, K, K))
         for causal in ((True,) if case != "ragged" else (True, False)):
+            route = expected_route(dtype_name)
+            before = dict(flash_attention_cuda.launches_by_route)
             got = flash_attention_cuda(q, k, v, causal=causal)
+            check(flash_attention_cuda.launches_by_route[route] == before[route] + 1,
+                  f"flash[{dtype_name}] {case} did not take the {route} route")
             # the plain version one batch row at a time: its fp32 (S, T)
             # scores for the whole serving batch would take ~9 GB each
             want = torch.cat([attention_reference(q[b:b + 1], k[b:b + 1], v[b:b + 1], causal=causal)
                               for b in range(B)])
-            log(f"  flash {case} {(B, S, H, K, D)} causal={causal}:")
+            log(f"  flash {case} {(B, S, H, K, D)} causal={causal}, {route} route:")
             err = compare(torch, got, want, "flash", dtype_name)
             del got, want
         if case != "serving":
@@ -255,7 +312,8 @@ def flash_kernel_phase(torch, gen, dtype_name: str) -> dict:
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         b_ms, b_by = bound(flops, nbytes, dtype_name)
         out["flash"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                            bound_by=b_by, library_ms=lib_ms, shape=[B, S, H, K, D])
+                            bound_by=b_by, library_ms=lib_ms, shape=[B, S, H, K, D],
+                            kernel_route=route)
         log(f"  flash[{dtype_name}] {(B, S, H, K, D)} causal: kernel {ms:.3f} ms, plain "
             f"{plain_ms:.3f} ms (per batch row), SDPA {lib_ms:.3f} ms, bound {b_ms:.3f} ms "
             f"({b_by}), {flops / ms / 1e9:.1f} TFLOP/s")
@@ -354,15 +412,18 @@ def main_path(torch, gen, device) -> dict:
         w = (torch.randn(K, D_MODEL, generator=gen, device=device) / math.sqrt(K)).to(dt)
         t = time.perf_counter()
         before = session.exec_stats().fused_dispatches
-        k1_before = matmul_cuda.launches
+        k1_before = dict(matmul_cuda.launches_by_route)
         out = fusion.fused_matmul_reduce_scatter(
             comm_ring, xm, w, block_m=BLOCKS[0], block_n=BLOCKS[1], block_k=BLOCKS[2]
         )
         torch.cuda.synchronize(device)
         check(session.exec_stats().fused_dispatches == before + 1,
               f"fused mm+RS [{name}] did not take the fused path")
-        check(device.type != "cuda" or matmul_cuda.launches > k1_before,
-              f"fused mm+RS [{name}] launched no K1")
+        route = expected_route(name)
+        k1 = {r: matmul_cuda.launches_by_route[r] - k1_before[r] for r in k1_before}
+        check(device.type != "cuda" or k1 == {**{r: 0 for r in k1}, route: TP},
+              f"fused mm+RS [{name}] launched K1 {k1}, not {TP} on the {route} route")
+        log(f"  fused mm+RS [{name}] K1 launches by route: {k1}")
         log(f"  phase fused matmul→reduce-scatter [{name}] x {tuple(xm.shape)} w {tuple(w.shape)}: "
             f"{time.perf_counter() - t:.3f} s")
         results[f"mm_rs_{name}"] = (xm, w, out)
@@ -535,11 +596,13 @@ def serve_path(torch, cfg, device, prompts, new_tokens, seed=SEED) -> dict:
     def watched_decode(*args, **kwargs):
         if seen["at_first_decode"] is None:
             seen["at_first_decode"] = (flash_attention_cuda.launches, ssd_cuda.launches)
+            seen["k3_routes_at_first_decode"] = dict(flash_attention_cuda.launches_by_route)
         logits, state = decode_step(*args, **kwargs)
         seen["finite"].append(torch.isfinite(logits).all())
         return logits, state
 
     engine.model.prefill, engine.model.decode_step = watched_prefill, watched_decode
+    seen["k3_routes_before"] = dict(flash_attention_cuda.launches_by_route)
     rng = np.random.default_rng(seed)
     requests = [Request(prompt=rng.integers(0, cfg.vocab, size=n).astype(np.int32),
                         max_new_tokens=new_tokens) for n in prompts]
@@ -563,6 +626,12 @@ def check_serve(torch, r, cfg) -> dict:
     check(k3_prefill == groups, f"prefill launched K3 {k3_prefill} times, not {groups}")
     check(k4_prefill == cfg.n_layers, f"prefill launched K4 {k4_prefill} times, not {cfg.n_layers}")
     check((k3_end, k4_end) == (k3_prefill, k4_prefill), "decode launched K3 or K4")
+    routes = {r: seen["k3_routes_at_first_decode"][r] - seen["k3_routes_before"][r]
+              for r in seen["k3_routes_before"]}
+    route = expected_route(cfg.dtype)
+    log(f"  prefill K3 launches by route: {routes}")
+    check(routes == {**{r: 0 for r in routes}, route: groups},
+          f"prefill launched K3 {routes}, not {groups} on the {route} route")
     check(seen["prefill_logits_shape"] == (len(requests), 1, cfg.vocab),
           f"prefill logits shape {seen['prefill_logits_shape']}")
     check(all(bool(f.item()) for f in seen["finite"]), "serving produced non-finite logits")
@@ -603,7 +672,7 @@ def _kernel_times(torch, prof):
         if us is None:
             us = e.self_cuda_time_total
         name = e.key.lower()
-        if "flash_fwd_kernel" in name:
+        if "flash_fwd_kernel" in name or "flash_sm90_kernel" in name:
             key = "flash (K3)"
         elif "ssd_kernel" in name:
             key = "ssd (K4)"
@@ -739,13 +808,25 @@ def main() -> int:
         return time.perf_counter() - t
 
     t = time.perf_counter()
-    sources = (k1.SOURCE, k3.SOURCE, k4.SOURCE)
+    sources = (*k1.SOURCES.values(), *k3.SOURCES.values(), k4.SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, all at once
         took = list(pool.map(timed_build, sources))
     for source, sec in zip(sources, took):
         build.load(source)
         log(f"build: nvcc {source.name} for sm_90a: {sec:.2f} s")
     log(f"build: all CUDA sources: {time.perf_counter() - t:.2f} s")
+    for source in (k1.SOURCE_SM90, k3.SOURCE_SM90):
+        entries = ptxas_summary(source)
+        check(len(entries) > 0, f"ptxas reported no tensor-core kernel in {source.name}")
+        for e in entries:
+            log(f"ptxas {source.name} {e['entry']}: {e.get('registers')} registers, "
+                f"{e.get('static_smem')} bytes static smem, spill stores "
+                f"{e.get('spill_stores')} B, spill loads {e.get('spill_loads')} B")
+            check(e.get("spill_stores") == 0 and e.get("spill_loads") == 0,
+                  f"{e['entry']} spills registers")
+        hgmma = sass_count(source, "HGMMA")
+        log(f"sass {source.name}: {hgmma} HGMMA instructions")
+        check(hgmma > 0, f"{source.name} holds no HGMMA: not on the tensor cores")
     t = time.perf_counter()
     probe = torch.ones(2, 8, device="cuda")
     rmsnorm_triton(probe, torch.ones(8, device="cuda"))
@@ -771,6 +852,8 @@ def main() -> int:
     def reset_counts():
         for fn in counters:
             fn.launches = 0
+            for route in getattr(fn, "launches_by_route", {}):
+                fn.launches_by_route[route] = 0
 
     def read_counts():
         return {"matmul": matmul_cuda.launches, "rmsnorm": rmsnorm_triton.launches,
@@ -781,6 +864,7 @@ def main() -> int:
     t = time.perf_counter()
     results = main_path(torch, gen, torch.device("cuda"))
     path1 = read_counts()
+    routes1 = dict(matmul_cuda.launches_by_route)
     log(f"  phase main path 1: {time.perf_counter() - t:.3f} s; kernel launches {path1}")
     check(path1["matmul"] > 0, "main path 1 never launched K1")
     check(path1["rmsnorm"] > 0, "main path 1 never launched K2")
@@ -805,6 +889,7 @@ def main() -> int:
     t = time.perf_counter()
     served = serve_path(torch, cfg, torch.device("cuda"), SERVE_PROMPTS, SERVE_NEW_TOKENS)
     path2 = read_counts()
+    routes2 = dict(flash_attention_cuda.launches_by_route)
     log(f"  phase main path 2: {time.perf_counter() - t:.3f} s; kernel launches {path2}")
     check(path2["flash"] > 0, "main path 2 never launched K3")
     check(path2["ssd"] > 0, "main path 2 never launched K4")
@@ -833,27 +918,31 @@ def main() -> int:
     log("serve: " + json.dumps({**serve_stats, **parity}))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
 
+    # the bf16 kernels of each path; K1 and K3 on their tensor-core route
     sources = {
-        "matmul": ("cuda", "src/repro_torch/kernels/matmul/csrc/matmul.cu",
-                   "src/repro/kernels/matmul/kernel.py:52", path1),
+        "matmul": ("cuda", "src/repro_torch/kernels/matmul/csrc/matmul_sm90.cu",
+                   "src/repro/kernels/matmul/kernel.py:52", path1, routes1),
         "rmsnorm": ("triton", "src/repro_torch/kernels/rmsnorm/kernel.py",
-                    "src/repro/kernels/rmsnorm/kernel.py:37", path1),
-        "flash": ("cuda", "src/repro_torch/kernels/flash/csrc/flash.cu",
-                  "src/repro/kernels/flash/kernel.py:79", path2),
+                    "src/repro/kernels/rmsnorm/kernel.py:37", path1, None),
+        "flash": ("cuda", "src/repro_torch/kernels/flash/csrc/flash_sm90.cu",
+                  "src/repro/kernels/flash/kernel.py:79", path2, routes2),
         "ssd": ("cuda", "src/repro_torch/kernels/ssd/csrc/ssd.cu",
-                "src/repro/kernels/ssd/kernel.py:80", path2),
+                "src/repro/kernels/ssd/kernel.py:80", path2, None),
     }
     for name in sources:
         log(f"  {name}[float32]: " + json.dumps(kernels["float32"][name]))
     record = {"kernels": []}
-    for name, (route, source, replaces, counts) in sources.items():
+    for name, (route, source, replaces, counts, by_route) in sources.items():
         k = kernels["bfloat16"][name]
-        record["kernels"].append({
+        entry = {
             "name": name, "route": route, "source": source, "replaces": replaces,
             "launches": counts[name], "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"], "dtype": "bfloat16", "shape": k["shape"],
-        })
+        }
+        if by_route is not None:
+            entry.update(kernel_route=k["kernel_route"], launches_by_route=by_route)
+        record["kernels"].append(entry)
     print(smi)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

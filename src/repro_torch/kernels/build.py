@@ -1,11 +1,15 @@
 """Build a CUDA source of the port with ``nvcc`` and load it with ``ctypes``.
 
 Each kernel package keeps its CUDA C++ under ``csrc/`` behind a plain C
-interface (no PyTorch headers, so a build takes seconds).  At first use
-the source is compiled for Hopper (``sm_90a``) into ``repro_torch/_build/``
-— listed in ``.gitignore`` — under a name keyed by a hash of the source and
-the flags, so an edited source is rebuilt and an unchanged one is loaded
-as it is.  Nothing is built when a module is imported.
+interface (no PyTorch headers, so a build takes seconds); the Hopper
+building blocks the tensor-core kernels share are in ``kernels/csrc/``.
+At first use the source is compiled for Hopper (``sm_90a``) into
+``repro_torch/_build/`` — listed in ``.gitignore`` — under a name keyed by
+a hash of the source, the shared headers and the flags, so an edited
+source is rebuilt and an unchanged one is loaded as it is.  ``ptxas -v``
+reports each kernel's registers, shared memory and spills; the report is
+kept beside the library (:func:`ptxas_report`).  Nothing is built when a
+module is imported.
 """
 
 from __future__ import annotations
@@ -20,9 +24,10 @@ from pathlib import Path
 from typing import Dict
 
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
+SHARED_HEADERS = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _LOCK = threading.Lock()
@@ -45,7 +50,15 @@ def nvcc_path() -> str:
 
 def library_path(source: Path) -> Path:
     digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(SHARED_HEADERS.glob("*.cuh")):
+        digest.update(header.read_bytes())
     return BUILD_DIR / f"{source.stem}-{digest.hexdigest()[:16]}.so"
+
+
+def ptxas_report(source: Path) -> str:
+    """What ``ptxas -v`` said when ``source`` was built (empty if not built here)."""
+    log = library_path(source).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def build(source: Path) -> Path:
@@ -62,6 +75,7 @@ def build(source: Path) -> Path:
         raise RuntimeError(
             f"nvcc failed on {source.name} ({proc.returncode}):\n{proc.stderr}"
         )
+    out.with_suffix(".log").write_text(proc.stderr)
     os.replace(tmp, out)  # atomic: a concurrent build never loads a half-written file
     return out
 

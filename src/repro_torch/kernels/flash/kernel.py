@@ -1,11 +1,23 @@
-"""K3 on the card: wrapper of the hand-written CUDA flash attention (``csrc/flash.cu``).
+"""K3 on the card: wrapper of the two hand-written CUDA flash attentions.
 
-Replaces ``repro.kernels.flash.kernel.flash_attention_pallas``.  The source
-note in ``csrc/flash.cu`` says what bounds the kernel on an H100 and what
-its design does about it.  The library is built with ``nvcc`` for
-``sm_90a`` at first launch (:mod:`repro_torch.kernels.build`) and launched
-on PyTorch's current stream; :attr:`flash_attention_cuda.launches` counts
-the launches.
+Replaces ``repro.kernels.flash.kernel.flash_attention_pallas``.  Two routes,
+each a kernel of its own, chosen by the pure predicate
+:func:`tensor_core_route` on dtype and head dim:
+
+* ``"wgmma"`` — bf16 with ``D % 16 == 0`` and ``D <= 128``:
+  ``csrc/flash_sm90.cu``, Q Kᵀ and P V by wgmma on the tensor cores, fed
+  by TMA (it scales the fp32 scores instead of q, and rounds P to bf16
+  before P V, within the bf16 tolerance);
+* ``"fma"`` — fp32, and other head dims up to 128: ``csrc/flash.cu``,
+  fp32 FMA on the CUDA cores.  fp32 stays there because TF32, the tensor
+  cores' fp32 input, misses the fp32 tolerance.
+
+The source notes say what bounds each kernel on an H100 and what its
+design does about it.  Each library is built with ``nvcc`` for ``sm_90a``
+at first launch (:mod:`repro_torch.kernels.build`) and launched on
+PyTorch's current stream.  :attr:`flash_attention_cuda.launches_by_route`
+counts the launches of each route and :attr:`flash_attention_cuda.launches`
+their sum.
 """
 
 from __future__ import annotations
@@ -17,6 +29,8 @@ from pathlib import Path
 import torch
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash.cu"
+SOURCE_SM90 = Path(__file__).resolve().parent / "csrc" / "flash_sm90.cu"
+SOURCES = {"fma": SOURCE, "wgmma": SOURCE_SM90}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
 _INT32_MAX = 2**31 - 1
@@ -52,27 +66,41 @@ def check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal:
         )
 
 
-def _library() -> ctypes.CDLL:
+def tensor_core_route(dtype: torch.dtype, D: int) -> bool:
+    """True iff attention with head dim ``D`` in ``dtype`` runs on the tensor cores.
+
+    bf16 with D a multiple of 16 (wgmma's k-step, and TMA's 16-byte rows)
+    up to 128.  A function of dtype and D only.
+    """
+    return dtype == torch.bfloat16 and D % 16 == 0 and D <= MAX_HEAD_DIM
+
+
+def _library(route: str) -> ctypes.CDLL:
     from repro_torch.kernels.build import load
 
-    lib = load(SOURCE)
-    lib.pccl_flash_fwd.argtypes = [
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
-    ]
-    lib.pccl_flash_fwd.restype = ctypes.c_int
+    lib = load(SOURCES[route])
+    ints = [ctypes.c_int] * 7  # B, S, T, H, K, D, causal
+    ptrs = [ctypes.c_void_p] * 4  # q, k, v, o
+    if route == "wgmma":
+        fn = lib.pccl_flash_fwd_sm90
+        fn.argtypes = [*ptrs, *ints, ctypes.c_float, ctypes.c_void_p]
+    else:
+        fn = lib.pccl_flash_fwd
+        fn.argtypes = [ctypes.c_int, *ptrs, *ints, ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     return lib
 
 
 def flash_attention_cuda(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True
 ) -> torch.Tensor:
-    """Softmax attention of q over k, v by the CUDA kernel, output in ``q.dtype``.
+    """Softmax attention of q over k, v by a CUDA kernel, output in ``q.dtype``.
 
     Takes contiguous CUDA tensors of one dtype (float32 or bfloat16) on one
     device, with head dim D <= 128, and raises on anything else; it never
-    computes on another path.
+    computes on another path.  The route is :func:`tensor_core_route`'s; on
+    the tensor-core route q, k and v must also start on 16 bytes (TMA),
+    else it raises.
     """
     check_operands(q, k, v, causal=causal)
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
@@ -88,18 +116,25 @@ def flash_attention_cuda(
         raise ValueError(f"flash_attention_cuda: head dim {D} > {MAX_HEAD_DIM}")
     if max(B * H, S, T) > _INT32_MAX:
         raise ValueError(f"flash_attention_cuda: dims {(B, S, H, T)} exceed int32")
-    lib = _library()
+    route = "wgmma" if tensor_core_route(q.dtype, D) else "fma"
+    if route == "wgmma" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention_cuda: the tensor-core route needs 16-byte aligned q, k, v")
+    lib = _library(route)
     out = torch.empty_like(q)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, S, T, H, K, D, int(causal), 1.0 / math.sqrt(D))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.pccl_flash_fwd(
-            _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, S, T, H, K, D, int(causal), 1.0 / math.sqrt(D), stream,
-        )
+        if route == "wgmma":
+            err = lib.pccl_flash_fwd_sm90(*args, stream)
+        else:
+            err = lib.pccl_flash_fwd(_DTYPES[q.dtype], *args, stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention_cuda: kernel launch failed (cudaError {err})")
+        raise RuntimeError(f"flash_attention_cuda: {route} kernel launch failed (error {err})")
+    flash_attention_cuda.launches_by_route[route] += 1
     flash_attention_cuda.launches += 1
     return out
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.launches_by_route = {"wgmma": 0, "fma": 0}

@@ -1,12 +1,15 @@
 """Entry point of K3, flash attention: the CUDA kernel or its plain version.
 
-A CUDA tensor goes to the hand-written kernel (``kernel.flash_attention_cuda``),
-which masks ragged edges, so it runs every shape it accepts and never gives
-way to the plain version.  A CPU tensor goes to the plain version
+A CUDA tensor goes to a hand-written kernel (``kernel.flash_attention_cuda``):
+bf16 with D a multiple of 16 up to 128 to the tensor-core kernel (wgmma,
+TMA), everything else to the CUDA-core kernel (fp32 FMA), as
+``kernel.tensor_core_route`` decides from dtype and D.  Both mask ragged
+edges, so every shape they accept runs and nothing gives way to the plain
+version.  A CPU tensor goes to the plain version
 (``ref.py``), because the CPU has no kernel to launch.  Any other device
 raises.  The reference's Pallas block sizes have no counterpart: the CUDA
-kernel's tiles are fixed in its source, and its result depends on no block
-size.
+kernels' tiles are fixed in their sources, and their results depend on no
+block size.
 """
 
 from __future__ import annotations

@@ -1,13 +1,16 @@
 """Entry point of K1, the blocked matmul: the CUDA kernel or its plain version.
 
-A CUDA tensor goes to the hand-written kernel (``kernel.matmul_cuda``),
-which masks ragged edges, so it runs every shape and never gives way to
-the plain version.  A CPU tensor goes to the plain version (``ref.py``),
+A CUDA tensor goes to a hand-written kernel (``kernel.matmul_cuda``):
+bf16 with K and N multiples of 8 to the tensor-core kernel (wgmma, TMA),
+everything else to the CUDA-core kernel (fp32 FMA), as
+``kernel.tensor_core_route`` decides from dtype, K and N.  Both mask ragged
+edges, so every shape runs and nothing gives way to the plain version.  A CPU tensor goes to the plain version (``ref.py``),
 because the CPU has no kernel to launch.  Any other device raises.
 
 ``block_k`` sets the contraction slice of the plain version.  The CUDA
-kernel's tiles are fixed in its source, and its per-element sum runs over
-the whole contraction in order, so its result depends on no block size.
+kernels' tiles are fixed in their sources, and each one's per-element sum
+runs over the whole contraction in order, so its result depends on no
+block size and on no M.
 :func:`tiles_exactly` is kept only as the fusion layer's routing predicate
 (``repro_torch.comm.fusion``), as in the reference.
 """

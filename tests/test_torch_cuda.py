@@ -10,7 +10,9 @@ The file imports no JAX, so it runs where only the port is installed.
 Tolerances: kernel against plain version fp32 rtol 2e-5 / atol 2e-4 (K1's
 fp32 sum runs in another order), bf16 2e-2; K3 and K4 fp32 rtol and atol
 1e-4 (sums of up to T products and an online softmax in another order);
-everything else bit for bit.
+everything else bit for bit.  K1 and K3 have two routes each (tensor-core
+``wgmma`` kernels for bf16, CUDA-core ``fma`` kernels otherwise); the
+tests count the launches of each.
 """
 
 import math
@@ -47,6 +49,54 @@ def test_matmul_kernel_matches_plain(dev, dtype):
     torch.testing.assert_close(got.float(), matmul_reference(x, w).float(), **_tol(dtype))
     chunks = torch.cat([matmul(c, w) for c in x.split(100)])
     assert torch.equal(got, chunks)  # per-chunk calls == one whole-M call
+
+
+def _routes(fn):
+    return dict(fn.launches_by_route)
+
+
+def _launched(fn, before, route):
+    after = _routes(fn)
+    assert after[route] == before[route] + 1, (before, after)
+    assert sum(after.values()) == sum(before.values()) + 1
+    assert fn.launches == sum(after.values())
+
+
+@pytest.mark.parametrize("M,K,N", [
+    (300, 200, 264),    # partial tiles on every edge: M % 128, K % 64, N % 256 all != 0
+    (1000, 3584, 520),  # the main path's K, many k-tiles
+    (129, 64, 8),       # one row into a second tile, one 8-column slice of N
+])
+def test_matmul_tensor_core_route_partial_tiles(dev, M, K, N):
+    from repro_torch.kernels.matmul import matmul, matmul_cuda, matmul_reference
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn(M, K, generator=g, device=dev).to(torch.bfloat16)
+    w = (torch.randn(K, N, generator=g, device=dev) / math.sqrt(K)).to(torch.bfloat16)
+    before = _routes(matmul_cuda)
+    got = matmul(x, w)
+    _launched(matmul_cuda, before, "wgmma")
+    assert got.dtype == torch.bfloat16 and got.shape == (M, N)
+    torch.testing.assert_close(got.float(), matmul_reference(x, w).float(), rtol=2e-2, atol=2e-2)
+    # per-chunk calls, at row offsets that fall inside tiles, == one whole-M call
+    sizes = [M // 3, M // 5, M - M // 3 - M // 5]
+    before = _routes(matmul_cuda)
+    chunks = torch.cat([matmul(c, w) for c in x.split(sizes)])
+    assert _routes(matmul_cuda)["wgmma"] == before["wgmma"] + 3
+    assert torch.equal(got, chunks)
+
+
+@pytest.mark.parametrize("K,N", [(100, 264), (200, 100), (36, 20)])
+def test_matmul_bf16_shapes_tma_cannot_address_take_the_cuda_core_route(dev, K, N):
+    from repro_torch.kernels.matmul import matmul, matmul_cuda, matmul_reference
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(150, K, generator=g, device=dev).to(torch.bfloat16)
+    w = (torch.randn(K, N, generator=g, device=dev) / math.sqrt(K)).to(torch.bfloat16)
+    before = _routes(matmul_cuda)
+    got = matmul(x, w)
+    _launched(matmul_cuda, before, "fma")
+    torch.testing.assert_close(got.float(), matmul_reference(x, w).float(), rtol=2e-2, atol=2e-2)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -106,8 +156,10 @@ def test_fused_seams_bit_identical_to_unfused(dev, dtype):
     x = torch.randn(8, 8 * 64, 256, generator=g, device=dev).to(dtype)
     w = (torch.randn(256, 384, generator=g, device=dev) / 16).to(dtype)
     k1, fused = matmul_cuda.launches, session.exec_stats().fused_dispatches
+    k1_tc = matmul_cuda.launches_by_route["wgmma"]
     out = fusion.fused_matmul_reduce_scatter(ring, x, w)
     assert matmul_cuda.launches == k1 + 8  # one launch per step for all ranks
+    assert matmul_cuda.launches_by_route["wgmma"] == k1_tc + (8 if dtype == torch.bfloat16 else 0)
     assert session.exec_stats().fused_dispatches == fused + 1
     unfused = fusion._unfused_matmul_reduce_scatter(ring, x, w, blocks=(128, 128, 128))
     assert torch.equal(out, unfused)
@@ -146,6 +198,41 @@ def test_flash_kernel_matches_plain(dev, B, S, H, K, D, dtype):
         want = attention_reference(q, k, v, causal=causal)
         tol = dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 else dict(rtol=1e-4, atol=1e-4)
         torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("D", [16, 64, 80, 128])
+@pytest.mark.parametrize("B,S,T,H,K", [
+    (2, 256, 256, 8, 2),    # GQA 4:1, whole tiles
+    (1, 200, 200, 4, 1),    # ragged S, MQA
+    (1, 333, 333, 2, 2),    # ragged S over three q tiles
+    (1, 100, 300, 4, 2),    # non-causal only: T != S
+])
+def test_flash_tensor_core_route(dev, D, B, S, T, H, K):
+    from repro_torch.kernels.flash import attention_reference, flash_attention, flash_attention_cuda
+
+    g = torch.Generator(device=dev).manual_seed(D + S)
+    q = torch.randn(B, S, H, D, generator=g, device=dev)
+    k, v = (torch.randn(B, T, K, D, generator=g, device=dev) for _ in range(2))
+    for causal in ((True, False) if S == T else (False,)):
+        for dtype, route in ((torch.bfloat16, "wgmma"), (torch.float32, "fma")):
+            qd, kd, vd = (t.to(dtype) for t in (q, k, v))
+            before = _routes(flash_attention_cuda)
+            got = flash_attention(qd, kd, vd, causal=causal)
+            _launched(flash_attention_cuda, before, route)
+            assert got.dtype == dtype and got.shape == q.shape
+            want = attention_reference(qd, kd, vd, causal=causal)
+            tol = dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 else dict(rtol=1e-4, atol=1e-4)
+            torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+def test_flash_bf16_head_dims_off_the_tensor_core_route(dev):
+    from repro_torch.kernels.flash import attention_reference, flash_attention, flash_attention_cuda
+
+    q, k, v = _flash_inputs(dev, 1, 130, 4, 2, 72, torch.bfloat16)  # D % 16 != 0
+    before = _routes(flash_attention_cuda)
+    got = flash_attention(q, k, v)
+    _launched(flash_attention_cuda, before, "fma")
+    torch.testing.assert_close(got.float(), attention_reference(q, k, v).float(), rtol=2e-2, atol=2e-2)
 
 
 def _ssd_inputs(dev, B, S, H, P, N, dtype, per_head, seed=0):

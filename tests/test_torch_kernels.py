@@ -9,6 +9,7 @@ run only on a card: ``tests/test_torch_cuda.py`` holds those tests.
 
 import numpy as np
 import pytest
+from conftest import hypothesis_or_stubs
 
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
@@ -20,11 +21,14 @@ from repro.kernels.matmul.ops import tiles_exactly as ref_tiles_exactly
 from repro.kernels.rmsnorm.kernel import rmsnorm_pallas
 from repro.kernels.ssd import ref as ref_ssd
 from repro.kernels.ssd.kernel import ssd_pallas
-from repro_torch.kernels.flash import flash_attention, flash_attention_cuda
-from repro_torch.kernels.matmul import matmul, matmul_cuda, matmul_reference, tiles_exactly
+from repro_torch.kernels.flash import attention_reference, flash_attention, flash_attention_cuda
+from repro_torch.kernels.flash import tensor_core_route as flash_tc_route
+from repro_torch.kernels.matmul import matmul, matmul_cuda, matmul_reference, matmul_route, tiles_exactly
+from repro_torch.kernels.matmul import tensor_core_route as matmul_tc_route
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_reference, rmsnorm_triton
 from repro_torch.kernels.ssd import ssd, ssd_cuda, ssd_decode_step
 
+given, settings, st = hypothesis_or_stubs()
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
 
@@ -302,3 +306,99 @@ def test_ssd_preconditions():
         ssd(X.to("meta"), la.to("meta"), Bm.to("meta"), Bm.to("meta"))
     with pytest.raises(ValueError, match="CUDA"):
         ssd_cuda(X, la, Bm, Bm)
+
+
+# ------------------------------------------------ K1 and K3 kernel routes
+# On a CUDA tensor K1 and K3 launch one of two hand-written kernels, chosen
+# by a pure predicate: bf16 shapes TMA can address go to the tensor-core
+# kernel (wgmma), the rest to the CUDA-core kernel (fma).  The predicates
+# run here; the kernels only on the card (tests/test_torch_cuda.py).
+
+
+@pytest.mark.parametrize("dtype,K,N,want", [
+    (torch.bfloat16, 3584, 12288, True),   # the fused mm+RS shape
+    (torch.bfloat16, 8, 8, True),
+    (torch.bfloat16, 200, 264, True),      # ragged against the 64 / 256 tiles: TMA zero-fills
+    (torch.bfloat16, 100, 264, False),     # K % 8: rows of x off 16 bytes
+    (torch.bfloat16, 200, 100, False),     # N % 8: rows of w off 16 bytes
+    (torch.bfloat16, 36, 20, False),
+    (torch.float32, 3584, 12288, False),   # fp32 stays on the CUDA cores (TF32 misses 2e-5)
+    (torch.float32, 64, 64, False),
+])
+def test_matmul_tensor_core_route_predicate(dtype, K, N, want):
+    assert matmul_tc_route(dtype, K, N) is want
+    assert matmul_route((1000, K), (K, N), dtype) == ("wgmma" if want else "fma")
+
+
+@pytest.mark.parametrize("dtype,D,want", [
+    (torch.bfloat16, 16, True),
+    (torch.bfloat16, 64, True),
+    (torch.bfloat16, 80, True),            # Zamba2
+    (torch.bfloat16, 128, True),
+    (torch.bfloat16, 72, False),           # D % 16: not a whole wgmma k-step
+    (torch.bfloat16, 8, False),
+    (torch.bfloat16, 144, False),          # beyond both kernels' 128
+    (torch.float32, 80, False),            # fp32 stays on the CUDA cores
+    (torch.float32, 128, False),
+])
+def test_flash_tensor_core_route_predicate(dtype, D, want):
+    assert flash_tc_route(dtype, D) is want
+
+
+@settings(max_examples=200, deadline=None)
+@given(M=st.integers(1, 1 << 20), K=st.integers(1, 1 << 15), N=st.integers(1, 1 << 15),
+       cuts=st.lists(st.integers(1, 1 << 20), max_size=8), bf16=st.booleans())
+def test_matmul_route_never_depends_on_m(M, K, N, cuts, bf16):
+    """The fusion invariant's guard: every row chunk of a call takes the
+    route (hence the kernel, tile shape and K order) of the whole-M call."""
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    whole = matmul_route((M, K), (K, N), dtype)
+    for rows in [M, *cuts]:
+        assert matmul_route((rows, K), (K, N), dtype) == whole
+
+
+@pytest.mark.parametrize("M,chunks", [(32768, 8), (300, 3), (129, 129)])
+def test_matmul_route_of_fused_chunks_equals_whole(M, chunks):
+    rows = -(-M // chunks)
+    for dtype in (torch.bfloat16, torch.float32):
+        whole = matmul_route((M, 3584), (3584, 12288), dtype)
+        assert all(matmul_route((min(rows, M - r0), 3584), (3584, 12288), dtype) == whole
+                   for r0 in range(0, M, rows))
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_cpu_tensors_take_the_plain_versions(dtype):
+    """On the CPU both entry points compute their plain versions bit for bit
+    and launch no kernel of either route."""
+    rng = np.random.default_rng(5)
+    tdt = DTYPES[dtype][1]
+    x = torch.from_numpy(rng.normal(size=(96, 64)).astype(np.float32)).to(tdt)
+    w = torch.from_numpy(rng.normal(size=(64, 40)).astype(np.float32)).to(tdt)
+    q, k, v = (torch.from_numpy(rng.normal(size=(1, 70, h, 80)).astype(np.float32)).to(tdt)
+               for h in (4, 2, 2))
+    counts = (dict(matmul_cuda.launches_by_route), dict(flash_attention_cuda.launches_by_route),
+              matmul_cuda.launches, flash_attention_cuda.launches)
+    assert torch.equal(matmul(x, w), matmul_reference(x, w))
+    assert torch.equal(flash_attention(q, k, v), attention_reference(q, k, v))
+    assert (dict(matmul_cuda.launches_by_route), dict(flash_attention_cuda.launches_by_route),
+            matmul_cuda.launches, flash_attention_cuda.launches) == counts
+
+
+@pytest.mark.parametrize("name", ["matmul", "flash"])
+def test_tensor_core_sources_are_in_the_package(name):
+    import importlib
+
+    from repro_torch.kernels.build import SHARED_HEADERS, library_path, ptxas_report
+
+    mod = importlib.import_module(f"repro_torch.kernels.{name}.kernel")
+    assert set(mod.SOURCES) == {"wgmma", "fma"} and mod.SOURCES["fma"] == mod.SOURCE
+    src = mod.SOURCES["wgmma"]
+    text = src.read_text()
+    assert src.exists() and src.parent == mod.SOURCE.parent
+    assert f"src/repro/kernels/{name}/kernel.py::" in text  # names the TPU kernel it replaces
+    assert "wgmma.mma_async" in text and '#include "../../csrc/sm90.cuh"' in text
+    assert (SHARED_HEADERS / "sm90.cuh").exists()
+    assert library_path(src) != library_path(mod.SOURCE)
+    assert ptxas_report(src) == "" or "registers" in ptxas_report(src)
+    counter = mod.matmul_cuda if name == "matmul" else mod.flash_attention_cuda
+    assert set(counter.launches_by_route) == {"wgmma", "fma"}

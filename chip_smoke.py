@@ -3,15 +3,15 @@
 
     python3 chip_smoke.py
 
-Builds the port's kernels from the sources in this checkout (K1 and K3,
-two CUDA C++ routes each: the tensor-core kernels ``*_sm90.cu`` for bf16
-and the CUDA-core kernels for fp32; K4, CUDA C++; one ``nvcc`` per source,
-all started together; K2, the Triton RMSNorm, at first launch), shows
-what ``ptxas`` allotted the tensor-core kernels (registers, shared memory,
-no spills) and that their SASS holds ``HGMMA``, holds each kernel against
-its plain PyTorch version at the shapes its path gives it, checks which
-route each K1 and K3 call took, and then drives the port's two main
-paths:
+Builds the port's kernels from the sources in this checkout (K1, K3 and
+K4, two CUDA C++ routes each: the tensor-core kernels ``*_sm90.cu`` for
+bf16 and the CUDA-core kernels for fp32; one ``nvcc`` per source, all six
+started together; K2, the Triton RMSNorm, at first launch), shows what
+``ptxas`` allotted the tensor-core kernels (registers, shared memory, no
+spills) and that their SASS holds ``HGMMA``, holds each kernel against its
+plain PyTorch version at the shapes its path gives it, checks which route
+each K1, K3 and K4 call took (and K4's time in each of its three passes),
+and then drives the port's two main paths:
 
 1. collectives at the tensor-parallel widths of Mistral-Large-123B
    (``d_model`` 12288, ``d_ff`` 28672, TP = 8 ranks stacked on one card,
@@ -162,8 +162,9 @@ def bound(flops: float, nbytes: float, dtype: str):
 
 
 def expected_route(dtype_name: str) -> str:
-    """K1's and K3's route at the main-path shapes: the tensor cores for
-    bf16 (K, N and D are multiples of 16), the CUDA cores for fp32."""
+    """K1's, K3's and K4's route at the main-path shapes: the tensor cores
+    for bf16 (K, N and D are multiples of 16; K4's P = N = chunk = 64), the
+    CUDA cores for fp32."""
     return "wgmma" if dtype_name == "bfloat16" else "fma"
 
 
@@ -321,10 +322,60 @@ def flash_kernel_phase(torch, gen, dtype_name: str) -> dict:
     return out
 
 
+def _device_us(event) -> float:
+    us = getattr(event, "self_device_time_total", None)
+    return event.self_cuda_time_total if us is None else us
+
+
+K4_PASSES = ("states", "recurrence", "outputs")
+
+
+def _k4_pass(kernel_name: str):
+    """Which of K4's three passes a kernel of either route is, or None."""
+    return next((p for p in K4_PASSES if f"ssd_{p}" in kernel_name), None)
+
+
+def ssd_pass_times(torch, fn, reps: int = 3) -> dict:
+    """Device ms of each of K4's passes per call of ``fn``, from the
+    profiler's device-side events (warm)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        name = _k4_pass(e.key)
+        if e.device_type == torch.autograd.DeviceType.CUDA and name:
+            out[name] = out.get(name, 0.0) + _device_us(e) / 1e3 / reps
+    return out
+
+
+def ssd_pass_bytes(X, la, Bm, chunk: int, route: str) -> dict:
+    """Bytes each of K4's passes must move at these operands (each read
+    once, each write once): states reads X, B, la and writes the fp32 chunk
+    states and totals; recurrence reads those and the fp32 initial state and
+    writes the states before each chunk (bf16 on the wgmma route, fp32 on
+    fma) and the final state; outputs reads X, B, C, la and the states
+    before each chunk, and writes Y."""
+    B, S, H, P = X.shape
+    N, e = Bm.shape[-1], X.element_size()
+    nc = -(-S // chunk)
+    x, bc, lab = X.numel() * e, Bm.numel() * e, la.numel() * 4
+    chunk_states, totals = B * H * nc * P * N * 4, B * H * nc * 4
+    before = B * H * nc * P * N * (2 if route == "wgmma" else 4)
+    return {"states": x + bc + lab + chunk_states + totals,
+            "recurrence": chunk_states + totals + B * H * P * N * (4 + e) + before,
+            "outputs": x + 2 * bc + lab + before + x}
+
+
 def ssd_kernel_phase(torch, gen, dtype_name: str) -> dict:
     """K4 against its plain version with a non-zero initial state at the
     serving shape (shared B/C), per-head B/C and a ragged S; timed at the
-    serving shape."""
+    serving shape, each pass too."""
     from repro_torch.kernels.ssd import ssd_cuda, ssd_reference
 
     dt = getattr(torch, dtype_name)
@@ -337,9 +388,13 @@ def ssd_kernel_phase(torch, gen, dtype_name: str) -> dict:
         Bm = (torch.randn(*bc, generator=gen, device=dev) * 0.3).to(dt)
         Cm = (torch.randn(*bc, generator=gen, device=dev) * 0.3).to(dt)
         init = torch.randn(B, H, P, N, generator=gen, device=dev) * 0.1
+        route = expected_route(dtype_name)
+        before = dict(ssd_cuda.launches_by_route)
         Y, fin = ssd_cuda(X, la, Bm, Cm, chunk=L, initial_state=init)
+        check(ssd_cuda.launches_by_route[route] == before[route] + 1,
+              f"ssd[{dtype_name}] {case} did not take the {route} route")
         Yr, finr = ssd_reference(X, la, Bm, Cm, chunk=L, initial_state=init)
-        log(f"  ssd {case} X {(B, S, H, P)} B/C {bc} chunk {L}, initial state:")
+        log(f"  ssd {case} X {(B, S, H, P)} B/C {bc} chunk {L}, initial state, {route} route:")
         err = compare(torch, Y, Yr, "ssd", dtype_name)
         err = max(err, compare(torch, fin, finr, "ssd", dtype_name))
         check(fin.dtype == dt, f"ssd[{dtype_name}] final state in {fin.dtype}, not X's dtype")
@@ -347,6 +402,7 @@ def ssd_kernel_phase(torch, gen, dtype_name: str) -> dict:
         if case != "serving":
             continue
         ms = time_ms(torch, lambda: ssd_cuda(X, la, Bm, Cm, chunk=L, initial_state=init), 5)
+        passes = ssd_pass_times(torch, lambda: ssd_cuda(X, la, Bm, Cm, chunk=L, initial_state=init))
         plain_ms = time_ms(torch, lambda: ssd_reference(X, la, Bm, Cm, chunk=L,
                                                         initial_state=init), 2)
         nc = -(-S // L)
@@ -355,11 +411,18 @@ def ssd_kernel_phase(torch, gen, dtype_name: str) -> dict:
         nbytes = (2 * X.numel() + Bm.numel() + Cm.numel() + B * H * P * N) * X.element_size() \
             + (la.numel() + init.numel()) * 4
         b_ms, b_by = bound(flops, nbytes, dtype_name)
+        pass_bytes = ssd_pass_bytes(X, la, Bm, L, route)
         out["ssd"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                          bound_by=b_by, library_ms=None, shape=[B, S, H, P, N, L])
+                          bound_by=b_by, library_ms=None, shape=[B, S, H, P, N, L],
+                          kernel_route=route, pass_ms=passes, pass_bytes=pass_bytes)
         log(f"  ssd[{dtype_name}] X {(B, S, H, P)} N {N} chunk {L}: kernel {ms:.3f} ms, plain "
             f"{plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), "
             f"{nbytes / ms / 1e6:.1f} GB/s")
+        log(f"  ssd[{dtype_name}] device ms per pass ({route} route, torch.profiler): "
+            + (", ".join(f"{k} {passes[k]:.3f} ms ({pass_bytes[k] / 1e6:.1f} MB, "
+                         f"{pass_bytes[k] / passes[k] / 1e9:.2f} TB/s)"
+                         for k in K4_PASSES if k in passes)
+               or "not measured (the profiler saw no device time)"))
         del X, la, Bm, Cm, init
     return out
 
@@ -597,12 +660,14 @@ def serve_path(torch, cfg, device, prompts, new_tokens, seed=SEED) -> dict:
         if seen["at_first_decode"] is None:
             seen["at_first_decode"] = (flash_attention_cuda.launches, ssd_cuda.launches)
             seen["k3_routes_at_first_decode"] = dict(flash_attention_cuda.launches_by_route)
+            seen["k4_routes_at_first_decode"] = dict(ssd_cuda.launches_by_route)
         logits, state = decode_step(*args, **kwargs)
         seen["finite"].append(torch.isfinite(logits).all())
         return logits, state
 
     engine.model.prefill, engine.model.decode_step = watched_prefill, watched_decode
     seen["k3_routes_before"] = dict(flash_attention_cuda.launches_by_route)
+    seen["k4_routes_before"] = dict(ssd_cuda.launches_by_route)
     rng = np.random.default_rng(seed)
     requests = [Request(prompt=rng.integers(0, cfg.vocab, size=n).astype(np.int32),
                         max_new_tokens=new_tokens) for n in prompts]
@@ -626,12 +691,13 @@ def check_serve(torch, r, cfg) -> dict:
     check(k3_prefill == groups, f"prefill launched K3 {k3_prefill} times, not {groups}")
     check(k4_prefill == cfg.n_layers, f"prefill launched K4 {k4_prefill} times, not {cfg.n_layers}")
     check((k3_end, k4_end) == (k3_prefill, k4_prefill), "decode launched K3 or K4")
-    routes = {r: seen["k3_routes_at_first_decode"][r] - seen["k3_routes_before"][r]
-              for r in seen["k3_routes_before"]}
     route = expected_route(cfg.dtype)
-    log(f"  prefill K3 launches by route: {routes}")
-    check(routes == {**{r: 0 for r in routes}, route: groups},
-          f"prefill launched K3 {routes}, not {groups} on the {route} route")
+    for kname, want in (("k3", groups), ("k4", cfg.n_layers)):
+        routes = {r: seen[f"{kname}_routes_at_first_decode"][r] - seen[f"{kname}_routes_before"][r]
+                  for r in seen[f"{kname}_routes_before"]}
+        log(f"  prefill {kname.upper()} launches by route: {routes}")
+        check(routes == {**{r: 0 for r in routes}, route: want},
+              f"prefill launched {kname.upper()} {routes}, not {want} on the {route} route")
     check(seen["prefill_logits_shape"] == (len(requests), 1, cfg.vocab),
           f"prefill logits shape {seen['prefill_logits_shape']}")
     check(all(bool(f.item()) for f in seen["finite"]), "serving produced non-finite logits")
@@ -661,28 +727,29 @@ def check_serve(torch, r, cfg) -> dict:
 
 def _kernel_times(torch, prof):
     """Device time (ms) of a profiled window by kernel class, from the
-    profiler's device-side events, and the heaviest kernels of ``other``."""
+    profiler's device-side events; the heaviest kernels of ``other``; and
+    K4's time in each of its passes (both routes)."""
     cuda = torch.autograd.DeviceType.CUDA
     out = {"flash (K3)": 0.0, "ssd (K4)": 0.0, "matmul (cuBLAS)": 0.0, "other": 0.0}
-    other = []
+    other, k4 = [], {}
     for e in prof.key_averages():
         if e.device_type != cuda:
             continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
+        us = _device_us(e)
         name = e.key.lower()
+        k4_pass = _k4_pass(name)
         if "flash_fwd_kernel" in name or "flash_sm90_kernel" in name:
             key = "flash (K3)"
-        elif "ssd_kernel" in name:
+        elif k4_pass:
             key = "ssd (K4)"
+            k4[k4_pass] = k4.get(k4_pass, 0.0) + us / 1e3
         elif any(w in name for w in ("gemm", "cutlass", "xmma", "cublas", "nvjet")):
             key = "matmul (cuBLAS)"
         else:
             key = "other"
             other.append((us / 1e3, e.count, e.key[:60]))
         out[key] += us / 1e3
-    return out, sorted(other, reverse=True)[:4]
+    return out, sorted(other, reverse=True)[:4], k4
 
 
 def profile_serve(torch, engine, prompts, wall_prefill_ms, wall_decode_ms, steps=2) -> dict:
@@ -715,7 +782,7 @@ def profile_serve(torch, engine, prompts, wall_prefill_ms, wall_decode_ms, steps
             torch.cuda.synchronize()
         out["decode step"] = (*_kernel_times(torch, prof), wall_decode_ms, steps)
     stats = {}
-    for what, (times, other, wall, n) in out.items():
+    for what, (times, other, k4, wall, n) in out.items():
         times = {k: v / n for k, v in times.items()}
         busy = sum(times.values())
         if busy == 0.0:
@@ -726,7 +793,11 @@ def profile_serve(torch, engine, prompts, wall_prefill_ms, wall_decode_ms, steps
             f"({100 * busy / wall:.1f} % busy, {100 * (1 - busy / wall):.1f} % idle); {parts} ms")
         log(f"    heaviest of other (ms, launches, kernel): "
             + "; ".join(f"{ms / n:.2f}, {c // n}, {k}" for ms, c, k in other))
-        stats[what] = dict(device_ms=busy, wall_ms=wall, **times)
+        if k4:
+            log("    K4 by pass: " + ", ".join(f"{k} {k4[k] / n:.2f}" for k in K4_PASSES if k in k4)
+                + " ms")
+        stats[what] = dict(device_ms=busy, wall_ms=wall, **times,
+                           k4_pass_ms={k: v / n for k, v in k4.items()})
     return stats
 
 
@@ -734,6 +805,7 @@ def parity_phase(torch, device) -> dict:
     """Zamba2 at full widths in fp32, 6 layers: prefill logits with K3/K4
     against the plain path, and teacher-forced decode against a longer
     prefill."""
+    from repro_torch.kernels.ssd import ssd_cuda
     from repro_torch.models import build_model
 
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
@@ -744,8 +816,13 @@ def parity_phase(torch, device) -> dict:
     tokens = torch.randint(0, cfg.vocab, (PARITY_BATCH, PARITY_PROMPT), generator=gen,
                            device=device)
     out = {}
+    k4_before = dict(ssd_cuda.launches_by_route)
     with torch.inference_mode():
         got, _ = kernels.prefill(params, {"tokens": tokens})
+        k4 = {r: ssd_cuda.launches_by_route[r] - k4_before[r] for r in k4_before}
+        check(device.type != "cuda" or k4 == {"wgmma": 0, "fma": PARITY_LAYERS},
+              f"fp32 parity prefill launched K4 {k4}, not {PARITY_LAYERS} on the fma route")
+        log(f"  fp32 parity prefill K4 launches by route: {k4}")
         want, _ = plain.prefill(params, {"tokens": tokens})
         err = (got - want).abs().max().item()
         ok = bool(torch.isclose(got, want, rtol=PARITY_TOL, atol=PARITY_TOL).all().item())
@@ -808,14 +885,14 @@ def main() -> int:
         return time.perf_counter() - t
 
     t = time.perf_counter()
-    sources = (*k1.SOURCES.values(), *k3.SOURCES.values(), k4.SOURCE)
+    sources = (*k1.SOURCES.values(), *k3.SOURCES.values(), *k4.SOURCES.values())
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, all at once
         took = list(pool.map(timed_build, sources))
     for source, sec in zip(sources, took):
         build.load(source)
         log(f"build: nvcc {source.name} for sm_90a: {sec:.2f} s")
     log(f"build: all CUDA sources: {time.perf_counter() - t:.2f} s")
-    for source in (k1.SOURCE_SM90, k3.SOURCE_SM90):
+    for source in (k1.SOURCE_SM90, k3.SOURCE_SM90, k4.SOURCE_SM90):
         entries = ptxas_summary(source)
         check(len(entries) > 0, f"ptxas reported no tensor-core kernel in {source.name}")
         for e in entries:
@@ -889,7 +966,8 @@ def main() -> int:
     t = time.perf_counter()
     served = serve_path(torch, cfg, torch.device("cuda"), SERVE_PROMPTS, SERVE_NEW_TOKENS)
     path2 = read_counts()
-    routes2 = dict(flash_attention_cuda.launches_by_route)
+    routes2 = {"flash": dict(flash_attention_cuda.launches_by_route),
+               "ssd": dict(ssd_cuda.launches_by_route)}
     log(f"  phase main path 2: {time.perf_counter() - t:.3f} s; kernel launches {path2}")
     check(path2["flash"] > 0, "main path 2 never launched K3")
     check(path2["ssd"] > 0, "main path 2 never launched K4")
@@ -918,16 +996,16 @@ def main() -> int:
     log("serve: " + json.dumps({**serve_stats, **parity}))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
 
-    # the bf16 kernels of each path; K1 and K3 on their tensor-core route
+    # the bf16 kernels of each path; K1, K3 and K4 on their tensor-core route
     sources = {
         "matmul": ("cuda", "src/repro_torch/kernels/matmul/csrc/matmul_sm90.cu",
                    "src/repro/kernels/matmul/kernel.py:52", path1, routes1),
         "rmsnorm": ("triton", "src/repro_torch/kernels/rmsnorm/kernel.py",
                     "src/repro/kernels/rmsnorm/kernel.py:37", path1, None),
         "flash": ("cuda", "src/repro_torch/kernels/flash/csrc/flash_sm90.cu",
-                  "src/repro/kernels/flash/kernel.py:79", path2, routes2),
-        "ssd": ("cuda", "src/repro_torch/kernels/ssd/csrc/ssd.cu",
-                "src/repro/kernels/ssd/kernel.py:80", path2, None),
+                  "src/repro/kernels/flash/kernel.py:79", path2, routes2["flash"]),
+        "ssd": ("cuda", "src/repro_torch/kernels/ssd/csrc/ssd_sm90.cu",
+                "src/repro/kernels/ssd/kernel.py:80", path2, routes2["ssd"]),
     }
     for name in sources:
         log(f"  {name}[float32]: " + json.dumps(kernels["float32"][name]))
@@ -942,6 +1020,8 @@ def main() -> int:
         }
         if by_route is not None:
             entry.update(kernel_route=k["kernel_route"], launches_by_route=by_route)
+        if "pass_ms" in k:
+            entry["pass_ms"] = k["pass_ms"]
         record["kernels"].append(entry)
     print(smi)
     print(json.dumps(record))

@@ -12,8 +12,11 @@ CPU tensor to the plain version.
 * ``flash``   — K3, CUDA C++: bf16 on the tensor cores
   (``flash/csrc/flash_sm90.cu``), fp32 on the CUDA cores
   (``flash/csrc/flash.cu``).
+* ``ssd``     — K4, CUDA C++, three chunk-parallel passes: bf16 at
+  P = N = chunk = 64 on the tensor cores (``ssd/csrc/ssd_sm90.cu``), the
+  rest on the CUDA cores (``ssd/csrc/ssd.cu``); the recurrence pass both
+  share is in ``ssd/csrc/ssd_common.cuh``.
 
 ``csrc/sm90.cuh`` holds the Hopper building blocks (TMA, mbarriers, wgmma
-descriptors, tensor maps) the two tensor-core kernels share.
-* ``ssd``     — K4, CUDA C++ (``ssd/csrc/ssd.cu``).
+descriptors, tensor maps) the three tensor-core kernels share.
 """

@@ -2,14 +2,15 @@
 
 Each kernel package keeps its CUDA C++ under ``csrc/`` behind a plain C
 interface (no PyTorch headers, so a build takes seconds); the Hopper
-building blocks the tensor-core kernels share are in ``kernels/csrc/``.
+building blocks the tensor-core kernels share are in ``kernels/csrc/``,
+and what a kernel's routes share in headers beside its sources.
 At first use the source is compiled for Hopper (``sm_90a``) into
 ``repro_torch/_build/`` — listed in ``.gitignore`` — under a name keyed by
-a hash of the source, the shared headers and the flags, so an edited
-source is rebuilt and an unchanged one is loaded as it is.  ``ptxas -v``
-reports each kernel's registers, shared memory and spills; the report is
-kept beside the library (:func:`ptxas_report`).  Nothing is built when a
-module is imported.
+a hash of the source, the headers it can include and the flags, so an
+edited source or header is rebuilt and an unchanged one is loaded as it
+is.  ``ptxas -v`` reports each kernel's registers, shared memory and
+spills; the report is kept beside the library (:func:`ptxas_report`).
+Nothing is built when a module is imported.
 """
 
 from __future__ import annotations
@@ -50,7 +51,7 @@ def nvcc_path() -> str:
 
 def library_path(source: Path) -> Path:
     digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    for header in sorted(SHARED_HEADERS.glob("*.cuh")):
+    for header in sorted({*SHARED_HEADERS.glob("*.cuh"), *source.parent.glob("*.cuh")}):
         digest.update(header.read_bytes())
     return BUILD_DIR / f"{source.stem}-{digest.hexdigest()[:16]}.so"
 

@@ -10,9 +10,9 @@ The file imports no JAX, so it runs where only the port is installed.
 Tolerances: kernel against plain version fp32 rtol 2e-5 / atol 2e-4 (K1's
 fp32 sum runs in another order), bf16 2e-2; K3 and K4 fp32 rtol and atol
 1e-4 (sums of up to T products and an online softmax in another order);
-everything else bit for bit.  K1 and K3 have two routes each (tensor-core
-``wgmma`` kernels for bf16, CUDA-core ``fma`` kernels otherwise); the
-tests count the launches of each.
+everything else bit for bit.  K1, K3 and K4 have two routes each
+(tensor-core ``wgmma`` kernels for bf16, CUDA-core ``fma`` kernels
+otherwise); the tests count the launches of each.
 """
 
 import math
@@ -266,6 +266,33 @@ def test_ssd_kernel_matches_plain(dev, B, S, H, P, N, chunk, per_head, dtype):
         Yr, finr = ssd_reference(X, la, Bm, Cm, chunk=chunk, initial_state=state)
         torch.testing.assert_close(Y.float(), Yr.float(), **tol)
         torch.testing.assert_close(fin.float(), finr.float(), **tol)
+
+
+@pytest.mark.parametrize("P", [32, 64, 128])
+@pytest.mark.parametrize("per_head", [False, True])
+@pytest.mark.parametrize("B,S,H", [
+    (2, 64, 4),     # one whole chunk
+    (1, 200, 3),    # ragged last chunk
+    (1, 4096, 8),   # the serving length: 64 chunks of state passing
+    (2, 40, 2),     # S < chunk
+])
+def test_ssd_tensor_core_route(dev, P, per_head, B, S, H):
+    from repro_torch.kernels.ssd import ssd, ssd_cuda, ssd_reference, tensor_core_route
+
+    X, la, Bm, Cm, init = _ssd_inputs(dev, B, S, H, P, 64, torch.float32, per_head, seed=S + P)
+    for dtype in (torch.bfloat16, torch.float32):
+        route = "wgmma" if tensor_core_route(dtype, P, 64, 64) else "fma"
+        assert route == ("wgmma" if dtype == torch.bfloat16 and P == 64 else "fma")
+        Xd, Bd, Cd = (t.to(dtype) for t in (X, Bm, Cm))
+        tol = dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 else dict(rtol=1e-4, atol=1e-4)
+        for state in (None, init):
+            before = _routes(ssd_cuda)
+            Y, fin = ssd(Xd, la, Bd, Cd, chunk=64, initial_state=state)
+            _launched(ssd_cuda, before, route)
+            assert Y.dtype == fin.dtype == dtype and Y.shape == X.shape
+            Yr, finr = ssd_reference(Xd, la, Bd, Cd, chunk=64, initial_state=state)
+            torch.testing.assert_close(Y.float(), Yr.float(), **tol)
+            torch.testing.assert_close(fin.float(), finr.float(), **tol)
 
 
 def test_flash_and_ssd_refuse_what_they_cannot_take(dev):

@@ -26,7 +26,8 @@ from repro_torch.kernels.flash import tensor_core_route as flash_tc_route
 from repro_torch.kernels.matmul import matmul, matmul_cuda, matmul_reference, matmul_route, tiles_exactly
 from repro_torch.kernels.matmul import tensor_core_route as matmul_tc_route
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_reference, rmsnorm_triton
-from repro_torch.kernels.ssd import ssd, ssd_cuda, ssd_decode_step
+from repro_torch.kernels.ssd import ssd, ssd_cuda, ssd_decode_step, ssd_reference
+from repro_torch.kernels.ssd import tensor_core_route as ssd_tc_route
 
 given, settings, st = hypothesis_or_stubs()
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -308,11 +309,77 @@ def test_ssd_preconditions():
         ssd_cuda(X, la, Bm, Bm)
 
 
-# ------------------------------------------------ K1 and K3 kernel routes
-# On a CUDA tensor K1 and K3 launch one of two hand-written kernels, chosen
-# by a pure predicate: bf16 shapes TMA can address go to the tensor-core
-# kernel (wgmma), the rest to the CUDA-core kernel (fma).  The predicates
-# run here; the kernels only on the card (tests/test_torch_cuda.py).
+def _bf16(t):
+    return t.to(torch.bfloat16).float()
+
+
+def _bf16_pair(t):
+    """``t`` as the kernel carries it in a bf16 hi + lo pair."""
+    hi = _bf16(t)
+    return hi + _bf16(t - hi)
+
+
+def _ssd_tensor_core_arithmetic(X, la, Bm, Cm, init, L=64):
+    """K4's tensor-core route (``ssd_sm90.cu``) in fp32 on the CPU, rounded
+    to bf16 where the kernel rounds: X, B and C as they arrive, the state
+    before each chunk (pass 2) and Y (pass 3); dte·B (pass 1) and W (pass 3)
+    go to wgmma as bf16 hi + lo pairs."""
+    import torch.nn.functional as F
+
+    B, S, H, P = X.shape
+    pad = -S % L
+    X, la = F.pad(X, (0, 0, 0, 0, 0, pad)), F.pad(la, (0, 0, 0, pad))
+    spec = (0, 0) * (Bm.ndim - 2) + (0, pad)
+    nc = X.shape[1] // L
+
+    def per_head(m):
+        m = _bf16(F.pad(m, spec))
+        m = m[:, :, None] if m.ndim == 3 else m
+        return m.reshape(B, nc, L, -1, m.shape[-1]).expand(-1, -1, -1, H, -1)
+
+    Xc, Bc, Cc = _bf16(X).reshape(B, nc, L, H, P), per_head(Bm), per_head(Cm)
+    cum = torch.cumsum(la.reshape(B, nc, L, H), 2)
+    total = cum[:, :, -1]
+    Bd = _bf16_pair(Bc * torch.exp(total[:, :, None] - cum)[..., None])
+    states = torch.einsum("bclhp,bclhn->bchpn", Xc, Bd)
+    R, before = init.clone(), []
+    for c in range(nc):
+        before.append(_bf16(R))
+        R = R * torch.exp(total[:, c])[:, :, None, None] + states[:, c]
+    Y = torch.einsum("bclhn,bchpn->bclhp", Cc, torch.stack(before, 1)) * torch.exp(cum)[..., None]
+    tri = torch.tril(torch.ones(L, L, dtype=torch.bool))
+    dec = torch.where(tri[None, None, :, :, None], torch.exp(cum[:, :, :, None] - cum[:, :, None]), 0.0)
+    W = _bf16_pair(torch.einsum("bcthn,bcshn->bctsh", Cc, Bc) * dec)
+    Y = Y + torch.einsum("bctsh,bcshp->bcthp", W, Xc)
+    return _bf16(Y.reshape(B, -1, H, P)[:, :S]), _bf16(R)
+
+
+@pytest.mark.parametrize("per_head", [False, True])
+def test_ssd_tensor_core_rounding_within_bf16_tolerance(per_head):
+    """At Zamba2's P = N = L = 64, with a ragged last chunk and an initial
+    state, the bf16 rounding points of K4's tensor-core route keep it
+    within the bf16 tolerance of ``ssd_reference`` computed in fp32."""
+    rng = np.random.default_rng(7)
+    B, S, H, P, N = 2, 4 * 64 + 17, 3, 64, 64
+    bc = (B, S, H, N) if per_head else (B, S, N)
+    X = torch.from_numpy(rng.normal(size=(B, S, H, P)).astype(np.float32))
+    la = torch.from_numpy((-rng.uniform(size=(B, S, H)) * 0.3).astype(np.float32))
+    Bm, Cm = (torch.from_numpy((rng.normal(size=bc) * 0.3).astype(np.float32)) for _ in range(2))
+    init = torch.from_numpy((rng.normal(size=(B, H, P, N)) * 0.1).astype(np.float32))
+    assert ssd_tc_route(torch.bfloat16, P, N, 64)
+    want_Y, want_fin = ssd_reference(_bf16(X), la, _bf16(Bm), _bf16(Cm), chunk=64,
+                                     initial_state=init)
+    got_Y, got_fin = _ssd_tensor_core_arithmetic(X, la, Bm, Cm, init)
+    np.testing.assert_allclose(got_Y.numpy(), want_Y.numpy(), rtol=2e-2, atol=2e-2)
+    np.testing.assert_allclose(got_fin.numpy(), want_fin.numpy(), rtol=2e-2, atol=2e-2)
+
+
+# -------------------------------------------- K1, K3 and K4 kernel routes
+# On a CUDA tensor K1, K3 and K4 launch one of two hand-written kernels,
+# chosen by a pure predicate: bf16 shapes the tensor-core kernel (wgmma, fed
+# by TMA) takes go there, the rest to the CUDA-core kernel (fma).  The
+# predicates run here; the kernels only on the card
+# (tests/test_torch_cuda.py).
 
 
 @pytest.mark.parametrize("dtype,K,N,want", [
@@ -343,6 +410,20 @@ def test_matmul_tensor_core_route_predicate(dtype, K, N, want):
 ])
 def test_flash_tensor_core_route_predicate(dtype, D, want):
     assert flash_tc_route(dtype, D) is want
+
+
+@pytest.mark.parametrize("dtype,P,N,chunk,want", [
+    (torch.bfloat16, 64, 64, 64, True),    # Zamba2, shared or per-head B/C alike
+    (torch.bfloat16, 32, 64, 64, False),   # one wgmma m64n64 tile per product only
+    (torch.bfloat16, 128, 64, 64, False),
+    (torch.bfloat16, 64, 32, 64, False),
+    (torch.bfloat16, 64, 64, 32, False),
+    (torch.bfloat16, 64, 64, 128, False),
+    (torch.float32, 64, 64, 64, False),    # fp32 stays on the CUDA cores
+    (torch.float32, 128, 64, 128, False),
+])
+def test_ssd_tensor_core_route_predicate(dtype, P, N, chunk, want):
+    assert ssd_tc_route(dtype, P, N, chunk) is want
 
 
 @settings(max_examples=200, deadline=None)
@@ -376,15 +457,23 @@ def test_cpu_tensors_take_the_plain_versions(dtype):
     w = torch.from_numpy(rng.normal(size=(64, 40)).astype(np.float32)).to(tdt)
     q, k, v = (torch.from_numpy(rng.normal(size=(1, 70, h, 80)).astype(np.float32)).to(tdt)
                for h in (4, 2, 2))
-    counts = (dict(matmul_cuda.launches_by_route), dict(flash_attention_cuda.launches_by_route),
-              matmul_cuda.launches, flash_attention_cuda.launches)
+    X = torch.from_numpy(rng.normal(size=(1, 70, 2, 64)).astype(np.float32)).to(tdt)
+    la = torch.from_numpy(-rng.uniform(size=(1, 70, 2)).astype(np.float32))
+    bc = torch.from_numpy(rng.normal(size=(1, 70, 64)).astype(np.float32)).to(tdt)
+    fns = (matmul_cuda, flash_attention_cuda, ssd_cuda)
+
+    def counts():
+        return [(dict(fn.launches_by_route), fn.launches) for fn in fns]
+
+    before = counts()
     assert torch.equal(matmul(x, w), matmul_reference(x, w))
     assert torch.equal(flash_attention(q, k, v), attention_reference(q, k, v))
-    assert (dict(matmul_cuda.launches_by_route), dict(flash_attention_cuda.launches_by_route),
-            matmul_cuda.launches, flash_attention_cuda.launches) == counts
+    for got, want in zip(ssd(X, la, bc, bc), ssd_reference(X, la, bc, bc)):
+        assert torch.equal(got, want)
+    assert counts() == before
 
 
-@pytest.mark.parametrize("name", ["matmul", "flash"])
+@pytest.mark.parametrize("name", ["matmul", "flash", "ssd"])
 def test_tensor_core_sources_are_in_the_package(name):
     import importlib
 
@@ -400,5 +489,6 @@ def test_tensor_core_sources_are_in_the_package(name):
     assert (SHARED_HEADERS / "sm90.cuh").exists()
     assert library_path(src) != library_path(mod.SOURCE)
     assert ptxas_report(src) == "" or "registers" in ptxas_report(src)
-    counter = mod.matmul_cuda if name == "matmul" else mod.flash_attention_cuda
+    counter = getattr(mod, {"matmul": "matmul_cuda", "flash": "flash_attention_cuda",
+                             "ssd": "ssd_cuda"}[name])
     assert set(counter.launches_by_route) == {"wgmma", "fma"}

@@ -27,9 +27,19 @@ and then drives the port's two main paths:
    prompt tokens, 16 new tokens each, whose prefill runs flash attention
    (K3) and the SSD scan (K4).
 
+3. serving OLMoE-1B-7B at its published widths and depth (16 MoE layers,
+   64 experts top-8, random weights from seed 0), the same requests,
+   whose prefill runs K3 at head dim 128 (16 launches);
+
+4. serving DeepSeek-V2-Lite at its published widths with depth cut to 4
+   layers (MLA, 2 shared + 64 routed experts top-6), the same requests;
+   MLA and MoE run plain PyTorch, as in the reference: no kernel.
+
 A parity phase then holds Zamba2's prefill with the kernels against its
 plain path in fp32 (6 layers, batch 2, 512 tokens), and teacher-forced
-decode against a longer prefill.  Every check that fails raises, so the
+decode against a longer prefill; a second holds OLMoE's the same way (2
+layers), counting routing flips, and DeepSeek's absorbed MLA decode
+against its expanded prefill.  Every check that fails raises, so the
 script exits non-zero and prints no result line.  It exits non-zero at once when CUDA is not available or the
 ``repro_torch`` package is not beside it.  The last line is the device
 summary ``{"ok": true, "device": {...}}``; the line before it is the
@@ -39,6 +49,7 @@ limit from ``nvidia-smi``.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import re
@@ -61,20 +72,26 @@ BLOCKS = (128, 128, 128)
 EPS = 1e-5
 SEED = 0
 
-# Zamba2-2.7B serving (src/repro_torch/configs/zamba2_2_7b.py): batch 4,
-# ragged prompts up to 4096 tokens, 16 new tokens each
+# Serving Zamba2-2.7B, OLMoE-1B-7B and DeepSeek-V2-Lite
+# (src/repro_torch/configs/): batch 4, ragged prompts up to 4096 tokens,
+# 16 new tokens each
 SERVE_PROMPTS = (4096, 3072, 2048, 1024)
 SERVE_NEW_TOKENS = 16
 SERVE_TP = 8
-# K3 at the serving prefill (B, S, H, K, D); the GQA and ragged cases
-FLASH_SHAPES = {"serving": (4, 4096, 32, 32, 80), "gqa": (2, 256, 8, 2, 64),
-                "ragged": (1, 200, 32, 32, 80)}
+DEEPSEEK_LAYERS = 4    # the dense front layer and 3 MoE layers: 2.255 B parameters
+# K3 at Zamba2's and OLMoE's serving prefill (B, S, H, K, D); the GQA and
+# ragged cases
+FLASH_SHAPES = {"serving": (4, 4096, 32, 32, 80), "olmoe": (4, 4096, 16, 16, 128),
+                "gqa": (2, 256, 8, 2, 64), "ragged": (1, 200, 32, 32, 80)}
+FLASH_TIMED = ("serving", "olmoe")
 # K4 at the serving prefill (B, S, H, P, N, chunk), shared B/C; the per-head
 # and ragged cases
 SSD_SHAPES = {"serving": (4, 4096, 80, 64, 64, 64), "per_head": (2, 512, 8, 64, 64, 64),
               "ragged": (2, 1000, 80, 64, 64, 64)}
-# parity: Zamba2 at full widths in fp32, cut to one shared-attention group
+# parity: Zamba2 at full widths in fp32, cut to one shared-attention group;
+# OLMoE and DeepSeek-V2-Lite at full widths in fp32, cut to 2 layers
 PARITY_LAYERS, PARITY_BATCH, PARITY_PROMPT = 6, 2, 512
+DECODER_PARITY_LAYERS = 2
 PARITY_TOL = 1e-3      # same algorithms, fp32 sums in other orders
 CONTINUATION_TOL = 2e-2  # tests/test_models_smoke.py's decode-vs-prefill tolerance
 
@@ -277,8 +294,9 @@ def kernel_phase(torch, gen, dtype_name: str) -> dict:
 
 
 def flash_kernel_phase(torch, gen, dtype_name: str) -> dict:
-    """K3 against its plain version at the serving, GQA and ragged shapes;
-    timed at the serving shape beside SDPA."""
+    """K3 against its plain version at the two serving shapes (Zamba2's,
+    OLMoE's), GQA and ragged shapes; timed at the serving shapes beside
+    SDPA (``flash`` for Zamba2's, ``flash_olmoe`` for OLMoE's)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash import attention_reference, flash_attention_cuda
@@ -301,7 +319,8 @@ def flash_kernel_phase(torch, gen, dtype_name: str) -> dict:
             log(f"  flash {case} {(B, S, H, K, D)} causal={causal}, {route} route:")
             err = compare(torch, got, want, "flash", dtype_name)
             del got, want
-        if case != "serving":
+        if case not in FLASH_TIMED:
+            del q, k, v
             continue
         ms = time_ms(torch, lambda: flash_attention_cuda(q, k, v, causal=True), 3)
         plain_ms = time_ms(torch, lambda: [attention_reference(q[b:b + 1], k[b:b + 1], v[b:b + 1])
@@ -312,9 +331,10 @@ def flash_kernel_phase(torch, gen, dtype_name: str) -> dict:
         flops = 2.0 * B * H * S * S * D  # causal: half of QKᵀ and PV, 2 ops per MAC
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         b_ms, b_by = bound(flops, nbytes, dtype_name)
-        out["flash"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                            bound_by=b_by, library_ms=lib_ms, shape=[B, S, H, K, D],
-                            kernel_route=route)
+        key = "flash" if case == "serving" else f"flash_{case}"
+        out[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                        bound_by=b_by, library_ms=lib_ms, shape=[B, S, H, K, D],
+                        kernel_route=route)
         log(f"  flash[{dtype_name}] {(B, S, H, K, D)} causal: kernel {ms:.3f} ms, plain "
             f"{plain_ms:.3f} ms (per batch row), SDPA {lib_ms:.3f} ms, bound {b_ms:.3f} ms "
             f"({b_by}), {flops / ms / 1e9:.1f} TFLOP/s")
@@ -617,16 +637,26 @@ def warm_timings(torch, r) -> None:
 # ------------------------------------------------------- serve path phase
 
 
-def zamba2_config(use_pallas: bool, **cut):
+def model_config(arch: str, use_pallas: bool, **cut):
     from repro_torch.configs import get_config
 
-    return replace(get_config("zamba2-2.7b"), use_pallas=use_pallas, **cut)
+    return replace(get_config(arch), use_pallas=use_pallas, **cut)
+
+
+def prefill_launches(cfg) -> dict:
+    """K3's and K4's launches per prefill of ``cfg``'s model with the
+    kernels on: Zamba2 runs K3 once per shared-attention group and K4 in
+    every Mamba-2 layer; a decoder runs K3 in every GQA layer, and MLA
+    runs none (its attention is plain einsums, as in the reference)."""
+    if cfg.family == "hybrid":
+        return {"flash": cfg.n_layers // cfg.hybrid.shared_attn_every, "ssd": cfg.n_layers}
+    return {"flash": 0 if cfg.mla else cfg.n_layers, "ssd": 0}
 
 
 def serve_path(torch, cfg, device, prompts, new_tokens, seed=SEED) -> dict:
-    """Zamba2 serving, as a user calls it: a ServeEngine on the card with
-    random weights, ``generate`` on ragged requests.  Returns what it
-    produced, for the checks made after the counted window."""
+    """Serving, as a user calls it: a ServeEngine on the card with random
+    weights, ``generate`` on ragged requests.  Returns what it produced,
+    for the checks made after the counted window."""
     import numpy as np
 
     from repro_torch import PcclSession
@@ -683,16 +713,16 @@ def check_serve(torch, r, cfg) -> dict:
     """What the serve path produced: kernel launches per phase, finite
     logits, tokens in range; the engine's timings and communication report."""
     engine, seen, requests = r["engine"], r["seen"], r["requests"]
-    groups = cfg.n_layers // cfg.hybrid.shared_attn_every
+    want_k3, want_k4 = prefill_launches(cfg).values()
     k3_prefill, k4_prefill = seen["at_first_decode"]
     k3_end, k4_end = r["launches_end"]
     log(f"  launches: prefill K3 {k3_prefill}, K4 {k4_prefill}; decode K3 {k3_end - k3_prefill}, "
         f"K4 {k4_end - k4_prefill}")
-    check(k3_prefill == groups, f"prefill launched K3 {k3_prefill} times, not {groups}")
-    check(k4_prefill == cfg.n_layers, f"prefill launched K4 {k4_prefill} times, not {cfg.n_layers}")
+    check(k3_prefill == want_k3, f"prefill launched K3 {k3_prefill} times, not {want_k3}")
+    check(k4_prefill == want_k4, f"prefill launched K4 {k4_prefill} times, not {want_k4}")
     check((k3_end, k4_end) == (k3_prefill, k4_prefill), "decode launched K3 or K4")
     route = expected_route(cfg.dtype)
-    for kname, want in (("k3", groups), ("k4", cfg.n_layers)):
+    for kname, want in (("k3", want_k3), ("k4", want_k4)):
         routes = {r: seen[f"{kname}_routes_at_first_decode"][r] - seen[f"{kname}_routes_before"][r]
                   for r in seen[f"{kname}_routes_before"]}
         log(f"  prefill {kname.upper()} launches by route: {routes}")
@@ -711,7 +741,7 @@ def check_serve(torch, r, cfg) -> dict:
                decode_ms_per_token=tm["decode_s"] * 1e3 / max(tm["decode_steps"], 1),
                tokens_per_s=n_new / (tm["prefill_s"] + tm["decode_s"]),
                decode_tokens_per_s=len(requests) * tm["decode_steps"] / max(tm["decode_s"], 1e-9),
-               wall_s=r["wall"])
+               wall_s=r["wall"], prefill_launches={"flash": k3_prefill, "ssd": k4_prefill})
     rep = engine.comm_report()
     log(f"  {len(requests)} requests, prompts {[len(q.prompt) for q in requests]} "
         f"({prompt_tokens} tokens, left-padded to {max(len(q.prompt) for q in requests)}), "
@@ -810,7 +840,8 @@ def parity_phase(torch, device) -> dict:
 
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
     cut = dict(n_layers=PARITY_LAYERS, dtype="float32")
-    kernels, plain = build_model(zamba2_config(True, **cut)), build_model(zamba2_config(False, **cut))
+    kernels = build_model(model_config("zamba2-2.7b", True, **cut))
+    plain = build_model(model_config("zamba2-2.7b", False, **cut))
     params = kernels.init(gen, device)
     cfg = kernels.cfg
     tokens = torch.randint(0, cfg.vocab, (PARITY_BATCH, PARITY_PROMPT), generator=gen,
@@ -842,6 +873,128 @@ def parity_phase(torch, device) -> dict:
             f"prefill's last logits: max_abs_err={err:.3e} (tol {CONTINUATION_TOL})")
         check(ok, "teacher-forced decode disagrees with the longer prefill")
         out["continuation_max_abs_err"] = err
+    return out
+
+
+class RouteRecorder:
+    """The top-k expert ids (on the device) of every MoE routing call, in
+    call order, while installed: it wraps the port's ``moe.route``, which
+    ``apply_moe`` looks up at each call."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.route, self.calls = moe, moe.route, []
+
+        def route(p, cfg, x):
+            r = self.route(p, cfg, x)
+            self.calls.append(r.experts)
+            return r
+
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.route
+
+
+def routing_flips(a, b) -> int:
+    """(row, token, layer) triples whose top-k expert sets differ between
+    two lists of per-layer expert ids of the same shapes."""
+    check(len(a) == len(b), f"routing calls differ in number: {len(a)} vs {len(b)}")
+    return sum(int((x.sort(-1).values != y.sort(-1).values).any(-1).sum().item())
+               for x, y in zip(a, b))
+
+
+def no_drop(cfg):
+    """``cfg`` with capacity_factor E/K: C = S, so no copy is dropped.  Decode
+    equals a longer prefill only then (src/repro/configs/base.py:146-147):
+    at 1.25 a prefill drops the latest copies of every overflowing expert,
+    and a decode step (C = 1 per expert, K distinct experts) drops none."""
+    return replace(cfg, moe=replace(cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+
+
+def continuation(torch, model, params, tokens, what: str) -> dict:
+    """Teacher-forced decode of the last two tokens after a shorter prefill
+    against the full prefill's last logits, counting the routing flips
+    between each decode step and the prefill at the same token."""
+    S, L = tokens.shape[1], model.cfg.n_layers
+    with RouteRecorder() as rec:
+        want, _ = model.prefill(params, {"tokens": tokens})
+        full = list(rec.calls)
+        _, state = model.prefill(params, {"tokens": tokens[:, :-2]})
+        rec.calls.clear()
+        for i in (S - 2, S - 1):
+            step, state = model.decode_step(params, state, tokens[:, i:i + 1])
+    moe_layers = len(full)
+    decoded = rec.calls
+    flips = routing_flips([f[:, S - 2 + j:S - 1 + j] for j in range(2) for f in full], decoded) \
+        if moe_layers else 0
+    err = (step[:, -1] - want[:, -1]).abs().max().item()
+    ok = bool(torch.isclose(step[:, -1], want[:, -1], rtol=CONTINUATION_TOL,
+                            atol=CONTINUATION_TOL).all().item())
+    log(f"  {what}: decode after a {S - 2}-token prefill vs the {S}-token prefill's last "
+        f"logits ({L} layers): max_abs_err={err:.3e} (tol {CONTINUATION_TOL}); routing flips "
+        f"between decode and prefill: {flips} of {2 * tokens.shape[0] * moe_layers} "
+        f"(row, token, layer) triples")
+    check(ok, f"{what}: teacher-forced decode disagrees with the longer prefill"
+          + (f" ({flips} routing flips)" if flips else " (a numeric difference, no routing flip)"))
+    return {"continuation_max_abs_err": err, "continuation_routing_flips": flips}
+
+
+def decoder_parity_phase(torch, device) -> dict:
+    """OLMoE at full widths in fp32, 2 layers: prefill logits with K3 (the
+    fma route) against the plain path at the config's capacity 1.25,
+    counting routing flips; then, for OLMoE and for DeepSeek-V2-Lite (MLA's
+    absorbed decode against its expanded prefill), teacher-forced decode
+    against a longer prefill with no copy dropped."""
+    from repro_torch.kernels.flash import flash_attention_cuda
+    from repro_torch.models import build_model
+
+    out = {}
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    cut = dict(n_layers=DECODER_PARITY_LAYERS, dtype="float32")
+    kernels = build_model(model_config("olmoe-1b-7b", True, **cut))
+    plain = build_model(model_config("olmoe-1b-7b", False, **cut))
+    cfg = kernels.cfg
+    params = kernels.init(gen, device)
+    tokens = torch.randint(0, cfg.vocab, (PARITY_BATCH, PARITY_PROMPT), generator=gen,
+                           device=device)
+    with torch.inference_mode():
+        k3_before = dict(flash_attention_cuda.launches_by_route)
+        with RouteRecorder() as rec:
+            got, _ = kernels.prefill(params, {"tokens": tokens})
+            k3 = {r: flash_attention_cuda.launches_by_route[r] - k3_before[r] for r in k3_before}
+            with_k3 = list(rec.calls)
+            rec.calls.clear()
+            want, _ = plain.prefill(params, {"tokens": tokens})
+        check(device.type != "cuda" or k3 == {"wgmma": 0, "fma": cfg.n_layers},
+              f"OLMoE fp32 parity prefill launched K3 {k3}, not {cfg.n_layers} on the fma route")
+        log(f"  OLMoE fp32 parity prefill K3 launches by route: {k3}")
+        flips = routing_flips(with_k3, rec.calls)
+        err = (got - want).abs().max().item()
+        ok = bool(torch.isclose(got, want, rtol=PARITY_TOL, atol=PARITY_TOL).all().item())
+        log(f"  OLMoE prefill logits, K3 vs plain path (fp32, {cfg.n_layers} layers, capacity "
+            f"{cfg.moe.capacity_factor}, batch {PARITY_BATCH} x {PARITY_PROMPT}): "
+            f"max_abs_err={err:.3e} (tol rtol=atol={PARITY_TOL}, max |logit| "
+            f"{want.abs().max().item():.3f}); routing flips: {flips} of "
+            f"{PARITY_BATCH * PARITY_PROMPT * len(with_k3)} (row, token, layer) triples")
+        check(bool(torch.isfinite(got).all().item()) and ok,
+              "OLMoE prefill with K3 disagrees with the plain path"
+              + (f" ({flips} routing flips)" if flips else " (a numeric difference, no routing flip)"))
+        out.update(olmoe_prefill_max_abs_err=err, olmoe_prefill_routing_flips=flips)
+        log("  continuation checks run at capacity_factor E/K (C = S, no copy dropped): "
+            "decode equals a longer prefill only without drops (src/repro/configs/base.py:146-147)")
+        cont = continuation(torch, build_model(no_drop(cfg)), params, tokens,
+                            "OLMoE, capacity E/K = 8.0")
+        out.update({f"olmoe_{k}": v for k, v in cont.items()})
+        del params, got, want
+        ds = build_model(no_drop(model_config("deepseek-v2-lite-16b", True, **cut)))
+        params = ds.init(gen, device)
+        tokens = torch.randint(0, ds.cfg.vocab, tokens.shape, generator=gen, device=device)
+        cont = continuation(torch, ds, params, tokens,
+                            f"DeepSeek-V2-Lite MLA, capacity E/K = {ds.cfg.moe.capacity_factor:.3f}")
+        out.update({f"deepseek_{k}": v for k, v in cont.items()})
     return out
 
 
@@ -958,42 +1111,67 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"  phase warm timings: {time.perf_counter() - t:.3f} s")
 
-    cfg = zamba2_config(True)
-    log(f"== main path 2: serve {cfg.name} ({cfg.n_layers} Mamba-2 layers, d_model "
-        f"{cfg.d_model}, {cfg.dtype}), prompts {SERVE_PROMPTS}, {SERVE_NEW_TOKENS} new tokens")
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    t = time.perf_counter()
-    served = serve_path(torch, cfg, torch.device("cuda"), SERVE_PROMPTS, SERVE_NEW_TOKENS)
-    path2 = read_counts()
-    routes2 = {"flash": dict(flash_attention_cuda.launches_by_route),
-               "ssd": dict(ssd_cuda.launches_by_route)}
-    log(f"  phase main path 2: {time.perf_counter() - t:.3f} s; kernel launches {path2}")
-    check(path2["flash"] > 0, "main path 2 never launched K3")
-    check(path2["ssd"] > 0, "main path 2 never launched K4")
-    serve_stats = check_serve(torch, served, cfg)
-    log(f"  peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    t = time.perf_counter()
-    engine = served["engine"]
-    again = [type(q)(prompt=q.prompt, max_new_tokens=q.max_new_tokens) for q in served["requests"]]
-    engine.generate(again)
-    warm = engine.timings
-    log(f"  warm generate: prefill {warm['prefill_s'] * 1e3:.1f} ms, decode "
-        f"{warm['decode_s'] * 1e3 / warm['decode_steps']:.2f} ms per step; "
-        f"same tokens: {[q.generated for q in again] == [q.generated for q in served['requests']]}")
-    serve_stats.update(warm_prefill_ms=warm["prefill_s"] * 1e3,
-                       warm_decode_ms_per_token=warm["decode_s"] * 1e3 / warm["decode_steps"])
-    serve_stats["profile"] = profile_serve(torch, engine, SERVE_PROMPTS, serve_stats["warm_prefill_ms"],
-                                           serve_stats["warm_decode_ms_per_token"])
-    del served, engine, again
-    torch.cuda.empty_cache()
-    log(f"  phase warm generate: {time.perf_counter() - t:.3f} s")
+    def serve_phase(number: int, cfg, what: str):
+        """Serve ``cfg`` with the counts set to 0 just before and read just
+        after the counted ``generate``; then the checks, a warm
+        ``generate`` and the profile.  The engine is freed on return."""
+        log(f"== main path {number}: serve {cfg.name} ({what}, d_model {cfg.d_model}, "
+            f"{cfg.dtype}), prompts {SERVE_PROMPTS}, {SERVE_NEW_TOKENS} new tokens")
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t = time.perf_counter()
+        served = serve_path(torch, cfg, torch.device("cuda"), SERVE_PROMPTS, SERVE_NEW_TOKENS)
+        counts = read_counts()
+        routes = {"flash": dict(flash_attention_cuda.launches_by_route),
+                  "ssd": dict(ssd_cuda.launches_by_route)}
+        log(f"  phase main path {number}: {time.perf_counter() - t:.3f} s; kernel launches {counts}")
+        for name, per_prefill in prefill_launches(cfg).items():
+            check(per_prefill == 0 or counts[name] > 0, f"main path {number} never launched {name}")
+        stats = check_serve(torch, served, cfg)
+        stats["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        log(f"  peak device memory: {stats['peak_gib']:.2f} GiB")
+        t = time.perf_counter()
+        engine = served["engine"]
+        again = [type(q)(prompt=q.prompt, max_new_tokens=q.max_new_tokens)
+                 for q in served["requests"]]
+        engine.generate(again)
+        warm = engine.timings
+        log(f"  warm generate: prefill {warm['prefill_s'] * 1e3:.1f} ms, decode "
+            f"{warm['decode_s'] * 1e3 / warm['decode_steps']:.2f} ms per step; same tokens: "
+            f"{[q.generated for q in again] == [q.generated for q in served['requests']]}")
+        stats.update(warm_prefill_ms=warm["prefill_s"] * 1e3,
+                     warm_decode_ms_per_token=warm["decode_s"] * 1e3 / warm["decode_steps"])
+        stats["profile"] = profile_serve(torch, engine, SERVE_PROMPTS, stats["warm_prefill_ms"],
+                                         stats["warm_decode_ms_per_token"])
+        del served, engine, again
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"  phase warm generate: {time.perf_counter() - t:.3f} s")
+        return counts, routes, stats
+
+    zamba2 = model_config("zamba2-2.7b", True)
+    path2, routes2, serve_stats = serve_phase(2, zamba2, f"{zamba2.n_layers} Mamba-2 layers")
+    olmoe = model_config("olmoe-1b-7b", True)
+    path3, routes3, olmoe_stats = serve_phase(
+        3, olmoe, f"{olmoe.n_layers} MoE layers, {olmoe.moe.n_experts} experts top-{olmoe.moe.top_k}")
+    deepseek = model_config("deepseek-v2-lite-16b", True, n_layers=DEEPSEEK_LAYERS)
+    _, _, deepseek_stats = serve_phase(
+        4, deepseek, f"MLA, depth cut to {deepseek.n_layers} layers of 27, "
+        f"{deepseek.moe.n_shared} shared + {deepseek.moe.n_experts} experts top-{deepseek.moe.top_k}")
 
     log("== parity: Zamba2 prefill with the kernels against the plain path on the card")
     t = time.perf_counter()
     parity = parity_phase(torch, torch.device("cuda"))
     log(f"  phase parity: {time.perf_counter() - t:.3f} s")
+    log("== parity: the decoder family (OLMoE, DeepSeek-V2-Lite) on the card, fp32")
+    t = time.perf_counter()
+    decoder_parity = decoder_parity_phase(torch, torch.device("cuda"))
+    torch.cuda.empty_cache()
+    log(f"  phase decoder parity: {time.perf_counter() - t:.3f} s")
     log("serve: " + json.dumps({**serve_stats, **parity}))
+    log("serve olmoe: " + json.dumps(olmoe_stats))
+    log("serve deepseek: " + json.dumps(deepseek_stats))
+    log("decoder parity: " + json.dumps(decoder_parity))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
 
     # the bf16 kernels of each path; K1, K3 and K4 on their tensor-core route
@@ -1003,7 +1181,9 @@ def main() -> int:
         "rmsnorm": ("triton", "src/repro_torch/kernels/rmsnorm/kernel.py",
                     "src/repro/kernels/rmsnorm/kernel.py:37", path1, None),
         "flash": ("cuda", "src/repro_torch/kernels/flash/csrc/flash_sm90.cu",
-                  "src/repro/kernels/flash/kernel.py:79", path2, routes2["flash"]),
+                  "src/repro/kernels/flash/kernel.py:79",
+                  {"flash": path2["flash"] + path3["flash"]},
+                  {r: routes2["flash"][r] + routes3["flash"][r] for r in routes2["flash"]}),
         "ssd": ("cuda", "src/repro_torch/kernels/ssd/csrc/ssd_sm90.cu",
                 "src/repro/kernels/ssd/kernel.py:80", path2, routes2["ssd"]),
     }
@@ -1022,6 +1202,10 @@ def main() -> int:
             entry.update(kernel_route=k["kernel_route"], launches_by_route=by_route)
         if "pass_ms" in k:
             entry["pass_ms"] = k["pass_ms"]
+        if name == "flash":
+            # launches on path 2 (Zamba2) and path 3 (OLMoE); timed at both prefills
+            entry["launches_by_path"] = {"zamba2": path2["flash"], "olmoe": path3["flash"]}
+            entry["at_olmoe_prefill"] = kernels["bfloat16"]["flash_olmoe"]
         record["kernels"].append(entry)
     print(smi)
     print(json.dumps(record))

@@ -47,10 +47,13 @@ def from_reference(
     return out
 
 
-def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
+def _flatten(tree, prefix: str = "") -> Dict[str, Any]:
+    """``{"a.b.c": leaf}`` of nested dicts and lists (a list entry is named
+    by its index: ``layers.ffn.shared.0.wi_gate``)."""
+    items = enumerate(tree) if isinstance(tree, (list, tuple)) else tree.items()
     out: Dict[str, Any] = {}
-    for k, v in tree.items():
-        if isinstance(v, Mapping):
+    for k, v in items:
+        if isinstance(v, (Mapping, list, tuple)):
             out.update(_flatten(v, f"{prefix}{k}."))
         else:
             out[f"{prefix}{k}"] = v
@@ -61,7 +64,8 @@ def model_params_from_reference(cfg, tree: Mapping[str, Any]) -> Dict[str, torch
     """The port model's ``state_dict`` from the reference's parameter tree.
 
     ``tree`` is the reference's unboxed tree (``repro.models.module.unbox``)
-    as nested dicts of numpy arrays, for the model ``cfg`` builds.  Keys are
+    as nested dicts (and lists: DeepSeek's shared experts) of numpy
+    arrays, for the model ``cfg`` builds.  Keys are
     the tree's paths joined by ``.``; values are CPU tensors equal to the
     arrays bit for bit.  Raises ``KeyError`` on a missing or an extra key
     and ``ValueError`` on a wrong shape.

@@ -1,17 +1,25 @@
-"""Attention: GQA/MQA with a KV cache (the GQA half of ``repro.models.attention``).
+"""Attention: GQA/MQA with a KV cache and MLA (DeepSeek-V2), from ``repro.models.attention``.
 
-Four execution modes per layer:
+Four execution modes per GQA layer:
 
 * train   — full causal attention, no cache (K3 when ``cfg.use_pallas``);
 * prefill — causal attention that also fills the KV cache (K3 likewise);
 * decode  — one query token against a fixed-capacity cache;
 * bidir   — non-causal self-attention (encoders).
 
+MLA has train, prefill and decode.  Train and prefill expand the latent
+``c_kv`` into per-head keys and values and attend with plain einsums
+(never K3, as in the reference); decode uses the *absorbed* form: the
+query is projected into the KV-LoRA space (``q_nope·w_uk``) and scored
+against the cached ``c_kv`` directly, so the cache holds only
+``(c_kv, k_rope)``: a :class:`KVCache` with ``k = c_kv (B, T, kv_lora)``
+and ``v = k_rope (B, T, rope_dim)``.
+
 Decode writes the new key and value into the cache **in place** at the
 cache's length (the reference writes through a one-hot ``where``, which on
 one device only costs a copy of the cache per step) and returns the same
-cache with its length advanced.  MLA and cross-attention wait for their
-model families (ROADMAP Queue 1).
+cache with its length advanced.  Cross-attention waits for ``EncDecLM``
+(ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -21,7 +29,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import MLAConfig, ModelConfig
 from repro_torch.kernels.flash import ops as flash_ops
 
 from .layers import apply_rope
@@ -31,8 +39,8 @@ NEG_INF = -1e30
 
 
 class KVCache(NamedTuple):
-    k: torch.Tensor        # (B, T, K, Dh)
-    v: torch.Tensor        # (B, T, K, Dv)
+    k: torch.Tensor        # (B, T, K, Dh)  [MLA: (B, T, kv_lora)]
+    v: torch.Tensor        # (B, T, K, Dv)  [MLA: (B, T, rope_dim) = k_rope]
     length: torch.Tensor   # () int32 — valid prefix
 
 
@@ -41,6 +49,14 @@ def init_cache(batch: int, max_len: int, n_kv: int, dh: int, dv: int, dtype,
     return KVCache(
         k=torch.zeros((batch, max_len, n_kv, dh), dtype=dtype, device=device),
         v=torch.zeros((batch, max_len, n_kv, dv), dtype=dtype, device=device),
+        length=torch.zeros((), dtype=torch.int32, device=device),
+    )
+
+
+def init_mla_cache(batch: int, max_len: int, mla: MLAConfig, dtype, device=None) -> KVCache:
+    return KVCache(
+        k=torch.zeros((batch, max_len, mla.kv_lora), dtype=dtype, device=device),
+        v=torch.zeros((batch, max_len, mla.qk_rope_dim), dtype=dtype, device=device),
         length=torch.zeros((), dtype=torch.int32, device=device),
     )
 
@@ -178,3 +194,94 @@ def _attend_blocked(
         o = (acc / torch.clamp(l, min=1e-30)).permute(0, 3, 1, 2, 4)  # (B,bq,K,G,D)
         outs.append(o.reshape(B, bq, H, D))
     return torch.cat(outs, dim=1).to(q.dtype)
+
+
+# ------------------------------------------------------------------- MLA
+
+
+def init_mla(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    m = cfg.mla
+    assert m is not None
+    d, H = cfg.d_model, cfg.n_heads
+    qd = m.qk_nope_dim + m.qk_rope_dim
+    return {
+        "wq": normal_init((d, H, qd)),
+        "w_dkv": normal_init((d, m.kv_lora)),
+        "w_kr": normal_init((d, m.qk_rope_dim)),
+        "w_uk": normal_init((m.kv_lora, H, m.qk_nope_dim)),
+        "w_uv": normal_init((m.kv_lora, H, m.v_dim)),
+        "wo": normal_init((H, m.v_dim, d), fan_in=H * m.v_dim),
+    }
+
+
+def _mla_softmax(s_nope: torch.Tensor, s_rope: torch.Tensor, scale: float,
+                 mask: torch.Tensor, dt) -> torch.Tensor:
+    """softmax(((s_nope + s_rope)·scale) in fp32, masked), cast to ``dt``.
+    The sum and scale round in the activation dtype, as the reference's;
+    they run in place on ``s_nope``: the (B, H, S, T) scores are the
+    largest tensors of an MLA prefill."""
+    scores = s_nope.add_(s_rope).mul_(scale).float()
+    return torch.softmax(scores.masked_fill_(~mask, NEG_INF), dim=-1).to(dt)
+
+
+def apply_mla(
+    p,
+    cfg: ModelConfig,
+    x: torch.Tensor,
+    *,
+    positions: torch.Tensor,
+    cache: Optional[KVCache] = None,
+    mode: str = "train",            # train | prefill | decode
+) -> Tuple[torch.Tensor, Optional[KVCache]]:
+    m = cfg.mla
+    dt = x.dtype
+    B, S, _ = x.shape
+    dn = m.qk_nope_dim
+    scale = 1.0 / math.sqrt(dn + m.qk_rope_dim)
+
+    q = _project(x, p["wq"].to(dt))
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = apply_rope(q_rope, positions, style="full")
+    c_kv = x @ p["w_dkv"].to(dt)                                # (B,S,kv_lora)
+    k_rope = (x @ p["w_kr"].to(dt))[:, :, None, :]              # (B,S,1,dr)
+    k_rope = apply_rope(k_rope, positions, style="full")[:, :, 0, :]
+
+    new_cache = None
+    if mode in ("train", "prefill"):
+        if mode == "prefill":
+            assert cache is not None
+            cache.k[:, :S] = c_kv
+            cache.v[:, :S] = k_rope
+            cache.length.fill_(S)
+            new_cache = cache
+        # expanded attention: per-head keys and values from the latent
+        k_nope = _project(c_kv, p["w_uk"].to(dt))              # (B,T,H,dn)
+        v = _project(c_kv, p["w_uv"].to(dt))                   # (B,T,H,dv)
+        s_nope = torch.einsum("bshk,bthk->bhst", q_nope, k_nope)
+        # the rope part is per-head in q; the one shared k_rope broadcasts
+        s_rope = torch.einsum("bshk,btk->bhst", q_rope, k_rope)
+        kv_pos = torch.arange(S, device=x.device)[None, None, None, :]
+        mask = kv_pos <= positions[:, None, :, None]
+        probs = _mla_softmax(s_nope, s_rope, scale, mask, dt)
+        ctx = torch.einsum("bhst,bthk->bshk", probs, v)
+    elif mode == "decode":
+        assert cache is not None and S == 1
+        idx = cache.length.long().reshape(1)
+        cache.k.index_copy_(1, idx, c_kv.to(cache.k.dtype))
+        cache.v.index_copy_(1, idx, k_rope.to(cache.v.dtype))
+        cache.length.add_(1)
+        new_cache = cache
+        ck, cr = cache.k, cache.v
+        # absorbed decode: q_c = q_nope · w_uk, scored against c_kv directly
+        q_c = torch.einsum("bshk,lhk->bshl", q_nope, p["w_uk"].to(dt))
+        s_nope = torch.einsum("bshl,btl->bhst", q_c, ck)
+        s_rope = torch.einsum("bshk,btk->bhst", q_rope, cr)
+        kv_pos = torch.arange(ck.shape[1], device=x.device)[None, None, None, :]
+        probs = _mla_softmax(s_nope, s_rope, scale, kv_pos < cache.length, dt)
+        ctx_c = torch.einsum("bhst,btl->bshl", probs, ck)      # (B,1,H,kv_lora)
+        ctx = torch.einsum("bshl,lhk->bshk", ctx_c, p["w_uv"].to(dt))
+    else:
+        raise ValueError(mode)
+    H, Dv = ctx.shape[2], ctx.shape[3]
+    out = ctx.reshape(B, S, H * Dv) @ p["wo"].to(dt).reshape(H * Dv, -1)
+    return out, new_cache

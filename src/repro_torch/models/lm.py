@@ -1,7 +1,7 @@
-"""Model builders: the ``Model`` interface and Zamba2's ``HybridLM``.
+"""Model builders: the ``Model`` interface, ``DecoderLM`` and Zamba2's ``HybridLM``.
 
-A port of ``repro.models.lm`` for the hybrid family.  ``build_model(cfg)``
-returns a :class:`Model` exposing:
+A port of ``repro.models.lm`` for the dense, MoE, VLM and hybrid
+families.  ``build_model(cfg)`` returns a :class:`Model` exposing:
 
 * ``init(generator, device=None)``          → :class:`ParamTree` (an ``nn.Module``)
 * ``prefill(params, batch, max_len=None)``  → (last-position logits, decode state)
@@ -11,9 +11,11 @@ returns a :class:`Model` exposing:
 Parameters are fp32 (``param_dtype``) and cast to the activation dtype at
 use.  The layer stack is a Python loop over the stacked ``(L, …)``
 parameters (the reference's ``lax.scan``).  Entry points run on CUDA unless
-the caller asks for the CPU, and raise without CUDA.  The other families
-(dense, MoE, VLM, audio, xLSTM) raise ``NotImplementedError`` until they are
-ported.
+the caller asks for the CPU, and raise without CUDA.  The audio
+(``EncDecLM``) and xLSTM families raise ``NotImplementedError`` until they
+are ported, and so does training (``loss``).  The VLM frontend is a stub,
+as in the reference: batches carry precomputed ``img_embeds`` at
+``d_model`` width.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 
 from . import attention as A
+from . import moe as M
 from . import ssm as SSM
 from .layers import (
     apply_mlp,
@@ -78,6 +81,123 @@ class Model:
 
 def _with_norm(init_fn, cfg):
     return {"ln": init_norm(cfg.d_model, cfg.norm_type), "p": init_fn(cfg)}
+
+
+# ===========================================================================
+# Transformer decoder layer (dense / moe / vlm)
+# ===========================================================================
+
+
+def _init_decoder_layer(cfg: ModelConfig, *, kind: str):
+    p = {"ln1": init_norm(cfg.d_model, cfg.norm_type),
+         "attn": A.init_mla(cfg) if cfg.mla else A.init_gqa(cfg),
+         "ln2": init_norm(cfg.d_model, cfg.norm_type)}
+    if kind == "moe":
+        p["ffn"] = M.init_moe(cfg)
+    elif kind == "dense_wide":  # DeepSeek's first dense layers
+        p["ffn"] = init_mlp(cfg.d_model, cfg.moe.d_first_dense_ff, cfg.mlp_type)
+    else:
+        p["ffn"] = init_mlp(cfg.d_model, cfg.d_ff, cfg.mlp_type)
+    return p
+
+
+def _apply_decoder_layer(p, cfg: ModelConfig, x, *, positions, cache, mode, kind: str):
+    """One pre-norm block; the cache views are written in place.  The MoE
+    aux loss is dropped: only training (``loss``, not ported) reads it."""
+    h = apply_norm(p["ln1"], x, eps=cfg.norm_eps, norm_type=cfg.norm_type)
+    attn_fn = A.apply_mla if cfg.mla else A.apply_gqa
+    a_out, _ = attn_fn(p["attn"], cfg, h, positions=positions, cache=cache, mode=mode)
+    x = x + a_out
+    h = apply_norm(p["ln2"], x, eps=cfg.norm_eps, norm_type=cfg.norm_type)
+    if kind == "moe":
+        f_out, _ = M.apply_moe(p["ffn"], cfg, h)
+    else:
+        f_out = apply_mlp(p["ffn"], h, mlp_type=cfg.mlp_type)
+    return x + f_out
+
+
+# ===========================================================================
+# Decoder-only LM (dense / moe / vlm)
+# ===========================================================================
+
+
+class DecoderLM(Model):
+    """``front_{i}`` dense-wide layers (DeepSeek: 1), then ``layers``: the
+    stacked ``(L, …)`` dense or MoE layers.  The decode state is one
+    :class:`~repro_torch.models.attention.KVCache` whose tensors (and
+    ``length``) carry a leading ``(n_layers,)`` axis, front layers first."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__(cfg)
+        moe = cfg.moe
+        self.n_front = moe.first_dense if moe else 0
+        self.n_scan = cfg.n_layers - self.n_front
+        self.kind = "moe" if moe else "dense"
+
+    def specs(self):
+        cfg = self.cfg
+        p = {
+            "embed": init_embedding(cfg.vocab, cfg.d_model),
+            "ln_f": init_norm(cfg.d_model, cfg.norm_type),
+            "lm_head": normal_init((cfg.vocab, cfg.d_model), scale=0.02),
+        }
+        for i in range(self.n_front):
+            p[f"front_{i}"] = _init_decoder_layer(cfg, kind="dense_wide")
+        p["layers"] = stack_init(_init_decoder_layer(cfg, kind=self.kind), self.n_scan)
+        if cfg.vlm:
+            p["img_proj"] = normal_init((cfg.d_model, cfg.d_model))
+        return p
+
+    def _embed_inputs(self, params, batch: Batch) -> torch.Tensor:
+        cfg = self.cfg
+        dt = cfg.act_dtype()
+        x = embed_lookup(params["embed"], batch["tokens"], dt)
+        if cfg.vlm:
+            img = batch["img_embeds"].to(dt) @ params["img_proj"].to(dt)
+            x = torch.cat([img, x], dim=1)
+        return x
+
+    def _stack(self, params, x, positions, caches: A.KVCache, mode: str):
+        """Every layer in order; layer i reads and writes cache row i."""
+        cfg = self.cfg
+        for i in range(self.n_front + self.n_scan):
+            cache = A.KVCache(caches.k[i], caches.v[i], caches.length[i])
+            front = i < self.n_front
+            lp = params[f"front_{i}"] if front else layer(params["layers"], i - self.n_front)
+            x = _apply_decoder_layer(lp, cfg, x, positions=positions, cache=cache, mode=mode,
+                                     kind="dense_wide" if front else self.kind)
+        return x
+
+    def init_decode_state(self, batch: int, max_len: int, device=None) -> A.KVCache:
+        cfg = self.cfg
+        device = resolve_device(device)
+        if cfg.mla:
+            one = A.init_mla_cache(batch, max_len, cfg.mla, self.cache_dtype(), device)
+        else:
+            one = A.init_cache(batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim,
+                               cfg.resolved_head_dim, self.cache_dtype(), device)
+        return A.KVCache(*(a.new_zeros((cfg.n_layers, *a.shape)) for a in one))
+
+    def prefill(self, params, batch: Batch, max_len: Optional[int] = None):
+        cfg = self.cfg
+        x = self._embed_inputs(params, batch)
+        B, S = x.shape[:2]
+        # cache headroom: decode appends after the prompt (and the image tokens)
+        caches = self.init_decode_state(B, max_len or S + 64, x.device)
+        x = self._stack(params, x, _positions(B, S, device=x.device), caches, "prefill")
+        x = apply_norm(params["ln_f"], x, eps=cfg.norm_eps, norm_type=cfg.norm_type)
+        return logits_projection(params["lm_head"], x[:, -1:]), caches
+
+    def decode_step(self, params, state: A.KVCache, tokens: torch.Tensor):
+        """One token per row; the KV caches in ``state`` advance in place."""
+        cfg = self.cfg
+        x = embed_lookup(params["embed"], tokens, cfg.act_dtype())
+        B = x.shape[0]
+        # a copy: the caches' lengths advance in place during the step
+        positions = state.length[0].clone().expand(B, 1)
+        x = self._stack(params, x, positions, state, "decode")
+        x = apply_norm(params["ln_f"], x, eps=cfg.norm_eps, norm_type=cfg.norm_type)
+        return logits_projection(params["lm_head"], x), state
 
 
 # ===========================================================================
@@ -200,7 +320,9 @@ class HybridLM(Model):
 def build_model(cfg: ModelConfig) -> Model:
     if cfg.family == "hybrid":
         return HybridLM(cfg)
+    if cfg.family in ("dense", "moe", "vlm"):
+        return DecoderLM(cfg)
     raise NotImplementedError(
         f"build_model: the {cfg.family} family ({cfg.name}) is not ported yet "
-        "(ROADMAP Queue 1, item 10); the port builds the hybrid family (zamba2-2.7b)"
+        "(ROADMAP Queue 1, item 10); the port builds the dense, moe, vlm and hybrid families"
     )

@@ -10,7 +10,8 @@ one device the reference's ``shard`` is a no-op.
 
 A materialized tree is a :class:`ParamTree`, an ``nn.Module`` whose
 ``state_dict`` keys are the reference tree's paths joined by ``.``
-(``mamba.p.in_proj``, ``shared.attn.wq``), with the reference's stacked
+(``mamba.p.in_proj``, ``shared.attn.wq``; a list node's entries by their
+index, ``layers.ffn.shared.0.wi_gate``), with the reference's stacked
 ``(L, …)`` layer layout, so carrying weights across is a copy name for name.
 """
 
@@ -18,7 +19,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, replace
-from typing import Any, Callable, Dict, Mapping, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Iterator, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -77,7 +78,21 @@ def stack_init(tree, n: int):
     """The tree of ``n`` independently drawn layers, stacked on a leading axis."""
     if isinstance(tree, ParamSpec):
         return replace(tree, layers=n)
+    if isinstance(tree, list):
+        return [stack_init(v, n) for v in tree]
     return {k: stack_init(v, n) for k, v in tree.items()}
+
+
+def _is_list(node) -> bool:
+    return isinstance(node, (list, tuple)) or getattr(node, "is_list", False)
+
+
+def children(node) -> Iterator[Tuple[str, Any]]:
+    """(name, child) pairs of a dict or list node; a list's names are its
+    indices, as ``state_dict`` keys spell them."""
+    if _is_list(node):
+        return ((str(i), v) for i, v in enumerate(node))
+    return iter(node.items())
 
 
 def _truncated_normal(shape, generator: torch.Generator, device) -> torch.Tensor:
@@ -108,26 +123,39 @@ def _materialize(spec: ParamSpec, generator: torch.Generator, device) -> torch.T
 
 
 class ParamTree(nn.Module):
-    """Nested parameters, read like the reference's dict tree.
+    """Nested parameters, read like the reference's tree of dicts and lists.
 
     ``tree["mamba"]["p"]["in_proj"]`` is a tensor, ``tree["mamba"]`` a
-    subtree; ``dict(tree)`` gives one level.  Parameters carry no gradient
-    (this slice serves; training comes with ROADMAP item 11).
+    subtree; ``dict(tree)`` gives one level.  A list node (DeepSeek's
+    ``shared`` experts) is a subtree with ``is_list`` set: it is indexed
+    by position and iterates over its entries in order.  Parameters carry
+    no gradient (this slice serves; training comes with ROADMAP item 11).
     """
 
-    def __init__(self, tree: Mapping[str, Any]):
+    def __init__(self, tree: Union[Mapping[str, Any], Sequence[Any]]):
         super().__init__()
-        self._names = list(tree)
-        for name, value in tree.items():
-            if isinstance(value, Mapping):
+        self.is_list = isinstance(tree, (list, tuple))
+        self._names = []
+        for name, value in children(tree):
+            self._names.append(name)
+            if isinstance(value, (Mapping, list, tuple)):
                 self.add_module(name, ParamTree(value))
             else:
                 self.register_parameter(name, nn.Parameter(value, requires_grad=False))
 
-    def __getitem__(self, name: str):
+    def __getitem__(self, name: Union[str, int]):
+        if self.is_list and isinstance(name, int):
+            name = self._names[name]
         if name not in self._names:
             raise KeyError(name)
         return getattr(self, name)
+
+    def __iter__(self):
+        """A list node's entries; a dict node's names, as a dict iterates."""
+        return (self[k] for k in self._names) if self.is_list else iter(self._names)
+
+    def __len__(self) -> int:
+        return len(self._names)
 
     def keys(self):
         return list(self._names)
@@ -137,7 +165,8 @@ class ParamTree(nn.Module):
 
     @classmethod
     def from_state_dict(cls, state: Mapping[str, torch.Tensor]) -> "ParamTree":
-        """The tree whose ``state_dict()`` is ``state`` (keys ``a.b.c``)."""
+        """The tree whose ``state_dict()`` is ``state`` (keys ``a.b.c``); a
+        node whose names are ``0 … n-1`` is a list node."""
         nested: Dict[str, Any] = {}
         for key, value in state.items():
             node = nested
@@ -145,7 +174,16 @@ class ParamTree(nn.Module):
             for part in path:
                 node = node.setdefault(part, {})
             node[leaf] = value
-        return cls(nested)
+
+        def lists(node):
+            if not isinstance(node, dict):
+                return node
+            node = {k: lists(v) for k, v in node.items()}
+            if list(node) == [str(i) for i in range(len(node))]:
+                return list(node.values())
+            return node
+
+        return cls(lists(nested))
 
 
 def init_tree(tree, generator: torch.Generator, device: Device) -> ParamTree:
@@ -157,6 +195,8 @@ def init_tree(tree, generator: torch.Generator, device: Device) -> ParamTree:
     def build(node):
         if isinstance(node, ParamSpec):
             return _materialize(node, generator, device)
+        if isinstance(node, list):
+            return [build(v) for v in node]
         return {k: build(v) for k, v in node.items()}
 
     return ParamTree(build(tree))
@@ -165,7 +205,7 @@ def init_tree(tree, generator: torch.Generator, device: Device) -> ParamTree:
 def shapes_of(tree, prefix: str = "") -> Dict[str, Tuple[int, ...]]:
     """Flat ``{"a.b.c": shape}`` of a spec tree, in ``state_dict`` order."""
     out: Dict[str, Tuple[int, ...]] = {}
-    for k, v in tree.items():
+    for k, v in children(tree):
         name = f"{prefix}{k}"
         if isinstance(v, ParamSpec):
             out[name] = v.full_shape
@@ -175,9 +215,11 @@ def shapes_of(tree, prefix: str = "") -> Dict[str, Tuple[int, ...]]:
 
 
 def layer(tree, i: int):
-    """Layer ``i`` of a stacked tree, as a nested dict of views."""
+    """Layer ``i`` of a stacked tree, as nested dicts (and lists) of views."""
     if isinstance(tree, torch.Tensor):
         return tree[i]
+    if _is_list(tree):
+        return [layer(v, i) for v in tree]
     return {k: layer(v, i) for k, v in tree.items()}
 
 

@@ -5,7 +5,9 @@ batch, left-padded to the longest prompt, prefilled together, then decoded
 step by step, greedily.  Prefill and decode run under
 ``torch.inference_mode()`` on the engine's device (CUDA unless the caller
 passes ``device="cpu"``); with ``cfg.use_pallas`` the prefill's attention
-and SSD scan run the hand-written kernels K3 and K4.
+and SSD scan run the hand-written kernels K3 and K4.  A VLM's prefill
+takes zero image embeddings (the frontend is a stub, as in the reference),
+which sit before the prompt and take KV slots of their own.
 
 With ``EngineConfig.tp > 1`` the engine also accounts for the
 tensor-parallel activation all-reduces through the port's PCCL session
@@ -268,6 +270,15 @@ class ServeEngine:
             "not ported yet (ROADMAP Queue 1, item 13)"
         )
 
+    def _extra_inputs(self, B: int) -> Dict[str, torch.Tensor]:
+        """The stub frontends' inputs: zero image embeddings for a VLM.
+        (An encoder's frames wait for ``EncDecLM``.)"""
+        out = {}
+        if self.cfg.vlm:
+            out["img_embeds"] = torch.zeros((B, self.cfg.vlm.n_img_tokens, self.cfg.d_model),
+                                            dtype=torch.float32, device=self.device)
+        return out
+
     def generate(self, requests: List[Request]) -> List[Request]:
         """Serve a batch of requests to completion (prefill + decode loop)."""
         B = self.ecfg.batch_size
@@ -275,19 +286,19 @@ class ServeEngine:
             raise ValueError(f"generate: {len(requests)} requests for a batch of {B}")
         S = max(len(r.prompt) for r in requests)
         max_new = max(r.max_new_tokens for r in requests)
-        if S + max_new - 1 > self.ecfg.max_len:
+        n_img = self.cfg.vlm.n_img_tokens if self.cfg.vlm else 0
+        if n_img + S + max_new - 1 > self.ecfg.max_len:
             raise ValueError(
-                f"generate: a prompt of {S} tokens and {max_new} new tokens need "
-                f"{S + max_new - 1} KV slots, over max_len={self.ecfg.max_len}"
+                f"generate: {n_img} image tokens, a prompt of {S} tokens and {max_new} new "
+                f"tokens need {n_img + S + max_new - 1} KV slots, over max_len={self.ecfg.max_len}"
             )
         toks = np.zeros((B, S), np.int64)
         for i, r in enumerate(requests):
             toks[i, S - len(r.prompt):] = r.prompt  # left-pad
-        tokens = torch.from_numpy(toks).to(self.device)
+        batch = {"tokens": torch.from_numpy(toks).to(self.device), **self._extra_inputs(B)}
         with torch.inference_mode():
             t0 = time.perf_counter()
-            logits, state = self.model.prefill(self.params, {"tokens": tokens},
-                                               max_len=self.ecfg.max_len)
+            logits, state = self.model.prefill(self.params, batch, max_len=self.ecfg.max_len)
             nxt = logits[:, -1, :].argmax(dim=-1, keepdim=True)
             host = nxt.cpu()
             self.timings = {"prefill_s": time.perf_counter() - t0, "decode_s": 0.0,

@@ -345,3 +345,48 @@ def test_zamba2_reduced_pallas_path_matches_plain_on_the_card(dev):
                 out[use_pallas].append(logits)
     for a, b in zip(out[True], out[False]):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_flash_tensor_core_route_at_olmoe_head_dim(dev):
+    """K3 at OLMoE's attention (16 heads of 128, MHA), bf16: the wgmma route."""
+    from repro_torch.kernels.flash import attention_reference, flash_attention, flash_attention_cuda
+
+    q, k, v = _flash_inputs(dev, 1, 512, 16, 16, 128, torch.bfloat16, seed=3)
+    before = _routes(flash_attention_cuda)
+    got = flash_attention(q, k, v, causal=True)
+    _launched(flash_attention_cuda, before, "wgmma")
+    torch.testing.assert_close(got.float(), attention_reference(q, k, v).float(),
+                               rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v2-lite-16b"])
+def test_decoder_reduced_on_the_card_equals_the_cpu(dev, arch):
+    """Reduced OLMoE (K3 on the fma route) and DeepSeek-V2-Lite (MLA, no
+    kernel): prefill and two decode steps on the card against the same
+    model and weights on the CPU, fp32, within 1e-4."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash import flash_attention_cuda
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), use_pallas=True)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.randint(0, cfg.vocab, (2, 42), generator=torch.Generator().manual_seed(1))
+    out = {}
+    with torch.inference_mode():
+        for device in ("cpu", dev):
+            p, toks = params.to(device), tokens.to(device)
+            k3 = _routes(flash_attention_cuda)
+            logits, state = model.prefill(p, {"tokens": toks[:, :40]})
+            launched = {r: n - k3[r] for r, n in _routes(flash_attention_cuda).items()}
+            if device == dev:
+                want = 0 if cfg.mla else cfg.n_layers
+                assert launched == {"wgmma": 0, "fma": want}, launched
+            out[device] = [logits]
+            for i in (40, 41):
+                logits, state = model.decode_step(p, state, toks[:, i:i + 1])
+                out[device].append(logits)
+    for a, b in zip(out[dev], out["cpu"]):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)

@@ -29,7 +29,8 @@ def _modules():
 
 def test_importing_every_module_loads_no_jax_and_no_repro():
     mods = list(_modules())
-    assert "repro_torch.comm.fusion" in mods and len(mods) > 20
+    assert "repro_torch.comm.fusion" in mods and "repro_torch.models.moe" in mods
+    assert len(mods) > 20
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -28,7 +28,15 @@ from repro.models import (
 from repro.models.module import unbox
 from repro_torch import configs
 from repro_torch.convert import model_params_from_reference
-from repro_torch.models import ParamTree, attention, build_model, layers, param_count, ssm
+from repro_torch.models import (
+    DecoderLM,
+    ParamTree,
+    attention,
+    build_model,
+    layers,
+    param_count,
+    ssm,
+)
 
 TOL32 = dict(rtol=2e-5, atol=2e-5)
 
@@ -247,7 +255,7 @@ def test_zamba2_prefill_and_decode_match_reference(zamba2, use_pallas):
 
 def test_model_params_from_reference_is_exact_and_strict(zamba2):
     ref_cfg, cfg, ref_model, params, state = zamba2
-    flat = {".".join(str(k.key) for k in path): np.asarray(v)
+    flat = {_path_name(path): np.asarray(v)
             for path, v in jax.tree_util.tree_leaves_with_path(params)}
     assert set(flat) == set(state) and "mamba.p.in_proj" in state and "shared.attn.wq" in state
     for name, t in state.items():
@@ -270,13 +278,20 @@ def test_model_params_from_reference_is_exact_and_strict(zamba2):
         model_params_from_reference(cfg, wrong)
 
 
+def _path_name(path):
+    """A reference tree path as a ``state_dict`` key: dict keys and list
+    indices (DeepSeek's shared experts) joined by ``.``."""
+    return ".".join(str(k.key if hasattr(k, "key") else k.idx) for k in path)
+
+
 def test_init_shapes_and_param_count_match_reference():
-    for arch in ("zamba2-2.7b",):
+    for arch in ("zamba2-2.7b", "olmoe-1b-7b", "deepseek-v2-lite-16b", "mistral-large-123b",
+                 "internvl2-26b"):
         ref_cfg, cfg = ref_configs.get_config(arch), configs.get_config(arch)
         shapes = jax.eval_shape(lambda k: unbox(ref_build_model(ref_cfg).init(k)), jax.random.PRNGKey(0))
-        want = {".".join(str(k.key) for k in path): tuple(v.shape)
+        want = {_path_name(path): tuple(v.shape)
                 for path, v in jax.tree_util.tree_leaves_with_path(shapes)}
-        assert build_model(cfg).param_shapes() == want
+        assert build_model(cfg).param_shapes() == want, arch
     small = configs.get_config("zamba2-2.7b").reduced()
     tree = build_model(small).init(torch.Generator().manual_seed(0), device="cpu")
     assert param_count(tree) == param_count(build_model(small).specs())
@@ -286,11 +301,16 @@ def test_init_shapes_and_param_count_match_reference():
 
 
 def test_entry_points_default_to_cuda_and_other_families_raise():
-    cfg = configs.get_config("zamba2-2.7b").reduced()
-    if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="CUDA"):
-            build_model(cfg).init(torch.Generator())
+    for arch in ("zamba2-2.7b", "olmoe-1b-7b"):
+        cfg = configs.get_config(arch).reduced()
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="CUDA"):
+                build_model(cfg).init(torch.Generator())
+            with pytest.raises(RuntimeError, match="CUDA"):
+                build_model(cfg).init_decode_state(1, 8)
+    for arch in ("mistral-large-123b", "olmoe-1b-7b", "deepseek-v2-lite-16b", "internvl2-26b"):
+        assert isinstance(build_model(configs.get_config(arch)), DecoderLM), arch
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 10"):
-        build_model(configs.get_config("mistral-large-123b"))
+        build_model(configs.get_config("whisper-small"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(configs.get_config("xlstm-1.3b"))

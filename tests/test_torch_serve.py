@@ -1,8 +1,8 @@
 """The port's serving engine against the JAX package's, on the CPU.
 
-Reduced Zamba2 (fp32) with the same weights, carried over by
-``convert.model_params_from_reference``: the same greedy tokens for ragged
-prompts; ``EngineConfig`` raises the same errors; ``comm_report`` prices
+Reduced Zamba2, OLMoE, DeepSeek-V2-Lite and InternVL2 (fp32) with the same
+weights, carried over by ``convert.model_params_from_reference``: the same
+greedy tokens for ragged prompts; ``EngineConfig`` raises the same errors; ``comm_report`` prices
 the same TP collectives.  The JAX engine runs its plain path
 (``use_pallas=False``); the port runs both of its paths.
 """
@@ -60,6 +60,23 @@ def test_generate_gives_the_reference_tokens(zamba2, use_pallas):
     assert [r.generated for r in served] == want
     assert all(r.done for r in served) and [len(w) for w in want] == [5, 4, 3]
     assert eng.timings["decode_steps"] == 4 and eng.timings["prefill_s"] > 0
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v2-lite-16b", "internvl2-26b"])
+def test_decoder_generate_gives_the_reference_tokens(arch):
+    """The decoder family (MoE, MLA, VLM with its zero image embeddings),
+    reduced, fp32, weights carried over: the same greedy tokens."""
+    ref_cfg, cfg = ref_get_config(arch).reduced(), get_config(arch).reduced()
+    ecfg = dict(batch_size=3, max_len=48)
+    ref_eng = ref_engine.ServeEngine(ref_cfg, ref_engine.EngineConfig(**ecfg), seed=1)
+    state = model_params_from_reference(cfg, jax.tree.map(np.asarray, ref_eng.params))
+    lengths = (11, 4, 8)
+    want = [r.generated for r in ref_eng.generate(_requests(ref_engine, lengths))]
+    eng = engine.ServeEngine(cfg, engine.EngineConfig(**ecfg), params=state, device="cpu")
+    served = eng.generate(_requests(engine, lengths))
+    assert [r.generated for r in served] == want and [len(w) for w in want] == [5, 4, 3]
+    with pytest.raises(ValueError, match="max_len=48"):  # the image tokens take slots too
+        eng.generate(_requests(engine, (48 - 8 * bool(cfg.vlm) - 4,), new_tokens=6))
 
 
 def test_generate_refuses_more_tokens_than_kv_slots(zamba2):

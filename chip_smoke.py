@@ -35,11 +35,18 @@ and then drives the port's two main paths:
    layers (MLA, 2 shared + 64 routed experts top-6), the same requests;
    MLA and MoE run plain PyTorch, as in the reference: no kernel.
 
+5. serving xLSTM-1.3B at its published widths and depth (48 blocks: 6
+   groups of 7 mLSTMs and one sLSTM, random weights from seed 0), the same
+   requests, whose prefill runs K4 on its CUDA-core route in each mLSTM
+   (P = 1024, N = 512: 42 launches) and the sLSTM as a loop over the
+   steps, timed apart.
+
 A parity phase then holds Zamba2's prefill with the kernels against its
 plain path in fp32 (6 layers, batch 2, 512 tokens), and teacher-forced
-decode against a longer prefill; a second holds OLMoE's the same way (2
-layers), counting routing flips, and DeepSeek's absorbed MLA decode
-against its expanded prefill.  Every check that fails raises, so the
+decode against a longer prefill, and xLSTM's the same way (one group: 7
+mLSTMs and one sLSTM); a second holds OLMoE's (2 layers), counting
+routing flips, and DeepSeek's absorbed MLA decode against its expanded
+prefill.  Every check that fails raises, so the
 script exits non-zero and prints no result line.  It exits non-zero at once when CUDA is not available or the
 ``repro_torch`` package is not beside it.  The last line is the device
 summary ``{"ok": true, "device": {...}}``; the line before it is the
@@ -84,13 +91,18 @@ DEEPSEEK_LAYERS = 4    # the dense front layer and 3 MoE layers: 2.255 B paramet
 FLASH_SHAPES = {"serving": (4, 4096, 32, 32, 80), "olmoe": (4, 4096, 16, 16, 128),
                 "gqa": (2, 256, 8, 2, 64), "ragged": (1, 200, 32, 32, 80)}
 FLASH_TIMED = ("serving", "olmoe")
-# K4 at the serving prefill (B, S, H, P, N, chunk), shared B/C; the per-head
-# and ragged cases
+# K4 (B, S, H, P, N, chunk) at Zamba2's serving prefill (shared B/C), the
+# per-head and ragged cases, and at xLSTM-1.3B's mLSTM prefill (per-head
+# B/C: k and q); timed at the two prefills
 SSD_SHAPES = {"serving": (4, 4096, 80, 64, 64, 64), "per_head": (2, 512, 8, 64, 64, 64),
-              "ragged": (2, 1000, 80, 64, 64, 64)}
+              "ragged": (2, 1000, 80, 64, 64, 64), "mlstm": (4, 4096, 4, 1024, 512, 64)}
+SSD_PER_HEAD = ("per_head", "mlstm")
+SSD_TIMED = {"serving": "ssd", "mlstm": "ssd_mlstm"}
 # parity: Zamba2 at full widths in fp32, cut to one shared-attention group;
-# OLMoE and DeepSeek-V2-Lite at full widths in fp32, cut to 2 layers
+# xLSTM-1.3B cut to one group (7 mLSTMs, one sLSTM); OLMoE and
+# DeepSeek-V2-Lite at full widths in fp32, cut to 2 layers
 PARITY_LAYERS, PARITY_BATCH, PARITY_PROMPT = 6, 2, 512
+XLSTM_PARITY_LAYERS = 8
 DECODER_PARITY_LAYERS = 2
 PARITY_TOL = 1e-3      # same algorithms, fp32 sums in other orders
 CONTINUATION_TOL = 2e-2  # tests/test_models_smoke.py's decode-vs-prefill tolerance
@@ -178,11 +190,23 @@ def bound(flops: float, nbytes: float, dtype: str):
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes")
 
 
-def expected_route(dtype_name: str) -> str:
+def expected_route(dtype_name: str, widths=(64, 64, 64)) -> str:
     """K1's, K3's and K4's route at the main-path shapes: the tensor cores
-    for bf16 (K, N and D are multiples of 16; K4's P = N = chunk = 64), the
-    CUDA cores for fp32."""
-    return "wgmma" if dtype_name == "bfloat16" else "fma"
+    for bf16 (K, N and D are multiples of 16; K4 only at (P, N, chunk) =
+    ``widths`` all 64), the CUDA cores for fp32 and for K4's other widths
+    (the mLSTM's P = 1024, N = 512)."""
+    return "wgmma" if dtype_name == "bfloat16" and set(widths) == {64} else "fma"
+
+
+def ssd_widths(cfg) -> tuple:
+    """(P, N, chunk) of the K4 scans of ``cfg``'s model: Mamba-2's heads, or
+    the mLSTM's (d_model · proj_factor / H, d_model / H)."""
+    if cfg.family == "ssm":
+        H = cfg.n_heads
+        return int(cfg.xlstm.proj_factor * cfg.d_model) // H, cfg.d_model // H, cfg.xlstm.chunk
+    if cfg.ssm is not None:
+        return cfg.ssm.head_dim, cfg.ssm.d_state, cfg.ssm.chunk
+    return (64, 64, 64)
 
 
 def ptxas_summary(source) -> list:
@@ -380,35 +404,38 @@ def ssd_pass_bytes(X, la, Bm, chunk: int, route: str) -> dict:
     states and totals; recurrence reads those and the fp32 initial state and
     writes the states before each chunk (bf16 on the wgmma route, fp32 on
     fma) and the final state; outputs reads X, B, C, la and the states
-    before each chunk, and writes Y."""
+    before each chunk, and writes Y.  On the fma route the masked C Bᵀ
+    scores move from outputs to states: states also reads C and writes the
+    fp32 (B, H, nc, L, L) scores, which outputs reads in place of B."""
     B, S, H, P = X.shape
     N, e = Bm.shape[-1], X.element_size()
     nc = -(-S // chunk)
     x, bc, lab = X.numel() * e, Bm.numel() * e, la.numel() * 4
     chunk_states, totals = B * H * nc * P * N * 4, B * H * nc * 4
     before = B * H * nc * P * N * (2 if route == "wgmma" else 4)
-    return {"states": x + bc + lab + chunk_states + totals,
+    scores = B * H * nc * chunk * chunk * 4 if route == "fma" else 0
+    return {"states": x + bc * (2 if scores else 1) + lab + chunk_states + totals + scores,
             "recurrence": chunk_states + totals + B * H * P * N * (4 + e) + before,
-            "outputs": x + 2 * bc + lab + before + x}
+            "outputs": x + bc * (1 if scores else 2) + lab + before + scores + x}
 
 
 def ssd_kernel_phase(torch, gen, dtype_name: str) -> dict:
     """K4 against its plain version with a non-zero initial state at the
-    serving shape (shared B/C), per-head B/C and a ragged S; timed at the
-    serving shape, each pass too."""
+    serving shape (shared B/C), per-head B/C, a ragged S and the mLSTM's
+    widths; timed at Zamba2's and the mLSTM's prefill, each pass too."""
     from repro_torch.kernels.ssd import ssd_cuda, ssd_reference
 
     dt = getattr(torch, dtype_name)
     dev = torch.device("cuda")
     out = {}
     for case, (B, S, H, P, N, L) in SSD_SHAPES.items():
-        bc = (B, S, H, N) if case == "per_head" else (B, S, N)
+        bc = (B, S, H, N) if case in SSD_PER_HEAD else (B, S, N)
         X = torch.randn(B, S, H, P, generator=gen, device=dev).to(dt)
         la = -torch.rand(B, S, H, generator=gen, device=dev) * 0.3
         Bm = (torch.randn(*bc, generator=gen, device=dev) * 0.3).to(dt)
         Cm = (torch.randn(*bc, generator=gen, device=dev) * 0.3).to(dt)
         init = torch.randn(B, H, P, N, generator=gen, device=dev) * 0.1
-        route = expected_route(dtype_name)
+        route = expected_route(dtype_name, (P, N, L))
         before = dict(ssd_cuda.launches_by_route)
         Y, fin = ssd_cuda(X, la, Bm, Cm, chunk=L, initial_state=init)
         check(ssd_cuda.launches_by_route[route] == before[route] + 1,
@@ -419,7 +446,8 @@ def ssd_kernel_phase(torch, gen, dtype_name: str) -> dict:
         err = max(err, compare(torch, fin, finr, "ssd", dtype_name))
         check(fin.dtype == dt, f"ssd[{dtype_name}] final state in {fin.dtype}, not X's dtype")
         del Y, Yr, fin, finr
-        if case != "serving":
+        if case not in SSD_TIMED:
+            del X, la, Bm, Cm, init
             continue
         ms = time_ms(torch, lambda: ssd_cuda(X, la, Bm, Cm, chunk=L, initial_state=init), 5)
         passes = ssd_pass_times(torch, lambda: ssd_cuda(X, la, Bm, Cm, chunk=L, initial_state=init))
@@ -432,12 +460,20 @@ def ssd_kernel_phase(torch, gen, dtype_name: str) -> dict:
             + (la.numel() + init.numel()) * 4
         b_ms, b_by = bound(flops, nbytes, dtype_name)
         pass_bytes = ssd_pass_bytes(X, la, Bm, L, route)
-        out["ssd"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                          bound_by=b_by, library_ms=None, shape=[B, S, H, P, N, L],
-                          kernel_route=route, pass_ms=passes, pass_bytes=pass_bytes)
-        log(f"  ssd[{dtype_name}] X {(B, S, H, P)} N {N} chunk {L}: kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), "
-            f"{nbytes / ms / 1e6:.1f} GB/s")
+        # what the route itself cannot beat: its fp32 FMAs at the CUDA
+        # cores' peak, and the bytes of its passes (the fp32 scratch)
+        fma_ms = flops / PEAK_FLOPS["float32"] * 1e3
+        scratch_ms = sum(pass_bytes.values()) / PEAK_BYTES_PER_S * 1e3
+        out[SSD_TIMED[case]] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=None, shape=[B, S, H, P, N, L], kernel_route=route, pass_ms=passes,
+            pass_bytes=pass_bytes, flops=flops, fp32_fma_bound_ms=fma_ms,
+            pass_bytes_bound_ms=scratch_ms)
+        log(f"  ssd[{dtype_name}] {case} X {(B, S, H, P)} N {N} chunk {L}, {route} route: kernel "
+            f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}; "
+            f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e9:.3f} GB), {flops / ms / 1e9:.1f} TFLOP/s; "
+            f"at the fp32 FMA peak {fma_ms:.3f} ms, the passes' "
+            f"{sum(pass_bytes.values()) / 1e9:.2f} GB at the memory rate {scratch_ms:.3f} ms")
         log(f"  ssd[{dtype_name}] device ms per pass ({route} route, torch.profiler): "
             + (", ".join(f"{k} {passes[k]:.3f} ms ({pass_bytes[k] / 1e6:.1f} MB, "
                          f"{pass_bytes[k] / passes[k] / 1e9:.2f} TB/s)"
@@ -646,10 +682,15 @@ def model_config(arch: str, use_pallas: bool, **cut):
 def prefill_launches(cfg) -> dict:
     """K3's and K4's launches per prefill of ``cfg``'s model with the
     kernels on: Zamba2 runs K3 once per shared-attention group and K4 in
-    every Mamba-2 layer; a decoder runs K3 in every GQA layer, and MLA
-    runs none (its attention is plain einsums, as in the reference)."""
+    every Mamba-2 layer; xLSTM runs K4 in every mLSTM (its numerator scan:
+    the denominator's runs the plain version, as in the reference) and no
+    K3; a decoder runs K3 in every GQA layer, and MLA runs none (its
+    attention is plain einsums, as in the reference)."""
     if cfg.family == "hybrid":
         return {"flash": cfg.n_layers // cfg.hybrid.shared_attn_every, "ssd": cfg.n_layers}
+    if cfg.family == "ssm":
+        groups = cfg.n_layers // cfg.xlstm.slstm_every
+        return {"flash": 0, "ssd": groups * (cfg.xlstm.slstm_every - 1)}
     return {"flash": 0 if cfg.mla else cfg.n_layers, "ssd": 0}
 
 
@@ -721,8 +762,8 @@ def check_serve(torch, r, cfg) -> dict:
     check(k3_prefill == want_k3, f"prefill launched K3 {k3_prefill} times, not {want_k3}")
     check(k4_prefill == want_k4, f"prefill launched K4 {k4_prefill} times, not {want_k4}")
     check((k3_end, k4_end) == (k3_prefill, k4_prefill), "decode launched K3 or K4")
-    route = expected_route(cfg.dtype)
-    for kname, want in (("k3", want_k3), ("k4", want_k4)):
+    for kname, want, route in (("k3", want_k3, expected_route(cfg.dtype)),
+                               ("k4", want_k4, expected_route(cfg.dtype, ssd_widths(cfg)))):
         routes = {r: seen[f"{kname}_routes_at_first_decode"][r] - seen[f"{kname}_routes_before"][r]
                   for r in seen[f"{kname}_routes_before"]}
         log(f"  prefill {kname.upper()} launches by route: {routes}")
@@ -831,37 +872,94 @@ def profile_serve(torch, engine, prompts, wall_prefill_ms, wall_decode_ms, steps
     return stats
 
 
-def parity_phase(torch, device) -> dict:
-    """Zamba2 at full widths in fp32, 6 layers: prefill logits with K3/K4
-    against the plain path, and teacher-forced decode against a longer
-    prefill."""
+class SlstmTimer:
+    """Host time of every ``apply_slstm`` call while installed, each call
+    bracketed by a synchronize: the sLSTM loop is host-bound, so its wall
+    time is its cost.  It wraps the port's ``ssm.apply_slstm``, which
+    ``XLSTMLM`` looks up at each call."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def __enter__(self):
+        from repro_torch.models import ssm
+
+        self.ssm, self.apply, self.ms = ssm, ssm.apply_slstm, []
+
+        def timed(*args, **kwargs):
+            self.torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = self.apply(*args, **kwargs)
+            self.torch.cuda.synchronize()
+            self.ms.append((time.perf_counter() - t) * 1e3)
+            return out
+
+        ssm.apply_slstm = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.ssm.apply_slstm = self.apply
+
+
+def slstm_share(torch, engine, prompts) -> dict:
+    """One warm prefill of the served batch with the sLSTM layers timed
+    apart: their share of the prefill's wall time."""
+    import numpy as np
+
+    S = max(prompts)
+    toks = np.zeros((len(prompts), S), np.int64)
+    rng = np.random.default_rng(SEED)
+    for i, n in enumerate(prompts):
+        toks[i, S - n:] = rng.integers(0, engine.cfg.vocab, size=n)
+    tokens = torch.from_numpy(toks).to(engine.device)
+    with torch.inference_mode(), SlstmTimer(torch) as timer:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        engine.model.prefill(engine.params, {"tokens": tokens}, max_len=engine.ecfg.max_len)
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t) * 1e3
+    slstm = sum(timer.ms)
+    steps = len(timer.ms) * S
+    log(f"  sLSTM loop: {slstm:.1f} ms of a {total:.1f} ms prefill ({100 * slstm / total:.1f} %), "
+        f"{len(timer.ms)} layers x {S} steps, {1e3 * slstm / steps:.1f} us a step; per layer "
+        + ", ".join(f"{ms:.1f}" for ms in timer.ms) + " ms")
+    return {"slstm_ms": slstm, "prefill_ms": total, "slstm_share": slstm / total,
+            "slstm_us_per_step": 1e3 * slstm / steps, "slstm_layers": len(timer.ms)}
+
+
+def parity_phase(torch, device, arch="zamba2-2.7b", n_layers=PARITY_LAYERS, seed=SEED + 1) -> dict:
+    """``arch`` at full widths in fp32, cut to ``n_layers`` (Zamba2: 6,
+    one shared-attention group; xLSTM: 8, one group): prefill logits with
+    K3/K4 against the plain path, and teacher-forced decode against a
+    longer prefill."""
     from repro_torch.kernels.ssd import ssd_cuda
     from repro_torch.models import build_model
 
-    gen = torch.Generator(device=device).manual_seed(SEED + 1)
-    cut = dict(n_layers=PARITY_LAYERS, dtype="float32")
-    kernels = build_model(model_config("zamba2-2.7b", True, **cut))
-    plain = build_model(model_config("zamba2-2.7b", False, **cut))
+    gen = torch.Generator(device=device).manual_seed(seed)
+    cut = dict(n_layers=n_layers, dtype="float32")
+    kernels = build_model(model_config(arch, True, **cut))
+    plain = build_model(model_config(arch, False, **cut))
     params = kernels.init(gen, device)
     cfg = kernels.cfg
     tokens = torch.randint(0, cfg.vocab, (PARITY_BATCH, PARITY_PROMPT), generator=gen,
                            device=device)
     out = {}
     k4_before = dict(ssd_cuda.launches_by_route)
+    want_k4 = prefill_launches(cfg)["ssd"]
     with torch.inference_mode():
         got, _ = kernels.prefill(params, {"tokens": tokens})
         k4 = {r: ssd_cuda.launches_by_route[r] - k4_before[r] for r in k4_before}
-        check(device.type != "cuda" or k4 == {"wgmma": 0, "fma": PARITY_LAYERS},
-              f"fp32 parity prefill launched K4 {k4}, not {PARITY_LAYERS} on the fma route")
-        log(f"  fp32 parity prefill K4 launches by route: {k4}")
+        check(device.type != "cuda" or k4 == {"wgmma": 0, "fma": want_k4},
+              f"{arch} fp32 parity prefill launched K4 {k4}, not {want_k4} on the fma route")
+        log(f"  {arch} fp32 parity prefill K4 launches by route: {k4}")
         want, _ = plain.prefill(params, {"tokens": tokens})
         err = (got - want).abs().max().item()
         ok = bool(torch.isclose(got, want, rtol=PARITY_TOL, atol=PARITY_TOL).all().item())
-        log(f"  prefill logits, kernels vs plain path (fp32, {PARITY_LAYERS} layers, batch "
+        log(f"  {arch} prefill logits, kernels vs plain path (fp32, {n_layers} layers, batch "
             f"{PARITY_BATCH} x {PARITY_PROMPT}): max_abs_err={err:.3e} "
             f"(tol rtol=atol={PARITY_TOL}, max |logit| {want.abs().max().item():.3f})")
         check(bool(torch.isfinite(got).all().item()) and ok,
-              "Zamba2 prefill with the kernels disagrees with the plain path")
+              f"{arch} prefill with the kernels disagrees with the plain path")
         out["prefill_max_abs_err"] = err
         _, state = kernels.prefill(params, {"tokens": tokens[:, :-2]})
         for i in (PARITY_PROMPT - 2, PARITY_PROMPT - 1):
@@ -869,9 +967,10 @@ def parity_phase(torch, device) -> dict:
         err = (step[:, -1] - got[:, -1]).abs().max().item()
         ok = bool(torch.isclose(step[:, -1], got[:, -1], rtol=CONTINUATION_TOL,
                                 atol=CONTINUATION_TOL).all().item())
-        log(f"  decode after a {PARITY_PROMPT - 2}-token prefill vs the {PARITY_PROMPT}-token "
-            f"prefill's last logits: max_abs_err={err:.3e} (tol {CONTINUATION_TOL})")
-        check(ok, "teacher-forced decode disagrees with the longer prefill")
+        log(f"  {arch} decode after a {PARITY_PROMPT - 2}-token prefill vs the "
+            f"{PARITY_PROMPT}-token prefill's last logits: max_abs_err={err:.3e} "
+            f"(tol {CONTINUATION_TOL})")
+        check(ok, f"{arch}: teacher-forced decode disagrees with the longer prefill")
         out["continuation_max_abs_err"] = err
     return out
 
@@ -1111,10 +1210,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"  phase warm timings: {time.perf_counter() - t:.3f} s")
 
-    def serve_phase(number: int, cfg, what: str):
+    def serve_phase(number: int, cfg, what: str, extra=None):
         """Serve ``cfg`` with the counts set to 0 just before and read just
         after the counted ``generate``; then the checks, a warm
-        ``generate`` and the profile.  The engine is freed on return."""
+        ``generate``, the profile and ``extra(engine)``'s measurements.
+        The engine is freed on return."""
         log(f"== main path {number}: serve {cfg.name} ({what}, d_model {cfg.d_model}, "
             f"{cfg.dtype}), prompts {SERVE_PROMPTS}, {SERVE_NEW_TOKENS} new tokens")
         torch.cuda.reset_peak_memory_stats()
@@ -1143,6 +1243,8 @@ def main() -> int:
                      warm_decode_ms_per_token=warm["decode_s"] * 1e3 / warm["decode_steps"])
         stats["profile"] = profile_serve(torch, engine, SERVE_PROMPTS, stats["warm_prefill_ms"],
                                          stats["warm_decode_ms_per_token"])
+        if extra is not None:
+            stats.update(extra(engine))
         del served, engine, again
         gc.collect()
         torch.cuda.empty_cache()
@@ -1158,10 +1260,20 @@ def main() -> int:
     _, _, deepseek_stats = serve_phase(
         4, deepseek, f"MLA, depth cut to {deepseek.n_layers} layers of 27, "
         f"{deepseek.moe.n_shared} shared + {deepseek.moe.n_experts} experts top-{deepseek.moe.top_k}")
+    xlstm = model_config("xlstm-1.3b", True)
+    P, N, _ = ssd_widths(xlstm)
+    path5, routes5, xlstm_stats = serve_phase(
+        5, xlstm, f"{xlstm.n_layers} blocks, {xlstm.n_layers // xlstm.xlstm.slstm_every} groups of "
+        f"{xlstm.xlstm.slstm_every - 1} mLSTMs (K4 at P {P}, N {N}) and one sLSTM",
+        extra=lambda engine: slstm_share(torch, engine, SERVE_PROMPTS))
 
-    log("== parity: Zamba2 prefill with the kernels against the plain path on the card")
+    log("== parity: Zamba2 and xLSTM prefill with the kernels against the plain path on the card")
     t = time.perf_counter()
     parity = parity_phase(torch, torch.device("cuda"))
+    torch.cuda.empty_cache()
+    xlstm_parity = parity_phase(torch, torch.device("cuda"), "xlstm-1.3b", XLSTM_PARITY_LAYERS,
+                                SEED + 3)
+    torch.cuda.empty_cache()
     log(f"  phase parity: {time.perf_counter() - t:.3f} s")
     log("== parity: the decoder family (OLMoE, DeepSeek-V2-Lite) on the card, fp32")
     t = time.perf_counter()
@@ -1171,6 +1283,7 @@ def main() -> int:
     log("serve: " + json.dumps({**serve_stats, **parity}))
     log("serve olmoe: " + json.dumps(olmoe_stats))
     log("serve deepseek: " + json.dumps(deepseek_stats))
+    log("serve xlstm: " + json.dumps({**xlstm_stats, **xlstm_parity}))
     log("decoder parity: " + json.dumps(decoder_parity))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
 
@@ -1186,9 +1299,16 @@ def main() -> int:
                   {r: routes2["flash"][r] + routes3["flash"][r] for r in routes2["flash"]}),
         "ssd": ("cuda", "src/repro_torch/kernels/ssd/csrc/ssd_sm90.cu",
                 "src/repro/kernels/ssd/kernel.py:80", path2, routes2["ssd"]),
+        # K4's CUDA-core route at the mLSTM's widths: bf16 off the tensor-core route
+        "ssd_mlstm": ("cuda", "src/repro_torch/kernels/ssd/csrc/ssd.cu",
+                      "src/repro/kernels/ssd/kernel.py:80", {"ssd_mlstm": path5["ssd"]},
+                      routes5["ssd"]),
     }
     for name in sources:
         log(f"  {name}[float32]: " + json.dumps(kernels["float32"][name]))
+    check(kernels["bfloat16"]["ssd_mlstm"]["kernel_route"] == "fma"
+          and routes5["ssd"] == {"wgmma": 0, "fma": path5["ssd"]},
+          f"K4 at the mLSTM's widths took {routes5['ssd']}, not the fma route")
     record = {"kernels": []}
     for name, (route, source, replaces, counts, by_route) in sources.items():
         k = kernels["bfloat16"][name]

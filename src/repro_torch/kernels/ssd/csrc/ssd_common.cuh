@@ -28,19 +28,24 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 }
 
 // Blocks of passes 1 and 3 walk (b, c, h) with h fastest, so the blocks
-// that run at once share a chunk of shared B and C in L2.
+// that run at once share a chunk of shared B and C in L2.  chunk_of maps a
+// block index x (blockIdx.x, or what is left of it once a pass has taken
+// its tile index off) to its (b, h, c).
 struct Chunk {
   int b, h, c;
 };
 
-__device__ __forceinline__ Chunk chunk_of_block(int H, int nc) {
-  int x = blockIdx.x;
+__device__ __forceinline__ Chunk chunk_of(int x, int H, int nc) {
   Chunk k;
   k.h = x % H;
   x /= H;
   k.c = x % nc;
   k.b = x / nc;
   return k;
+}
+
+__device__ __forceinline__ Chunk chunk_of_block(int H, int nc) {
+  return chunk_of(blockIdx.x, H, nc);
 }
 
 // cum[r] = la[0] + ... + la[r] for r < L, with steps at or past n_valid read

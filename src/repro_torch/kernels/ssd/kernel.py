@@ -11,15 +11,18 @@ outputs; ``csrc/ssd_common.cuh``), chosen by the pure predicate
   and rounds the state before each chunk to bf16, within the bf16
   tolerance;
 * ``"fma"`` — fp32, and every other shape: ``csrc/ssd.cu``, fp32 FMA on
-  the CUDA cores.
+  the CUDA cores, a block staging 64-wide tiles of P and slices of N, so
+  it takes the mLSTM's P = 1024, N = 512 (it refuses only a chunk whose
+  tiles overflow a block's shared memory, ``SMEM_LIMIT``).
 
 Beyond the TPU kernel both take an fp32 ``initial_state`` and read shared
 ``(B,S,N)`` B/C by index.  The source notes say what bounds each pass on an
 H100 and what the design does about it.  The scratch of the passes (chunk
-states, chunk totals, states before each chunk) comes from here, with
-``torch.empty``.  Each library is built with ``nvcc`` for ``sm_90a`` at
-first launch (:mod:`repro_torch.kernels.build`) and launched on PyTorch's
-current stream.  :attr:`ssd_cuda.launches` counts calls (one per call, the
+states, chunk totals, states before each chunk, and on the fma route each
+chunk's masked L × L scores) comes from here, with ``torch.empty``.  Each
+library is built with ``nvcc`` for ``sm_90a`` at first launch
+(:mod:`repro_torch.kernels.build`) and launched on PyTorch's current
+stream.  :attr:`ssd_cuda.launches` counts calls (one per call, the
 three passes together) and :attr:`ssd_cuda.launches_by_route` those of each
 route.
 """
@@ -86,8 +89,9 @@ def _library(route: str) -> ctypes.CDLL:
         fn.argtypes = [*ptrs, *[ctypes.c_int] * 4, ctypes.c_void_p]  # B, S, H, bc_per_head
     else:
         fn = lib.pccl_ssd
-        # dtype, ptrs, B, S, H, P, N, L, bc_per_head, stream
-        fn.argtypes = [ctypes.c_int, *ptrs, *[ctypes.c_int] * 7, ctypes.c_void_p]
+        # dtype, ptrs, scores, B, S, H, P, N, L, bc_per_head, stream
+        fn.argtypes = [ctypes.c_int, *ptrs, ctypes.c_void_p, *[ctypes.c_int] * 7,
+                       ctypes.c_void_p]
         lib.pccl_ssd_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
         lib.pccl_ssd_smem_bytes.restype = ctypes.c_longlong
     fn.restype = ctypes.c_int
@@ -160,7 +164,8 @@ def ssd_cuda(
         if route == "wgmma":
             err = lib.pccl_ssd_sm90(*ptrs, B, S, H, int(Bm.ndim == 4), stream)
         else:
-            err = lib.pccl_ssd(_DTYPES[X.dtype], *ptrs, B, S, H, P, N, chunk,
+            scores = torch.empty((B, H, nc, chunk, chunk), dtype=torch.float32, device=dev)
+            err = lib.pccl_ssd(_DTYPES[X.dtype], *ptrs, scores.data_ptr(), B, S, H, P, N, chunk,
                                int(Bm.ndim == 4), stream)
     if err != 0:
         raise RuntimeError(f"ssd_cuda: {route} kernel launch failed (error {err})")

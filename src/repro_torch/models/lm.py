@@ -1,7 +1,8 @@
-"""Model builders: the ``Model`` interface, ``DecoderLM`` and Zamba2's ``HybridLM``.
+"""Model builders: the ``Model`` interface, ``DecoderLM``, Zamba2's ``HybridLM``
+and ``XLSTMLM``.
 
-A port of ``repro.models.lm`` for the dense, MoE, VLM and hybrid
-families.  ``build_model(cfg)`` returns a :class:`Model` exposing:
+A port of ``repro.models.lm`` for the dense, MoE, VLM, hybrid and ssm
+(xLSTM) families.  ``build_model(cfg)`` returns a :class:`Model` exposing:
 
 * ``init(generator, device=None)``          → :class:`ParamTree` (an ``nn.Module``)
 * ``prefill(params, batch, max_len=None)``  → (last-position logits, decode state)
@@ -11,11 +12,10 @@ families.  ``build_model(cfg)`` returns a :class:`Model` exposing:
 Parameters are fp32 (``param_dtype``) and cast to the activation dtype at
 use.  The layer stack is a Python loop over the stacked ``(L, …)``
 parameters (the reference's ``lax.scan``).  Entry points run on CUDA unless
-the caller asks for the CPU, and raise without CUDA.  The audio
-(``EncDecLM``) and xLSTM families raise ``NotImplementedError`` until they
-are ported, and so does training (``loss``).  The VLM frontend is a stub,
-as in the reference: batches carry precomputed ``img_embeds`` at
-``d_model`` width.
+the caller asks for the CPU, and raise without CUDA.  The audio family
+(``EncDecLM``) raises ``NotImplementedError`` until it is ported, and so
+does training (``loss``).  The VLM frontend is a stub, as in the
+reference: batches carry precomputed ``img_embeds`` at ``d_model`` width.
 """
 
 from __future__ import annotations
@@ -316,13 +316,114 @@ class HybridLM(Model):
 
 
 # ===========================================================================
+# xLSTM: groups of mLSTM blocks with an sLSTM every ``slstm_every``
+# ===========================================================================
+
+
+class XLSTMLM(Model):
+    """``groups``: G groups of ``slstm_every - 1`` mLSTM blocks
+    (``groups.mlstm``, stacked ``(G, Mg, …)``) and one sLSTM block
+    (``groups.slstm``, ``(G, …)``), each pre-normed and residual.  The
+    decode state holds the recurrent states stacked the same way, fp32 at
+    the start of a prefill; it holds no KV length, since nothing in the
+    model reads a position."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__(cfg)
+        xc = cfg.xlstm
+        assert cfg.n_layers % xc.slstm_every == 0
+        self.n_groups = cfg.n_layers // xc.slstm_every
+        self.m_per_group = xc.slstm_every - 1
+
+    def specs(self):
+        cfg = self.cfg
+        group = {
+            "mlstm": stack_init(_with_norm(SSM.init_mlstm, cfg), self.m_per_group),
+            "slstm": _with_norm(SSM.init_slstm, cfg),
+        }
+        return {
+            "embed": init_embedding(cfg.vocab, cfg.d_model),
+            "lm_head": normal_init((cfg.vocab, cfg.d_model), scale=0.02),
+            "ln_f": init_norm(cfg.d_model, cfg.norm_type),
+            "groups": stack_init(group, self.n_groups),
+        }
+
+    def _apply_block(self, gp, x, states, mode: str):
+        """One group: its mLSTM blocks in order, then its sLSTM block.
+        ``states`` are the group's: ``mlstm`` stacked ``(Mg, …)``."""
+        cfg = self.cfg
+        ms = states["mlstm"]
+        Cs, ns = [], []
+        for j in range(self.m_per_group):
+            lp = layer(gp["mlstm"], j)
+            st = SSM.MLSTMState(ms.C[j], ms.n[j])
+            h = apply_norm(lp["ln"], x, eps=cfg.norm_eps, norm_type=cfg.norm_type)
+            out, new_st = SSM.apply_mlstm(lp["p"], cfg, h, state=st, mode=mode)
+            if new_st is None:
+                new_st = st
+            x = x + out
+            Cs.append(new_st.C)
+            ns.append(new_st.n)
+        sp = gp["slstm"]
+        h = apply_norm(sp["ln"], x, eps=cfg.norm_eps, norm_type=cfg.norm_type)
+        out, new_s = SSM.apply_slstm(sp["p"], cfg, h, state=states["slstm"], mode=mode)
+        if new_s is None:
+            new_s = states["slstm"]
+        return x + out, {"mlstm": SSM.MLSTMState(torch.stack(Cs), torch.stack(ns)),
+                         "slstm": new_s}
+
+    def _stack(self, params, x, states, mode: str):
+        """Every group in order; the new states are stacked as the old."""
+        news = []
+        for g in range(self.n_groups):
+            st = {"mlstm": SSM.MLSTMState(*(a[g] for a in states["mlstm"])),
+                  "slstm": SSM.SLSTMState(*(a[g] for a in states["slstm"]))}
+            x, new_st = self._apply_block(layer(params["groups"], g), x, st, mode)
+            news.append(new_st)
+        return x, {
+            "mlstm": SSM.MLSTMState(*(torch.stack(a) for a in zip(*(n["mlstm"] for n in news)))),
+            "slstm": SSM.SLSTMState(*(torch.stack(a) for a in zip(*(n["slstm"] for n in news)))),
+        }
+
+    def init_decode_state(self, batch: int, max_len: int = 0, device=None):
+        """fp32 recurrent states (``max_len`` is not read: no KV cache)."""
+        cfg = self.cfg
+        G, Mg = self.n_groups, self.m_per_group
+        device = resolve_device(device)
+        m_one = SSM.init_mlstm_state(cfg, batch, torch.float32, device)
+        s_one = SSM.init_slstm_state(cfg, batch, torch.float32, device)
+        return {
+            "mlstm": SSM.MLSTMState(*(a[None, None].repeat(G, Mg, *([1] * a.ndim)) for a in m_one)),
+            "slstm": SSM.SLSTMState(*(a[None].repeat(G, *([1] * a.ndim)) for a in s_one)),
+        }
+
+    def prefill(self, params, batch: Batch, max_len: Optional[int] = None):
+        cfg = self.cfg
+        x = embed_lookup(params["embed"], batch["tokens"], cfg.act_dtype())
+        states = self.init_decode_state(x.shape[0], 0, x.device)
+        x, new_states = self._stack(params, x, states, "prefill")
+        x = apply_norm(params["ln_f"], x, eps=cfg.norm_eps, norm_type=cfg.norm_type)
+        return logits_projection(params["lm_head"], x[:, -1:]), new_states
+
+    def decode_step(self, params, state, tokens: torch.Tensor):
+        cfg = self.cfg
+        x = embed_lookup(params["embed"], tokens, cfg.act_dtype())
+        x, new_states = self._stack(params, x, state, "decode")
+        x = apply_norm(params["ln_f"], x, eps=cfg.norm_eps, norm_type=cfg.norm_type)
+        return logits_projection(params["lm_head"], x), new_states
+
+
+# ===========================================================================
 
 def build_model(cfg: ModelConfig) -> Model:
     if cfg.family == "hybrid":
         return HybridLM(cfg)
     if cfg.family in ("dense", "moe", "vlm"):
         return DecoderLM(cfg)
+    if cfg.family == "ssm":
+        return XLSTMLM(cfg)
     raise NotImplementedError(
         f"build_model: the {cfg.family} family ({cfg.name}) is not ported yet "
-        "(ROADMAP Queue 1, item 10); the port builds the dense, moe, vlm and hybrid families"
+        "(ROADMAP Queue 1, item 10); the port builds the dense, moe, vlm, hybrid and ssm "
+        "families"
     )

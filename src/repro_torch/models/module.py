@@ -33,19 +33,20 @@ class ParamSpec:
 
     ``kind`` is ``normal`` (truncated normal on [-2, 2] times ``scale``),
     ``zeros``, ``ones`` or ``const`` (``value()`` gives the tensor).
-    ``layers`` > 0 stacks that many independent draws along a new leading
-    axis (the reference's ``stack_init``).
+    ``layers`` are the stacked axes in front of ``shape``, outermost first:
+    each :func:`stack_init` adds one (xLSTM's ``groups.mlstm`` has two,
+    ``(G, Mg)``), and every entry is an independent draw.
     """
 
     shape: Tuple[int, ...]
     kind: str
     scale: float = 1.0
     value: Optional[Callable[[], torch.Tensor]] = None
-    layers: int = 0
+    layers: Tuple[int, ...] = ()
 
     @property
     def full_shape(self) -> Tuple[int, ...]:
-        return ((self.layers,) if self.layers else ()) + tuple(self.shape)
+        return tuple(self.layers) + tuple(self.shape)
 
 
 # ------------------------------------------------------------- initializers
@@ -75,9 +76,10 @@ def const_init(value: Callable[[], torch.Tensor]) -> ParamSpec:
 
 
 def stack_init(tree, n: int):
-    """The tree of ``n`` independently drawn layers, stacked on a leading axis."""
+    """The tree of ``n`` independently drawn layers, stacked on a new leading
+    axis (in front of any it already has)."""
     if isinstance(tree, ParamSpec):
-        return replace(tree, layers=n)
+        return replace(tree, layers=(n, *tree.layers))
     if isinstance(tree, list):
         return [stack_init(v, n) for v in tree]
     return {k: stack_init(v, n) for k, v in tree.items()}

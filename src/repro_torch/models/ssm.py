@@ -1,20 +1,26 @@
-"""State-space blocks: Mamba-2 (SSD), the Mamba-2 half of ``repro.models.ssm``.
+"""State-space and recurrent blocks: Mamba-2 (SSD), xLSTM's mLSTM and sLSTM.
 
-The same three-mode interface as the attention layers:
+A port of ``repro.models.ssm``.  The same three-mode interface as the
+attention layers:
 
 * ``train/prefill`` — chunkwise-parallel over the sequence (the SSD scan,
-  K4 when ``cfg.use_pallas``); prefill also returns the recurrent state so
-  decode can continue from it;
+  K4 when ``cfg.use_pallas``; the sLSTM, a loop over the steps); prefill
+  also returns the recurrent state so decode can continue from it;
 * ``decode`` — the O(1)-per-token recurrent update.
 
-Two numeric traps of the reference are kept: ``jnp.split`` takes split
-*indices* where ``torch.split`` takes sizes, and ``jax.nn.softplus`` has no
-linear threshold where ``F.softplus`` switches to ``x`` above 20.  mLSTM and
-sLSTM wait for the xLSTM family (ROADMAP Queue 1).
+Numeric traps of the reference are kept: ``jnp.split`` takes split
+*indices* where ``torch.split`` takes sizes; ``jax.nn.softplus`` has no
+linear threshold where ``F.softplus`` switches to ``x`` above 20;
+``jax.nn.gelu`` is the tanh form.  The mLSTM's numerator scan runs K4 under
+``cfg.use_pallas`` and its denominator scan always the plain version, as
+the reference calls them (``ssm.py:213-216`` there); the scans return their
+final state in X's dtype, so after a bf16 prefill the mLSTM's state is bf16
+although it started in fp32, as in the reference.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -141,3 +147,210 @@ def init_mamba2_state(cfg: ModelConfig, batch: int, dtype, device=None) -> Mamba
         conv=torch.zeros((batch, s.conv_width - 1, di + 2 * N), dtype=dtype, device=device),
         ssm=torch.zeros((batch, H, P, N), dtype=dtype, device=device),
     )
+
+
+# ================================================================ mLSTM
+
+
+class MLSTMState(NamedTuple):
+    C: torch.Tensor     # (B, H, P, N) matrix memory
+    n: torch.Tensor     # (B, H, 1, N) normalizer
+
+
+def _mlstm_dims(cfg: ModelConfig):
+    pf = cfg.xlstm.proj_factor
+    di = int(pf * cfg.d_model)
+    H = cfg.n_heads
+    P = di // H
+    N = cfg.d_model // H  # qk head dim = assigned head_dim
+    return di, H, P, N
+
+
+def init_mlstm(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    d = cfg.d_model
+    di, H, P, N = _mlstm_dims(cfg)
+    return {
+        "up": normal_init((d, 2 * di)),
+        # block-diagonal per-head projections, as in the reference
+        "wq": normal_init((H, P, N), fan_in=P),
+        "wk": normal_init((H, P, N), fan_in=P),
+        "wv": normal_init((H, P, P), fan_in=P),
+        "w_igate": normal_init((d, H), scale=0.02),
+        "b_igate": zeros_init((H,)),
+        "w_fgate": normal_init((d, H), scale=0.02),
+        "b_fgate": const_init(lambda: torch.full((H,), 3.0)),  # open forget
+        "norm_scale": ones_init((di,)),
+        "down": normal_init((di, d)),
+    }
+
+
+def apply_mlstm(
+    p,
+    cfg: ModelConfig,
+    x: torch.Tensor,
+    *,
+    state: Optional[MLSTMState] = None,
+    mode: str = "train",
+) -> Tuple[torch.Tensor, Optional[MLSTMState]]:
+    di, H, P, N = _mlstm_dims(cfg)
+    dt_ = x.dtype
+    B, S, _ = x.shape
+    up = x @ p["up"].to(dt_)
+    u, z = up.chunk(2, dim=-1)
+    uh = u.reshape(B, S, H, P)
+    # per-head products, then / sqrt(N) in X's dtype, as the reference
+    q = torch.einsum("bshp,hpn->bshn", uh, p["wq"].to(dt_)) / math.sqrt(N)
+    k = torch.einsum("bshp,hpn->bshn", uh, p["wk"].to(dt_)) / math.sqrt(N)
+    v = torch.einsum("bshp,hpq->bshq", uh, p["wv"].to(dt_))
+    i = torch.sigmoid((x @ p["w_igate"].to(dt_)).float() + p["b_igate"])
+    la = F.logsigmoid((x @ p["w_fgate"].to(dt_)).float() + p["b_fgate"])
+
+    Xw = (v.float() * i[..., None]).to(dt_)                           # i·v
+    ones = i[..., None].to(dt_)                                       # i·1, (B,S,H,1)
+
+    new_state: Optional[MLSTMState] = None
+    if mode == "decode":
+        assert state is not None and S == 1
+        num, newC = ssd_ops.ssd_decode_step(state.C, Xw[:, 0], la[:, 0], k[:, 0], q[:, 0])
+        den, newn = ssd_ops.ssd_decode_step(state.n, ones[:, 0], la[:, 0], k[:, 0], q[:, 0])
+        num, den = num[:, None], den[:, None]
+        new_state = MLSTMState(newC, newn)
+    else:
+        initC = state.C if state is not None else None
+        initn = state.n if state is not None else None
+        # einsum may hand back permuted strides; the kernel takes contiguous operands
+        Xw, k, q = Xw.contiguous(), k.contiguous(), q.contiguous()
+        scan = ssd_ops.ssd if cfg.use_pallas else ssd_reference
+        num, finC = scan(Xw, la, k, q, chunk=cfg.xlstm.chunk, initial_state=initC)
+        den, finn = ssd_reference(ones, la, k, q, chunk=cfg.xlstm.chunk, initial_state=initn)
+        if mode == "prefill":
+            new_state = MLSTMState(finC, finn)
+
+    y = num.float() / torch.clamp(den.float().abs(), min=1.0)
+    y = y.reshape(B, S, di).to(dt_)
+    # output norm, gated by silu(z)
+    var = y.float().square().mean(-1, keepdim=True)
+    y = (y.float() * torch.rsqrt(var + cfg.norm_eps) * p["norm_scale"]).to(dt_)
+    y = y * F.silu(z)
+    return y @ p["down"].to(dt_), new_state
+
+
+def init_mlstm_state(cfg: ModelConfig, batch: int, dtype, device=None) -> MLSTMState:
+    di, H, P, N = _mlstm_dims(cfg)
+    return MLSTMState(
+        C=torch.zeros((batch, H, P, N), dtype=dtype, device=device),
+        n=torch.zeros((batch, H, 1, N), dtype=dtype, device=device),
+    )
+
+
+# ================================================================ sLSTM
+
+
+class SLSTMState(NamedTuple):
+    h: torch.Tensor    # (B, H, Dh)
+    c: torch.Tensor    # (B, H, Dh)
+    n: torch.Tensor    # (B, H, Dh)
+    m: torch.Tensor    # (B, H, Dh)
+
+
+def _slstm_dims(cfg: ModelConfig):
+    H = cfg.n_heads
+    Dh = cfg.d_model // H
+    return H, Dh
+
+
+def init_slstm(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    d = cfg.d_model
+    H, Dh = _slstm_dims(cfg)
+    f_mlp = max(int(4 * d / 3) // 2 * 2, 8)
+
+    def bias():  # zeros, forget-gate bias (gate index 1) 2.0
+        b = torch.zeros((4, H, Dh))
+        b[1] = 2.0
+        return b
+
+    return {
+        "w": normal_init((d, 4, H, Dh)),
+        "r": normal_init((H, Dh, 4, Dh), fan_in=Dh),
+        "b": const_init(bias),
+        "norm_scale": ones_init((d,)),
+        "ff1": normal_init((d, 2 * f_mlp)),
+        "ff2": normal_init((f_mlp, d)),
+    }
+
+
+def _slstm_input(p, x: torch.Tensor) -> torch.Tensor:
+    """The input half of every gate's pre-activation, fp32: x (…, d) →
+    (…, 4, H, Dh).  One product for all steps of a prefill."""
+    w = p["w"].float()
+    return (x.float() @ w.reshape(w.shape[0], -1)).reshape(*x.shape[:-1], *w.shape[1:])
+
+
+def _slstm_cell(p, pre_x: torch.Tensor, st: SLSTMState) -> Tuple[torch.Tensor, SLSTMState]:
+    """One sLSTM timestep with exp gating + m-stabilizer, from the input
+    half of the pre-activations ``pre_x`` (B, 4, H, Dh)."""
+    f32 = torch.float32
+    r = p["r"].to(f32)                                                 # (H, Dh, 4, Dh)
+    H, Dh = r.shape[0], r.shape[1]
+    # einsum("bhk,hkgj->bghj", h, r) as one batched product over heads
+    rec = torch.bmm(st.h.to(f32).transpose(0, 1), r.reshape(H, Dh, 4 * Dh))  # (H, B, 4·Dh)
+    pre = pre_x + rec.reshape(H, -1, 4, Dh).permute(1, 2, 0, 3)
+    pre = pre + p["b"].to(f32)
+    iraw, fraw, zraw, oraw = pre.unbind(1)
+    m_prev = st.m.to(f32)
+    m_new = torch.maximum(fraw + m_prev, iraw)
+    i = torch.exp(iraw - m_new)
+    f = torch.exp(fraw + m_prev - m_new)
+    c = f * st.c.to(f32) + i * torch.tanh(zraw)
+    n = f * st.n.to(f32) + i
+    h = torch.sigmoid(oraw) * c / torch.clamp(n, min=1.0)
+    new = SLSTMState(h.to(st.h.dtype), c.to(st.c.dtype), n.to(st.n.dtype), m_new.to(st.m.dtype))
+    return h, new
+
+
+def _slstm_step(p, x_t: torch.Tensor, st: SLSTMState) -> Tuple[torch.Tensor, SLSTMState]:
+    """One sLSTM timestep, as the reference's ``_slstm_step``. x_t: (B, d)."""
+    return _slstm_cell(p, _slstm_input(p, x_t), st)
+
+
+def apply_slstm(
+    p,
+    cfg: ModelConfig,
+    x: torch.Tensor,
+    *,
+    state: Optional[SLSTMState] = None,
+    mode: str = "train",
+) -> Tuple[torch.Tensor, Optional[SLSTMState]]:
+    """The reference's ``lax.scan`` over steps is a Python loop of
+    :func:`_slstm_cell` here, with the input products of all steps taken
+    at once before it: about 20 small launches a step on the card."""
+    H, Dh = _slstm_dims(cfg)
+    dt_ = x.dtype
+    B, S, d = x.shape
+    st = state if state is not None else init_slstm_state(cfg, B, torch.float32, x.device)
+
+    new_state: Optional[SLSTMState] = None
+    if mode == "decode":
+        assert S == 1
+        h, new_state = _slstm_step(p, x[:, 0], st)
+        y = h.reshape(B, 1, d).to(dt_)
+    else:
+        pre_x = _slstm_input(p, x)                                     # (B, S, 4, H, Dh)
+        hs = []
+        for t in range(S):
+            h, st = _slstm_cell(p, pre_x[:, t], st)
+            hs.append(h)
+        y = torch.stack(hs, dim=1).reshape(B, S, d).to(dt_)
+        new_state = st if mode == "prefill" else None
+
+    # output norm + small GLU FFN (the sLSTM block carries its own MLP)
+    var = y.float().square().mean(-1, keepdim=True)
+    y = (y.float() * torch.rsqrt(var + cfg.norm_eps) * p["norm_scale"]).to(dt_)
+    g, u = (y @ p["ff1"].to(dt_)).chunk(2, dim=-1)
+    return (F.gelu(g, approximate="tanh") * u) @ p["ff2"].to(dt_), new_state
+
+
+def init_slstm_state(cfg: ModelConfig, batch: int, dtype, device=None) -> SLSTMState:
+    H, Dh = _slstm_dims(cfg)
+    z = torch.zeros((batch, H, Dh), dtype=dtype, device=device)
+    return SLSTMState(z, z, z, torch.full((batch, H, Dh), -30.0, dtype=dtype, device=device))

@@ -313,8 +313,30 @@ def test_flash_and_ssd_refuse_what_they_cannot_take(dev):
         ssd_cuda(X, la, torch.cat([Bm, Bm], dim=-1)[..., :16], Cm, chunk=32)
     with pytest.raises(ValueError, match="float32"):
         ssd_cuda(X, la.to(torch.bfloat16), Bm, Cm, chunk=32)
+    # the fma route tiles P and N, so any width fits; a chunk of 1024 does
+    # not (its L x 64 tiles of X and B alone take 536,576 bytes)
     with pytest.raises(ValueError, match="shared memory"):
-        ssd_cuda(*_ssd_inputs(dev, 1, 64, 1, 256, 256, torch.float32, False)[:4], chunk=256)
+        ssd_cuda(*_ssd_inputs(dev, 1, 64, 1, 64, 64, torch.float32, False)[:4], chunk=1024)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_at_mlstm_widths(dev, dtype):
+    """K4 at the mLSTM's P = 1024, N = 512 (xLSTM-1.3B), per-head B/C (k and
+    q), an fp32 initial state and a ragged S: the fma route, 16 P-tiles and
+    8 N-slices a chunk."""
+    from repro_torch.kernels.ssd import ssd, ssd_cuda, ssd_reference
+
+    X, la, Bm, Cm, init = _ssd_inputs(dev, 1, 300, 2, 1024, 512, dtype, True, seed=5)
+    la = la / 3  # the mLSTM's forget gates keep most of the state
+    tol = dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 else dict(rtol=1e-4, atol=1e-4)
+    for state in (None, init):
+        before = _routes(ssd_cuda)
+        Y, fin = ssd(X, la, Bm, Cm, chunk=64, initial_state=state)
+        _launched(ssd_cuda, before, "fma")
+        assert Y.dtype == fin.dtype == dtype and fin.shape == (1, 2, 1024, 512)
+        Yr, finr = ssd_reference(X, la, Bm, Cm, chunk=64, initial_state=state)
+        torch.testing.assert_close(Y.float(), Yr.float(), **tol)
+        torch.testing.assert_close(fin.float(), finr.float(), **tol)
 
 
 def test_zamba2_reduced_pallas_path_matches_plain_on_the_card(dev):
@@ -384,6 +406,37 @@ def test_decoder_reduced_on_the_card_equals_the_cpu(dev, arch):
             if device == dev:
                 want = 0 if cfg.mla else cfg.n_layers
                 assert launched == {"wgmma": 0, "fma": want}, launched
+            out[device] = [logits]
+            for i in (40, 41):
+                logits, state = model.decode_step(p, state, toks[:, i:i + 1])
+                out[device].append(logits)
+    for a, b in zip(out[dev], out["cpu"]):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
+def test_xlstm_reduced_on_the_card_equals_the_cpu(dev):
+    """Reduced xLSTM (2 groups of one mLSTM and one sLSTM): prefill and two
+    decode steps on the card, K4 on the fma route in each mLSTM, against
+    the same model and weights on the CPU, fp32, within 1e-4."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd import ssd_cuda
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config("xlstm-1.3b").reduced(), use_pallas=True)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.randint(0, cfg.vocab, (2, 42), generator=torch.Generator().manual_seed(1))
+    out = {}
+    with torch.inference_mode():
+        for device in ("cpu", dev):
+            p, toks = params.to(device), tokens.to(device)
+            k4 = _routes(ssd_cuda)
+            logits, state = model.prefill(p, {"tokens": toks[:, :40]})
+            launched = {r: n - k4[r] for r, n in _routes(ssd_cuda).items()}
+            if device == dev:
+                assert launched == {"wgmma": 0, "fma": model.n_groups * model.m_per_group}, launched
             out[device] = [logits]
             for i in (40, 41):
                 logits, state = model.decode_step(p, state, toks[:, i:i + 1])

@@ -31,6 +31,7 @@ from repro_torch.convert import model_params_from_reference
 from repro_torch.models import (
     DecoderLM,
     ParamTree,
+    XLSTMLM,
     attention,
     build_model,
     layers,
@@ -301,7 +302,7 @@ def test_init_shapes_and_param_count_match_reference():
 
 
 def test_entry_points_default_to_cuda_and_other_families_raise():
-    for arch in ("zamba2-2.7b", "olmoe-1b-7b"):
+    for arch in ("zamba2-2.7b", "olmoe-1b-7b", "xlstm-1.3b"):
         cfg = configs.get_config(arch).reduced()
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError, match="CUDA"):
@@ -310,7 +311,6 @@ def test_entry_points_default_to_cuda_and_other_families_raise():
                 build_model(cfg).init_decode_state(1, 8)
     for arch in ("mistral-large-123b", "olmoe-1b-7b", "deepseek-v2-lite-16b", "internvl2-26b"):
         assert isinstance(build_model(configs.get_config(arch)), DecoderLM), arch
+    assert isinstance(build_model(configs.get_config("xlstm-1.3b")), XLSTMLM)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 10"):
         build_model(configs.get_config("whisper-small"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(configs.get_config("xlstm-1.3b"))

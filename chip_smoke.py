@@ -41,10 +41,19 @@ and then drives the port's two main paths:
    (P = 1024, N = 512: 42 launches) and the sLSTM as a loop over the
    steps, timed apart.
 
+6. serving Whisper-small at its published widths and depth (12 encoder
+   and 12 decoder layers, random weights from seed 0): one 30 s audio
+   segment a request (1500 stub encoder frames) and decoder prompts of
+   228, 132, 36 and 4 tokens, 16 new tokens each, whose prefill runs K3 in
+   each decoder layer's causal self-attention (12 launches); the encoder's
+   bidirectional attention and the cross-attention are plain, as in the
+   reference, and the encoder's is timed apart.
+
 A parity phase then holds Zamba2's prefill with the kernels against its
 plain path in fp32 (6 layers, batch 2, 512 tokens), and teacher-forced
-decode against a longer prefill, and xLSTM's the same way (one group: 7
-mLSTMs and one sLSTM); a second holds OLMoE's (2 layers), counting
+decode against a longer prefill, xLSTM's the same way (one group: 7
+mLSTMs and one sLSTM) and Whisper's at full depth (random encoder frames,
+a 228-token prompt); a second holds OLMoE's (2 layers), counting
 routing flips, and DeepSeek's absorbed MLA decode against its expanded
 prefill.  Every check that fails raises, so the
 script exits non-zero and prints no result line.  It exits non-zero at once when CUDA is not available or the
@@ -86,11 +95,20 @@ SERVE_PROMPTS = (4096, 3072, 2048, 1024)
 SERVE_NEW_TOKENS = 16
 SERVE_TP = 8
 DEEPSEEK_LAYERS = 4    # the dense front layer and 3 MoE layers: 2.255 B parameters
-# K3 at Zamba2's and OLMoE's serving prefill (B, S, H, K, D); the GQA and
-# ragged cases
+# Serving Whisper-small: one 30 s segment a request (enc_seq 1500 frames);
+# decoder prompts of 228 tokens, the longest whisper/decoding.py builds
+# (<|startofprev|>, n_text_ctx // 2 - 1 = 223 previous-text tokens and the 4
+# start-of-transcript tokens), 132, 36 and 4 (the start-of-transcript
+# sequence alone); Whisper's text context is 448 tokens
+WHISPER_PROMPTS = (228, 132, 36, 4)
+# K3 at Zamba2's, OLMoE's and Whisper's decoder serving prefill (B, S, H, K,
+# D); the GQA and ragged cases
 FLASH_SHAPES = {"serving": (4, 4096, 32, 32, 80), "olmoe": (4, 4096, 16, 16, 128),
+                "whisper": (4, 228, 12, 12, 64),
                 "gqa": (2, 256, 8, 2, 64), "ragged": (1, 200, 32, 32, 80)}
-FLASH_TIMED = ("serving", "olmoe")
+# the timed cases, and the launches each timing averages over: one call at
+# Whisper's shape is a few microseconds, near the cost of its timing events
+FLASH_TIMED = {"serving": 1, "olmoe": 1, "whisper": 50}
 # K4 (B, S, H, P, N, chunk) at Zamba2's serving prefill (shared B/C), the
 # per-head and ragged cases, and at xLSTM-1.3B's mLSTM prefill (per-head
 # B/C: k and q); timed at the two prefills
@@ -153,8 +171,9 @@ def nvidia_smi() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, reps: int) -> float:
-    """Median device time of one call, by CUDA events, after a warm-up."""
+def time_ms(torch, fn, reps: int, inner: int = 1) -> float:
+    """Median device time of one call, by CUDA events around ``inner``
+    calls in a row, after a warm-up."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -162,10 +181,11 @@ def time_ms(torch, fn, reps: int) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
 
 
@@ -318,9 +338,10 @@ def kernel_phase(torch, gen, dtype_name: str) -> dict:
 
 
 def flash_kernel_phase(torch, gen, dtype_name: str) -> dict:
-    """K3 against its plain version at the two serving shapes (Zamba2's,
-    OLMoE's), GQA and ragged shapes; timed at the serving shapes beside
-    SDPA (``flash`` for Zamba2's, ``flash_olmoe`` for OLMoE's)."""
+    """K3 against its plain version at the three serving shapes (Zamba2's,
+    OLMoE's, Whisper's decoder), GQA and ragged shapes; timed at the
+    serving shapes beside SDPA (``flash`` for Zamba2's, ``flash_olmoe`` and
+    ``flash_whisper`` for the others)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash import attention_reference, flash_attention_cuda
@@ -346,11 +367,13 @@ def flash_kernel_phase(torch, gen, dtype_name: str) -> dict:
         if case not in FLASH_TIMED:
             del q, k, v
             continue
-        ms = time_ms(torch, lambda: flash_attention_cuda(q, k, v, causal=True), 3)
+        inner = FLASH_TIMED[case]
+        ms = time_ms(torch, lambda: flash_attention_cuda(q, k, v, causal=True), 3, inner)
         plain_ms = time_ms(torch, lambda: [attention_reference(q[b:b + 1], k[b:b + 1], v[b:b + 1])
-                                           for b in range(B)], 2)
+                                           for b in range(B)], 2, inner)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), 5)
+        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+                         5, inner)
         del qt, kt, vt
         flops = 2.0 * B * H * S * S * D  # causal: half of QKᵀ and PV, 2 ops per MAC
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
@@ -358,10 +381,10 @@ def flash_kernel_phase(torch, gen, dtype_name: str) -> dict:
         key = "flash" if case == "serving" else f"flash_{case}"
         out[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                         bound_by=b_by, library_ms=lib_ms, shape=[B, S, H, K, D],
-                        kernel_route=route)
-        log(f"  flash[{dtype_name}] {(B, S, H, K, D)} causal: kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms (per batch row), SDPA {lib_ms:.3f} ms, bound {b_ms:.3f} ms "
-            f"({b_by}), {flops / ms / 1e9:.1f} TFLOP/s")
+                        kernel_route=route, launches_timed=inner)
+        log(f"  flash[{dtype_name}] {(B, S, H, K, D)} causal: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms (per batch row), SDPA {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}), {flops / ms / 1e9:.1f} TFLOP/s; mean of {inner} launches in a row")
         del q, k, v
     return out
 
@@ -684,13 +707,17 @@ def prefill_launches(cfg) -> dict:
     kernels on: Zamba2 runs K3 once per shared-attention group and K4 in
     every Mamba-2 layer; xLSTM runs K4 in every mLSTM (its numerator scan:
     the denominator's runs the plain version, as in the reference) and no
-    K3; a decoder runs K3 in every GQA layer, and MLA runs none (its
-    attention is plain einsums, as in the reference)."""
+    K3; Whisper runs K3 in every decoder layer's causal self-attention and
+    none in its encoder or its cross-attention (plain, as in the reference);
+    a decoder runs K3 in every GQA layer, and MLA runs none (its attention
+    is plain einsums, as in the reference)."""
     if cfg.family == "hybrid":
         return {"flash": cfg.n_layers // cfg.hybrid.shared_attn_every, "ssd": cfg.n_layers}
     if cfg.family == "ssm":
         groups = cfg.n_layers // cfg.xlstm.slstm_every
         return {"flash": 0, "ssd": groups * (cfg.xlstm.slstm_every - 1)}
+    if cfg.family == "audio":
+        return {"flash": cfg.n_layers, "ssd": 0}
     return {"flash": 0 if cfg.mla else cfg.n_layers, "ssd": 0}
 
 
@@ -823,25 +850,33 @@ def _kernel_times(torch, prof):
     return out, sorted(other, reverse=True)[:4], k4
 
 
-def profile_serve(torch, engine, prompts, wall_prefill_ms, wall_decode_ms, steps=2) -> dict:
-    """Where a warm prefill and a warm decode step spend the card's time:
-    device time by kernel class (``torch.profiler``), and the share of the
-    unprofiled wall time the card was busy."""
+def served_batch(torch, engine, prompts) -> dict:
+    """A prefill batch as ``generate`` builds it: random prompts left-padded
+    to the longest, and the stub frontend's inputs."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     S = max(prompts)
     toks = np.zeros((len(prompts), S), np.int64)
     rng = np.random.default_rng(SEED)
     for i, n in enumerate(prompts):
         toks[i, S - n:] = rng.integers(0, engine.cfg.vocab, size=n)
-    tokens = torch.from_numpy(toks).to(engine.device)
+    return {"tokens": torch.from_numpy(toks).to(engine.device),
+            **engine._extra_inputs(len(prompts))}
+
+
+def profile_serve(torch, engine, prompts, wall_prefill_ms, wall_decode_ms, steps=2) -> dict:
+    """Where a warm prefill and a warm decode step spend the card's time:
+    device time by kernel class (``torch.profiler``), and the share of the
+    unprofiled wall time the card was busy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = served_batch(torch, engine, prompts)
     # device-side events only on the card (the CPU rehearsal records host ops)
     acts = [ProfilerActivity.CUDA] if engine.device.type == "cuda" else [ProfilerActivity.CPU]
     out = {}
     with torch.inference_mode():
         with profile(activities=acts) as prof:
-            logits, state = engine.model.prefill(engine.params, {"tokens": tokens},
+            logits, state = engine.model.prefill(engine.params, batch,
                                                  max_len=engine.ecfg.max_len)
             torch.cuda.synchronize()
         out["prefill"] = (*_kernel_times(torch, prof), wall_prefill_ms, 1)
@@ -904,18 +939,12 @@ class SlstmTimer:
 def slstm_share(torch, engine, prompts) -> dict:
     """One warm prefill of the served batch with the sLSTM layers timed
     apart: their share of the prefill's wall time."""
-    import numpy as np
-
     S = max(prompts)
-    toks = np.zeros((len(prompts), S), np.int64)
-    rng = np.random.default_rng(SEED)
-    for i, n in enumerate(prompts):
-        toks[i, S - n:] = rng.integers(0, engine.cfg.vocab, size=n)
-    tokens = torch.from_numpy(toks).to(engine.device)
+    batch = served_batch(torch, engine, prompts)
     with torch.inference_mode(), SlstmTimer(torch) as timer:
         torch.cuda.synchronize()
         t = time.perf_counter()
-        engine.model.prefill(engine.params, {"tokens": tokens}, max_len=engine.ecfg.max_len)
+        engine.model.prefill(engine.params, batch, max_len=engine.ecfg.max_len)
         torch.cuda.synchronize()
         total = (time.perf_counter() - t) * 1e3
     slstm = sum(timer.ms)
@@ -925,6 +954,75 @@ def slstm_share(torch, engine, prompts) -> dict:
         + ", ".join(f"{ms:.1f}" for ms in timer.ms) + " ms")
     return {"slstm_ms": slstm, "prefill_ms": total, "slstm_share": slstm / total,
             "slstm_us_per_step": 1e3 * slstm / steps, "slstm_layers": len(timer.ms)}
+
+
+class EncoderAttentionTimer:
+    """Device time of the plain attention (``attention._attend``: the score
+    einsum, mask, fp32 softmax and the einsum with V) of every encoder layer
+    while installed, by CUDA events around each call; a call counts when
+    ``apply_gqa`` runs it in ``bidir`` mode.  It wraps the port's
+    ``attention.apply_gqa`` and ``attention._attend``, which are looked up
+    at each call."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def __enter__(self):
+        from repro_torch.models import attention
+
+        self.attn, self.apply_gqa, self.attend = attention, attention.apply_gqa, attention._attend
+        self.events, bidir = [], [False]
+
+        def apply_gqa(*args, **kwargs):
+            bidir[0] = kwargs.get("mode") == "bidir"
+            try:
+                return self.apply_gqa(*args, **kwargs)
+            finally:
+                bidir[0] = False
+
+        def attend(*args, **kwargs):
+            if not bidir[0]:
+                return self.attend(*args, **kwargs)
+            start, end = (self.torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = self.attend(*args, **kwargs)
+            end.record()
+            self.events.append((start, end))
+            return out
+
+        attention.apply_gqa, attention._attend = apply_gqa, attend
+        return self
+
+    def __exit__(self, *exc):
+        self.attn.apply_gqa, self.attn._attend = self.apply_gqa, self.attend
+
+    def ms(self) -> list:
+        self.torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.events]
+
+
+def encoder_attention_share(torch, engine, prompts) -> dict:
+    """One warm prefill of the served batch with the encoder's plain
+    attention timed apart: its device time and share of the prefill."""
+    cfg = engine.cfg
+    batch = served_batch(torch, engine, prompts)
+    with torch.inference_mode(), EncoderAttentionTimer(torch) as timer:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        engine.model.prefill(engine.params, batch, max_len=engine.ecfg.max_len)
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t) * 1e3
+        ms = timer.ms()
+    check(len(ms) == cfg.enc_dec.n_enc_layers,
+          f"timed {len(ms)} encoder attentions, not {cfg.enc_dec.n_enc_layers}")
+    enc_ms = sum(ms)
+    B, T, H, Dh = len(prompts), cfg.enc_dec.enc_seq, cfg.n_heads, cfg.resolved_head_dim
+    log(f"  encoder attention (plain, fp32 scores {(B, H, T, T)}, {len(ms)} layers): "
+        f"{enc_ms:.2f} ms of a {total:.2f} ms prefill ({100 * enc_ms / total:.1f} %), "
+        f"{enc_ms / len(ms):.3f} ms a layer; {4.0 * B * H * T * T * Dh * len(ms) / 1e9:.1f} GFLOP "
+        f"and {B * H * T * T * 4 * len(ms) / 1e9:.2f} GB of fp32 scores")
+    return {"encoder_attention_ms": enc_ms, "encoder_attention_prefill_ms": total,
+            "encoder_attention_share": enc_ms / total}
 
 
 def parity_phase(torch, device, arch="zamba2-2.7b", n_layers=PARITY_LAYERS, seed=SEED + 1) -> dict:
@@ -1013,15 +1111,17 @@ def no_drop(cfg):
     return replace(cfg, moe=replace(cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
 
 
-def continuation(torch, model, params, tokens, what: str) -> dict:
+def continuation(torch, model, params, tokens, what: str, extra=None) -> dict:
     """Teacher-forced decode of the last two tokens after a shorter prefill
     against the full prefill's last logits, counting the routing flips
-    between each decode step and the prefill at the same token."""
+    between each decode step and the prefill at the same token.  ``extra``
+    are the frontend's inputs, the same for both prefills."""
     S, L = tokens.shape[1], model.cfg.n_layers
+    extra = extra or {}
     with RouteRecorder() as rec:
-        want, _ = model.prefill(params, {"tokens": tokens})
+        want, _ = model.prefill(params, {"tokens": tokens, **extra})
         full = list(rec.calls)
-        _, state = model.prefill(params, {"tokens": tokens[:, :-2]})
+        _, state = model.prefill(params, {"tokens": tokens[:, :-2], **extra})
         rec.calls.clear()
         for i in (S - 2, S - 1):
             step, state = model.decode_step(params, state, tokens[:, i:i + 1])
@@ -1094,6 +1194,45 @@ def decoder_parity_phase(torch, device) -> dict:
         cont = continuation(torch, ds, params, tokens,
                             f"DeepSeek-V2-Lite MLA, capacity E/K = {ds.cfg.moe.capacity_factor:.3f}")
         out.update({f"deepseek_{k}": v for k, v in cont.items()})
+    return out
+
+
+def whisper_parity_phase(torch, device) -> dict:
+    """Whisper-small at full widths and depth in fp32, random encoder
+    frames, batch 2 with a 228-token prompt: prefill logits with K3 (the
+    fma route, one per decoder layer) against the plain path, and
+    teacher-forced decode against a longer prefill."""
+    from repro_torch.kernels.flash import flash_attention_cuda
+    from repro_torch.models import build_model
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    kernels = build_model(model_config("whisper-small", True, dtype="float32"))
+    plain = build_model(model_config("whisper-small", False, dtype="float32"))
+    cfg = kernels.cfg
+    params = kernels.init(gen, device)
+    S = max(WHISPER_PROMPTS)
+    tokens = torch.randint(0, cfg.vocab, (PARITY_BATCH, S), generator=gen, device=device)
+    frames = {"enc_frames": torch.randn(PARITY_BATCH, cfg.enc_dec.enc_seq, cfg.d_model,
+                                        generator=gen, device=device)}
+    out = {}
+    with torch.inference_mode():
+        k3_before = dict(flash_attention_cuda.launches_by_route)
+        got, _ = kernels.prefill(params, {"tokens": tokens, **frames})
+        k3 = {r: flash_attention_cuda.launches_by_route[r] - k3_before[r] for r in k3_before}
+        check(device.type != "cuda" or k3 == {"wgmma": 0, "fma": cfg.n_layers},
+              f"Whisper fp32 parity prefill launched K3 {k3}, not {cfg.n_layers} on the fma route")
+        log(f"  Whisper fp32 parity prefill K3 launches by route: {k3}")
+        want, _ = plain.prefill(params, {"tokens": tokens, **frames})
+        err = (got - want).abs().max().item()
+        ok = bool(torch.isclose(got, want, rtol=PARITY_TOL, atol=PARITY_TOL).all().item())
+        log(f"  Whisper prefill logits, K3 vs plain path (fp32, {cfg.enc_dec.n_enc_layers} + "
+            f"{cfg.n_layers} layers, batch {PARITY_BATCH} x {S}, {cfg.enc_dec.enc_seq} random "
+            f"frames): max_abs_err={err:.3e} (tol rtol=atol={PARITY_TOL}, max |logit| "
+            f"{want.abs().max().item():.3f})")
+        check(bool(torch.isfinite(got).all().item()) and ok,
+              "Whisper prefill with K3 disagrees with the plain path")
+        out["prefill_max_abs_err"] = err
+        out.update(continuation(torch, kernels, params, tokens, "Whisper-small", frames))
     return out
 
 
@@ -1210,17 +1349,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"  phase warm timings: {time.perf_counter() - t:.3f} s")
 
-    def serve_phase(number: int, cfg, what: str, extra=None):
+    def serve_phase(number: int, cfg, what: str, extra=None, prompts=SERVE_PROMPTS):
         """Serve ``cfg`` with the counts set to 0 just before and read just
         after the counted ``generate``; then the checks, a warm
         ``generate``, the profile and ``extra(engine)``'s measurements.
         The engine is freed on return."""
         log(f"== main path {number}: serve {cfg.name} ({what}, d_model {cfg.d_model}, "
-            f"{cfg.dtype}), prompts {SERVE_PROMPTS}, {SERVE_NEW_TOKENS} new tokens")
+            f"{cfg.dtype}), prompts {prompts}, {SERVE_NEW_TOKENS} new tokens")
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         t = time.perf_counter()
-        served = serve_path(torch, cfg, torch.device("cuda"), SERVE_PROMPTS, SERVE_NEW_TOKENS)
+        served = serve_path(torch, cfg, torch.device("cuda"), prompts, SERVE_NEW_TOKENS)
         counts = read_counts()
         routes = {"flash": dict(flash_attention_cuda.launches_by_route),
                   "ssd": dict(ssd_cuda.launches_by_route)}
@@ -1241,7 +1380,7 @@ def main() -> int:
             f"{[q.generated for q in again] == [q.generated for q in served['requests']]}")
         stats.update(warm_prefill_ms=warm["prefill_s"] * 1e3,
                      warm_decode_ms_per_token=warm["decode_s"] * 1e3 / warm["decode_steps"])
-        stats["profile"] = profile_serve(torch, engine, SERVE_PROMPTS, stats["warm_prefill_ms"],
+        stats["profile"] = profile_serve(torch, engine, prompts, stats["warm_prefill_ms"],
                                          stats["warm_decode_ms_per_token"])
         if extra is not None:
             stats.update(extra(engine))
@@ -1266,6 +1405,12 @@ def main() -> int:
         5, xlstm, f"{xlstm.n_layers} blocks, {xlstm.n_layers // xlstm.xlstm.slstm_every} groups of "
         f"{xlstm.xlstm.slstm_every - 1} mLSTMs (K4 at P {P}, N {N}) and one sLSTM",
         extra=lambda engine: slstm_share(torch, engine, SERVE_PROMPTS))
+    whisper = model_config("whisper-small", True)
+    path6, routes6, whisper_stats = serve_phase(
+        6, whisper, f"{whisper.enc_dec.n_enc_layers} encoder + {whisper.n_layers} decoder layers, "
+        f"{whisper.enc_dec.enc_seq} encoder frames a request",
+        extra=lambda engine: encoder_attention_share(torch, engine, WHISPER_PROMPTS),
+        prompts=WHISPER_PROMPTS)
 
     log("== parity: Zamba2 and xLSTM prefill with the kernels against the plain path on the card")
     t = time.perf_counter()
@@ -1280,11 +1425,17 @@ def main() -> int:
     decoder_parity = decoder_parity_phase(torch, torch.device("cuda"))
     torch.cuda.empty_cache()
     log(f"  phase decoder parity: {time.perf_counter() - t:.3f} s")
+    log("== parity: Whisper-small (EncDecLM) at full depth on the card, fp32")
+    t = time.perf_counter()
+    whisper_parity = whisper_parity_phase(torch, torch.device("cuda"))
+    torch.cuda.empty_cache()
+    log(f"  phase Whisper parity: {time.perf_counter() - t:.3f} s")
     log("serve: " + json.dumps({**serve_stats, **parity}))
     log("serve olmoe: " + json.dumps(olmoe_stats))
     log("serve deepseek: " + json.dumps(deepseek_stats))
     log("serve xlstm: " + json.dumps({**xlstm_stats, **xlstm_parity}))
     log("decoder parity: " + json.dumps(decoder_parity))
+    log("serve whisper: " + json.dumps({**whisper_stats, **whisper_parity}))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
 
     # the bf16 kernels of each path; K1, K3 and K4 on their tensor-core route
@@ -1295,8 +1446,9 @@ def main() -> int:
                     "src/repro/kernels/rmsnorm/kernel.py:37", path1, None),
         "flash": ("cuda", "src/repro_torch/kernels/flash/csrc/flash_sm90.cu",
                   "src/repro/kernels/flash/kernel.py:79",
-                  {"flash": path2["flash"] + path3["flash"]},
-                  {r: routes2["flash"][r] + routes3["flash"][r] for r in routes2["flash"]}),
+                  {"flash": path2["flash"] + path3["flash"] + path6["flash"]},
+                  {r: routes2["flash"][r] + routes3["flash"][r] + routes6["flash"][r]
+                   for r in routes2["flash"]}),
         "ssd": ("cuda", "src/repro_torch/kernels/ssd/csrc/ssd_sm90.cu",
                 "src/repro/kernels/ssd/kernel.py:80", path2, routes2["ssd"]),
         # K4's CUDA-core route at the mLSTM's widths: bf16 off the tensor-core route
@@ -1323,9 +1475,12 @@ def main() -> int:
         if "pass_ms" in k:
             entry["pass_ms"] = k["pass_ms"]
         if name == "flash":
-            # launches on path 2 (Zamba2) and path 3 (OLMoE); timed at both prefills
-            entry["launches_by_path"] = {"zamba2": path2["flash"], "olmoe": path3["flash"]}
+            # launches on path 2 (Zamba2), path 3 (OLMoE) and path 6 (Whisper);
+            # timed at the three prefills
+            entry["launches_by_path"] = {"zamba2": path2["flash"], "olmoe": path3["flash"],
+                                         "whisper": path6["flash"]}
             entry["at_olmoe_prefill"] = kernels["bfloat16"]["flash_olmoe"]
+            entry["at_whisper_prefill"] = kernels["bfloat16"]["flash_whisper"]
         record["kernels"].append(entry)
     print(smi)
     print(json.dumps(record))

@@ -1,4 +1,5 @@
-"""Attention: GQA/MQA with a KV cache and MLA (DeepSeek-V2), from ``repro.models.attention``.
+"""Attention: GQA/MQA with a KV cache, MLA (DeepSeek-V2) and cross-attention,
+from ``repro.models.attention``.
 
 Four execution modes per GQA layer:
 
@@ -18,8 +19,10 @@ and ``v = k_rope (B, T, rope_dim)``.
 Decode writes the new key and value into the cache **in place** at the
 cache's length (the reference writes through a one-hot ``where``, which on
 one device only costs a copy of the cache per step) and returns the same
-cache with its length advanced.  Cross-attention waits for ``EncDecLM``
-(ROADMAP Queue 1).
+cache with its length advanced.  Cross-attention (Whisper's decoder) is
+plain ``_attend`` over the encoder's keys and values, with no rope and no
+mask, as in the reference; serving computes those keys and values once, at
+prefill (``apply_cross_attn_cached``).
 """
 
 from __future__ import annotations
@@ -285,3 +288,27 @@ def apply_mla(
     H, Dv = ctx.shape[2], ctx.shape[3]
     out = ctx.reshape(B, S, H * Dv) @ p["wo"].to(dt).reshape(H * Dv, -1)
     return out, new_cache
+
+
+# --------------------------------------------------------- cross-attention
+
+
+def init_cross_attn(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    return init_gqa(cfg)
+
+
+def apply_cross_attn(p, cfg: ModelConfig, x: torch.Tensor, enc: torch.Tensor) -> torch.Tensor:
+    """Decoder query over encoder memory (Whisper). No causal mask, no rope."""
+    dt = x.dtype
+    kv = {"k": _project(enc, p["wk"].to(dt)), "v": _project(enc, p["wv"].to(dt))}
+    return apply_cross_attn_cached(p, cfg, x, kv)
+
+
+def apply_cross_attn_cached(p, cfg: ModelConfig, x: torch.Tensor, kv) -> torch.Tensor:
+    """Cross-attention against precomputed encoder K/V (the serving path)."""
+    dt = x.dtype
+    q = _project(x, p["wq"].to(dt))
+    B, S, H, Dh = q.shape
+    pos = torch.arange(S, device=x.device)[None].expand(B, S)
+    ctx = _attend(q, kv["k"], kv["v"], causal=False, q_positions=pos, kv_valid_len=None)
+    return ctx.reshape(B, S, H * Dh) @ p["wo"].to(dt).reshape(H * Dh, -1)

@@ -1,8 +1,9 @@
-"""Model builders: the ``Model`` interface, ``DecoderLM``, Zamba2's ``HybridLM``
-and ``XLSTMLM``.
+"""Model builders: the ``Model`` interface, ``DecoderLM``, Zamba2's ``HybridLM``,
+``XLSTMLM`` and Whisper's ``EncDecLM``.
 
-A port of ``repro.models.lm`` for the dense, MoE, VLM, hybrid and ssm
-(xLSTM) families.  ``build_model(cfg)`` returns a :class:`Model` exposing:
+A port of ``repro.models.lm`` for every family it defines: dense, MoE, VLM,
+hybrid, ssm (xLSTM) and audio (encoder–decoder).  ``build_model(cfg)``
+returns a :class:`Model` exposing:
 
 * ``init(generator, device=None)``          → :class:`ParamTree` (an ``nn.Module``)
 * ``prefill(params, batch, max_len=None)``  → (last-position logits, decode state)
@@ -12,10 +13,10 @@ A port of ``repro.models.lm`` for the dense, MoE, VLM, hybrid and ssm
 Parameters are fp32 (``param_dtype``) and cast to the activation dtype at
 use.  The layer stack is a Python loop over the stacked ``(L, …)``
 parameters (the reference's ``lax.scan``).  Entry points run on CUDA unless
-the caller asks for the CPU, and raise without CUDA.  The audio family
-(``EncDecLM``) raises ``NotImplementedError`` until it is ported, and so
-does training (``loss``).  The VLM frontend is a stub, as in the
-reference: batches carry precomputed ``img_embeds`` at ``d_model`` width.
+the caller asks for the CPU, and raise without CUDA.  Training (``loss``)
+is not ported yet.  The modality frontends are stubs, as in the
+reference: batches carry precomputed ``img_embeds`` (VLM) or
+``enc_frames`` (audio) at ``d_model`` width.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ from .layers import (
     init_mlp,
     init_norm,
     logits_projection,
+    sinusoidal_positions,
 )
 from .module import ParamTree, init_tree, layer, normal_init, shapes_of, stack_init
 
@@ -84,14 +86,17 @@ def _with_norm(init_fn, cfg):
 
 
 # ===========================================================================
-# Transformer decoder layer (dense / moe / vlm)
+# Transformer decoder layer (dense / moe / vlm / audio decoder)
 # ===========================================================================
 
 
-def _init_decoder_layer(cfg: ModelConfig, *, kind: str):
+def _init_decoder_layer(cfg: ModelConfig, *, kind: str, cross: bool = False):
     p = {"ln1": init_norm(cfg.d_model, cfg.norm_type),
-         "attn": A.init_mla(cfg) if cfg.mla else A.init_gqa(cfg),
-         "ln2": init_norm(cfg.d_model, cfg.norm_type)}
+         "attn": A.init_mla(cfg) if cfg.mla else A.init_gqa(cfg)}
+    if cross:
+        p["ln_x"] = init_norm(cfg.d_model, cfg.norm_type)
+        p["xattn"] = A.init_cross_attn(cfg)
+    p["ln2"] = init_norm(cfg.d_model, cfg.norm_type)
     if kind == "moe":
         p["ffn"] = M.init_moe(cfg)
     elif kind == "dense_wide":  # DeepSeek's first dense layers
@@ -101,13 +106,23 @@ def _init_decoder_layer(cfg: ModelConfig, *, kind: str):
     return p
 
 
-def _apply_decoder_layer(p, cfg: ModelConfig, x, *, positions, cache, mode, kind: str):
-    """One pre-norm block; the cache views are written in place.  The MoE
-    aux loss is dropped: only training (``loss``, not ported) reads it."""
+def _apply_decoder_layer(p, cfg: ModelConfig, x, *, positions, cache, mode, kind: str,
+                         enc: Optional[torch.Tensor] = None, cross_kv=None):
+    """One pre-norm block; the cache views are written in place.  A layer
+    with ``xattn`` attends to the encoder's output ``enc``, or to its
+    precomputed keys and values ``cross_kv``.  The MoE aux loss is dropped:
+    only training (``loss``, not ported) reads it."""
     h = apply_norm(p["ln1"], x, eps=cfg.norm_eps, norm_type=cfg.norm_type)
     attn_fn = A.apply_mla if cfg.mla else A.apply_gqa
     a_out, _ = attn_fn(p["attn"], cfg, h, positions=positions, cache=cache, mode=mode)
     x = x + a_out
+    if "xattn" in p:
+        h = apply_norm(p["ln_x"], x, eps=cfg.norm_eps, norm_type=cfg.norm_type)
+        if cross_kv is not None:
+            xa = A.apply_cross_attn_cached(p["xattn"], cfg, h, cross_kv)
+        else:
+            xa = A.apply_cross_attn(p["xattn"], cfg, h, enc)
+        x = x + xa
     h = apply_norm(p["ln2"], x, eps=cfg.norm_eps, norm_type=cfg.norm_type)
     if kind == "moe":
         f_out, _ = M.apply_moe(p["ffn"], cfg, h)
@@ -414,6 +429,123 @@ class XLSTMLM(Model):
 
 
 # ===========================================================================
+# Encoder–decoder (Whisper)
+# ===========================================================================
+
+
+def _init_encoder_layer(cfg: ModelConfig):
+    return {"ln1": init_norm(cfg.d_model, cfg.norm_type),
+            "attn": A.init_gqa(cfg),
+            "ln2": init_norm(cfg.d_model, cfg.norm_type),
+            "ffn": init_mlp(cfg.d_model, cfg.d_ff, cfg.mlp_type)}
+
+
+def _apply_encoder_layer(p, cfg: ModelConfig, x):
+    """Pre-norm bidirectional self-attention (plain ``_attend``, no rope),
+    then the MLP."""
+    h = apply_norm(p["ln1"], x, eps=cfg.norm_eps, norm_type=cfg.norm_type)
+    B, S = h.shape[:2]
+    a, _ = A.apply_gqa(p["attn"], cfg, h, positions=_positions(B, S, device=h.device),
+                       mode="bidir", rope_style="none")
+    x = x + a
+    h = apply_norm(p["ln2"], x, eps=cfg.norm_eps, norm_type=cfg.norm_type)
+    return x + apply_mlp(p["ffn"], h, mlp_type=cfg.mlp_type)
+
+
+class EncDecLM(Model):
+    """Whisper-style: stubbed mel-frame embeddings → encoder → decoder LM.
+
+    ``enc_layers`` are stacked ``(n_enc_layers, …)``, ``dec_layers``
+    ``(n_layers, …)`` with a cross-attention branch each (``ln_x``,
+    ``xattn``).  The decode state is ``{"self": KVCache, "cross": {"k",
+    "v"}}``: the decoder's self-attention caches with a leading
+    ``(n_layers,)`` axis, and each layer's keys and values of the encoder's
+    output, ``(n_layers, B, enc_seq, K, Dh)`` in the activation dtype,
+    computed once at prefill and never written after."""
+
+    def specs(self):
+        cfg = self.cfg
+        return {
+            "embed": init_embedding(cfg.vocab, cfg.d_model),
+            "lm_head": normal_init((cfg.vocab, cfg.d_model), scale=0.02),
+            "ln_f": init_norm(cfg.d_model, cfg.norm_type),
+            "ln_enc": init_norm(cfg.d_model, cfg.norm_type),
+            "enc_layers": stack_init(_init_encoder_layer(cfg), cfg.enc_dec.n_enc_layers),
+            "dec_layers": stack_init(_init_decoder_layer(cfg, kind="dense", cross=True),
+                                     cfg.n_layers),
+        }
+
+    def _encode(self, params, frames: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        x = frames.to(cfg.act_dtype())
+        x = x + sinusoidal_positions(x.shape[1], cfg.d_model, x.device).to(x.dtype)[None]
+        for i in range(cfg.enc_dec.n_enc_layers):
+            x = _apply_encoder_layer(layer(params["enc_layers"], i), cfg, x)
+        return apply_norm(params["ln_enc"], x, eps=cfg.norm_eps, norm_type=cfg.norm_type)
+
+    def _decode_stack(self, params, x, positions, caches: A.KVCache, cross, mode: str):
+        """Every decoder layer in order; layer i reads and writes self-cache
+        row i and reads cross row i."""
+        cfg = self.cfg
+        for i in range(cfg.n_layers):
+            cache = A.KVCache(caches.k[i], caches.v[i], caches.length[i])
+            x = _apply_decoder_layer(layer(params["dec_layers"], i), cfg, x, positions=positions,
+                                     cache=cache, mode=mode, kind="dense",
+                                     cross_kv={"k": cross["k"][i], "v": cross["v"][i]})
+        return x
+
+    def _cross_kv(self, params, enc: torch.Tensor):
+        """Per-layer cross-attention K/V of the encoder's output, in its dtype."""
+        xattn = params["dec_layers"]["xattn"]
+        return {name: torch.stack([A._project(enc, w[i].to(enc.dtype))
+                                   for i in range(self.cfg.n_layers)])
+                for name, w in (("k", xattn["wk"]), ("v", xattn["wv"]))}
+
+    def _self_cache(self, batch: int, max_len: int, device) -> A.KVCache:
+        cfg = self.cfg
+        one = A.init_cache(batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim,
+                           cfg.resolved_head_dim, self.cache_dtype(), device)
+        return A.KVCache(*(a.new_zeros((cfg.n_layers, *a.shape)) for a in one))
+
+    def init_decode_state(self, batch: int, max_len: int, device=None):
+        cfg = self.cfg
+        device = resolve_device(device)
+        shape = (cfg.n_layers, batch, cfg.enc_dec.enc_seq, cfg.n_kv_heads, cfg.resolved_head_dim)
+        cross = {name: torch.zeros(shape, dtype=self.cache_dtype(), device=device)
+                 for name in ("k", "v")}
+        return {"self": self._self_cache(batch, max_len, device), "cross": cross}
+
+    def prefill(self, params, batch: Batch, max_len: Optional[int] = None):
+        cfg = self.cfg
+        enc = self._encode(params, batch["enc_frames"])
+        x = embed_lookup(params["embed"], batch["tokens"], cfg.act_dtype())
+        B, S = x.shape[:2]
+        T = max_len or S + 64
+        x = x + sinusoidal_positions(T, cfg.d_model, x.device).to(x.dtype)[None, :S]
+        caches = self._self_cache(B, T, x.device)
+        cross = self._cross_kv(params, enc)
+        x = self._decode_stack(params, x, _positions(B, S, device=x.device), caches, cross,
+                               "prefill")
+        x = apply_norm(params["ln_f"], x, eps=cfg.norm_eps, norm_type=cfg.norm_type)
+        return logits_projection(params["lm_head"], x[:, -1:]), {"self": caches, "cross": cross}
+
+    def decode_step(self, params, state, tokens: torch.Tensor):
+        """One token per row; the self caches in ``state`` advance in place,
+        the cross keys and values are read as they are."""
+        cfg = self.cfg
+        x = embed_lookup(params["embed"], tokens, cfg.act_dtype())
+        B = x.shape[0]
+        caches = state["self"]
+        # a copy: the caches' lengths advance in place during the step
+        length = caches.length[0].clone()
+        pos_tab = sinusoidal_positions(caches.k.shape[2], cfg.d_model, x.device)
+        x = x + pos_tab.index_select(0, length.long().reshape(1)).to(x.dtype)[None]
+        x = self._decode_stack(params, x, length.expand(B, 1), caches, state["cross"], "decode")
+        x = apply_norm(params["ln_f"], x, eps=cfg.norm_eps, norm_type=cfg.norm_type)
+        return logits_projection(params["lm_head"], x), state
+
+
+# ===========================================================================
 
 def build_model(cfg: ModelConfig) -> Model:
     if cfg.family == "hybrid":
@@ -422,8 +554,9 @@ def build_model(cfg: ModelConfig) -> Model:
         return DecoderLM(cfg)
     if cfg.family == "ssm":
         return XLSTMLM(cfg)
+    if cfg.family == "audio":
+        return EncDecLM(cfg)
     raise NotImplementedError(
-        f"build_model: the {cfg.family} family ({cfg.name}) is not ported yet "
-        "(ROADMAP Queue 1, item 10); the port builds the dense, moe, vlm, hybrid and ssm "
-        "families"
+        f"build_model: the {cfg.family} family ({cfg.name}) is not one the reference "
+        "defines; the port builds the dense, moe, vlm, hybrid, ssm and audio families"
     )

@@ -5,9 +5,12 @@ batch, left-padded to the longest prompt, prefilled together, then decoded
 step by step, greedily.  Prefill and decode run under
 ``torch.inference_mode()`` on the engine's device (CUDA unless the caller
 passes ``device="cpu"``); with ``cfg.use_pallas`` the prefill's attention
-and SSD scan run the hand-written kernels K3 and K4.  A VLM's prefill
-takes zero image embeddings (the frontend is a stub, as in the reference),
-which sit before the prompt and take KV slots of their own.
+and SSD scan run the hand-written kernels K3 and K4.  The modality
+frontends are stubs, as in the reference: a VLM's prefill takes zero image
+embeddings, which sit before the prompt and take KV slots of their own;
+an encoder–decoder's takes zero encoder frames ``(B, enc_seq, d_model)``,
+which its encoder reads and which take no KV slot (their keys and values
+sit in the cross state).
 
 With ``EngineConfig.tp > 1`` the engine also accounts for the
 tensor-parallel activation all-reduces through the port's PCCL session
@@ -271,11 +274,14 @@ class ServeEngine:
         )
 
     def _extra_inputs(self, B: int) -> Dict[str, torch.Tensor]:
-        """The stub frontends' inputs: zero image embeddings for a VLM.
-        (An encoder's frames wait for ``EncDecLM``.)"""
+        """The stub frontends' inputs: zero fp32 image embeddings for a VLM,
+        zero fp32 encoder frames for an encoder–decoder."""
         out = {}
         if self.cfg.vlm:
             out["img_embeds"] = torch.zeros((B, self.cfg.vlm.n_img_tokens, self.cfg.d_model),
+                                            dtype=torch.float32, device=self.device)
+        if self.cfg.enc_dec:
+            out["enc_frames"] = torch.zeros((B, self.cfg.enc_dec.enc_seq, self.cfg.d_model),
                                             dtype=torch.float32, device=self.device)
         return out
 

@@ -443,3 +443,58 @@ def test_xlstm_reduced_on_the_card_equals_the_cpu(dev):
                 out[device].append(logits)
     for a, b in zip(out[dev], out["cpu"]):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.float32, "fma"), (torch.bfloat16, "wgmma")])
+def test_flash_kernel_at_whisper_decoder_shape(dev, dtype, route):
+    """K3 at Whisper-small's decoder prefill (12 heads of 64, MHA) with the
+    longest prompt OpenAI's decoding builds, S = 228: ragged against the
+    tiles, causal, on each route."""
+    from repro_torch.kernels.flash import attention_reference, flash_attention, flash_attention_cuda
+
+    q, k, v = _flash_inputs(dev, 2, 228, 12, 12, 64, dtype, seed=4)
+    before = _routes(flash_attention_cuda)
+    got = flash_attention(q, k, v, causal=True)
+    _launched(flash_attention_cuda, before, route)
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 else dict(rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got.float(), attention_reference(q, k, v).float(), **tol)
+
+
+def test_whisper_reduced_on_the_card_equals_the_cpu(dev):
+    """Reduced whisper-small (2 encoder and 4 decoder layers, enc_seq 32),
+    random encoder frames: prefill (K3 on the fma route in each decoder
+    layer, none in the encoder or the cross-attention) and two decode steps
+    on the card against the same model and weights on the CPU, fp32,
+    within 1e-4; the cross state too."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash import flash_attention_cuda
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config("whisper-small").reduced(), use_pallas=True)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    g = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (2, 42), generator=g)
+    frames = torch.randn(2, cfg.enc_dec.enc_seq, cfg.d_model, generator=g)
+    out = {}
+    with torch.inference_mode():
+        for device in ("cpu", dev):
+            p, toks = params.to(device), tokens.to(device)
+            k3 = _routes(flash_attention_cuda)
+            logits, state = model.prefill(p, {"tokens": toks[:, :40],
+                                              "enc_frames": frames.to(device)}, max_len=48)
+            launched = {r: n - k3[r] for r, n in _routes(flash_attention_cuda).items()}
+            if device == dev:
+                assert launched == {"wgmma": 0, "fma": cfg.n_layers}, launched
+            out[device] = [logits, *state["cross"].values()]
+            for i in (40, 41):
+                logits, state = model.decode_step(p, state, toks[:, i:i + 1])
+                out[device].append(logits)
+            if device == dev:
+                assert _routes(flash_attention_cuda) == {r: n + (cfg.n_layers if r == "fma" else 0)
+                                                         for r, n in k3.items()}  # none in decode
+    for a, b in zip(out[dev], out["cpu"]):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)

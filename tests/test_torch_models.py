@@ -30,6 +30,7 @@ from repro_torch import configs
 from repro_torch.convert import model_params_from_reference
 from repro_torch.models import (
     DecoderLM,
+    EncDecLM,
     ParamTree,
     XLSTMLM,
     attention,
@@ -287,12 +288,15 @@ def _path_name(path):
 
 def test_init_shapes_and_param_count_match_reference():
     for arch in ("zamba2-2.7b", "olmoe-1b-7b", "deepseek-v2-lite-16b", "mistral-large-123b",
-                 "internvl2-26b"):
+                 "internvl2-26b", "whisper-small"):
         ref_cfg, cfg = ref_configs.get_config(arch), configs.get_config(arch)
         shapes = jax.eval_shape(lambda k: unbox(ref_build_model(ref_cfg).init(k)), jax.random.PRNGKey(0))
         want = {_path_name(path): tuple(v.shape)
                 for path, v in jax.tree_util.tree_leaves_with_path(shapes)}
         assert build_model(cfg).param_shapes() == want, arch
+        if arch == "whisper-small":  # 12 encoder and 12 decoder layers with cross-attention
+            assert param_count(build_model(cfg).specs()) == 277_940_736
+            assert want["dec_layers.xattn.wq"] == (12, 768, 12, 64)
     small = configs.get_config("zamba2-2.7b").reduced()
     tree = build_model(small).init(torch.Generator().manual_seed(0), device="cpu")
     assert param_count(tree) == param_count(build_model(small).specs())
@@ -302,7 +306,7 @@ def test_init_shapes_and_param_count_match_reference():
 
 
 def test_entry_points_default_to_cuda_and_other_families_raise():
-    for arch in ("zamba2-2.7b", "olmoe-1b-7b", "xlstm-1.3b"):
+    for arch in ("zamba2-2.7b", "olmoe-1b-7b", "xlstm-1.3b", "whisper-small"):
         cfg = configs.get_config(arch).reduced()
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError, match="CUDA"):
@@ -312,5 +316,7 @@ def test_entry_points_default_to_cuda_and_other_families_raise():
     for arch in ("mistral-large-123b", "olmoe-1b-7b", "deepseek-v2-lite-16b", "internvl2-26b"):
         assert isinstance(build_model(configs.get_config(arch)), DecoderLM), arch
     assert isinstance(build_model(configs.get_config("xlstm-1.3b")), XLSTMLM)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 10"):
-        build_model(configs.get_config("whisper-small"))
+    assert isinstance(build_model(configs.get_config("whisper-small")), EncDecLM)
+    unknown = dataclasses.replace(configs.get_config("whisper-small"), family="video")
+    with pytest.raises(NotImplementedError, match="not one the reference defines"):
+        build_model(unknown)

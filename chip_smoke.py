@@ -11,7 +11,7 @@ started together; K2, the Triton RMSNorm, at first launch), shows what
 spills) and that their SASS holds ``HGMMA``, holds each kernel against its
 plain PyTorch version at the shapes its path gives it, checks which route
 each K1, K3 and K4 call took (and K4's time in each of its three passes),
-and then drives the port's two main paths:
+and then drives the port's main paths:
 
 1. collectives at the tensor-parallel widths of Mistral-Large-123B
    (``d_model`` 12288, ``d_ff`` 28672, TP = 8 ranks stacked on one card,
@@ -49,13 +49,30 @@ and then drives the port's two main paths:
    bidirectional attention and the cross-attention are plain, as in the
    reference, and the encoder's is timed apart.
 
+7. training Zamba2-2.7B at its published widths and depth: AdamW
+   (``OptimizerConfig()``), ``make_train_step`` with 2 microbatches of
+   4096 tokens, remat ``full``; K3 and K4 run in the forward pass and its
+   remat recompute (36 and 216 launches a step), their backward is their
+   plain versions' autograd, timed apart by CUDA events and by the device
+   time of the kernels it launched; the step-0 loss is held against the
+   plain path's.  The kernel phase holds K3 and K4 at this path's shapes
+   too, called as it calls them (through their autograd Function);
+
+8. data-parallel training through PCCL: ``examples/pccl_dp_training_torch.py``'s
+   model and defaults (a widened chatglm3-6b, 63 M parameters, batch 8 x
+   128), 8 ranks stacked on the card, each parameter's gradients
+   all-reduced on ``PcclSession(H100_DGX)``'s plan; every rank's row of the
+   sum the same bits, the mean the full batch's gradient.
+
 A parity phase then holds Zamba2's prefill with the kernels against its
 plain path in fp32 (6 layers, batch 2, 512 tokens), and teacher-forced
 decode against a longer prefill, xLSTM's the same way (one group: 7
 mLSTMs and one sLSTM) and Whisper's at full depth (random encoder frames,
 a 228-token prompt); a second holds OLMoE's (2 layers), counting
 routing flips, and DeepSeek's absorbed MLA decode against its expanded
-prefill.  Every check that fails raises, so the
+prefill; a third holds training, the loss and every parameter's gradient
+of Zamba2 and xLSTM (one group each, fp32) with the kernels against the
+plain path.  Every check that fails raises, so the
 script exits non-zero and prints no result line.  It exits non-zero at once when CUDA is not available or the
 ``repro_torch`` package is not beside it.  The last line is the device
 summary ``{"ok": true, "device": {...}}``; the line before it is the
@@ -102,19 +119,26 @@ DEEPSEEK_LAYERS = 4    # the dense front layer and 3 MoE layers: 2.255 B paramet
 # sequence alone); Whisper's text context is 448 tokens
 WHISPER_PROMPTS = (228, 132, 36, 4)
 # K3 at Zamba2's, OLMoE's and Whisper's decoder serving prefill (B, S, H, K,
-# D); the GQA and ragged cases
+# D); the GQA and ragged cases; Zamba2's train microbatch (path 7)
 FLASH_SHAPES = {"serving": (4, 4096, 32, 32, 80), "olmoe": (4, 4096, 16, 16, 128),
                 "whisper": (4, 228, 12, 12, 64),
-                "gqa": (2, 256, 8, 2, 64), "ragged": (1, 200, 32, 32, 80)}
+                "gqa": (2, 256, 8, 2, 64), "ragged": (1, 200, 32, 32, 80),
+                "train": (1, 4096, 32, 32, 80)}
 # the timed cases, and the launches each timing averages over: one call at
 # Whisper's shape is a few microseconds, near the cost of its timing events
 FLASH_TIMED = {"serving": 1, "olmoe": 1, "whisper": 50}
 # K4 (B, S, H, P, N, chunk) at Zamba2's serving prefill (shared B/C), the
-# per-head and ragged cases, and at xLSTM-1.3B's mLSTM prefill (per-head
-# B/C: k and q); timed at the two prefills
+# per-head and ragged cases, at xLSTM-1.3B's mLSTM prefill (per-head B/C:
+# k and q) and at Zamba2's train microbatch (path 7: shared B/C, no initial
+# state); timed at the two prefills
 SSD_SHAPES = {"serving": (4, 4096, 80, 64, 64, 64), "per_head": (2, 512, 8, 64, 64, 64),
-              "ragged": (2, 1000, 80, 64, 64, 64), "mlstm": (4, 4096, 4, 1024, 512, 64)}
+              "ragged": (2, 1000, 80, 64, 64, 64), "mlstm": (4, 4096, 4, 1024, 512, 64),
+              "train": (1, 4096, 80, 64, 64, 64)}
 SSD_PER_HEAD = ("per_head", "mlstm")
+# the cases called as path 7 calls K3 and K4: through the entry point on
+# inputs that require a gradient, so through the autograd Function, whose
+# backward is then held bit for bit against the plain version's autograd
+TRAIN_CASES = ("train",)
 SSD_TIMED = {"serving": "ssd", "mlstm": "ssd_mlstm"}
 # parity: Zamba2 at full widths in fp32, cut to one shared-attention group;
 # xLSTM-1.3B cut to one group (7 mLSTMs, one sLSTM); OLMoE and
@@ -124,6 +148,19 @@ XLSTM_PARITY_LAYERS = 8
 DECODER_PARITY_LAYERS = 2
 PARITY_TOL = 1e-3      # same algorithms, fp32 sums in other orders
 CONTINUATION_TOL = 2e-2  # tests/test_models_smoke.py's decode-vs-prefill tolerance
+# Training Zamba2-2.7B (path 7): global batch 2 x 4096 in 2 microbatches;
+# step 0 cold, steps 1-3 timed; the step-0 loss against the plain path's
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICROBATCHES, TRAIN_STEPS = 2, 4096, 2, 4
+# relative: bf16 kernels against bf16 plain versions; 44 times the 2.26e-5
+# the card showed (H100 80GB HBM3, 700 W)
+TRAIN_LOSS_TOL = 1e-3
+# training parity (fp32, one group): loss and grad norm, and each leaf's
+# max-abs gradient difference against that leaf's max-abs gradient
+TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ = 2, 512
+TRAIN_PARITY_LOSS_TOL, TRAIN_PARITY_GRAD_TOL = 1e-4, 1e-3
+# data-parallel training (path 8): the example's defaults, 5 steps
+DP_STEPS = 5
+DP_LOSS_TOL, DP_GRAD_TOL = 1e-5, 1e-4
 
 # Published peaks of one H100 SXM (dense): bf16 tensor cores, fp32 CUDA
 # cores, HBM bandwidth.  Bounds are stated against these.
@@ -337,33 +374,69 @@ def kernel_phase(torch, gen, dtype_name: str) -> dict:
     return out
 
 
+def train_gradient_check(torch, fn, kernel, plain, inputs, kw, what: str) -> None:
+    """``plain``'s autograd gradient of ``fn``'s first output, as the
+    Function gives it (its backward launches no ``kernel``), equals direct
+    autograd of ``plain`` on the same inputs, bit for bit."""
+    out = fn(*inputs, **kw)
+    out = out[0] if isinstance(out, tuple) else out
+    check(out.grad_fn is not None, f"{what}: the entry point recorded no gradient")
+    dy = torch.randn_like(out)
+    wrt = [t for t in inputs if t.requires_grad]
+    before = kernel.launches
+    got = torch.autograd.grad(out, wrt, dy)
+    check(kernel.launches == before, f"{what}: the Function's backward launched the kernel")
+    del out
+    ref = plain(*inputs, **kw)
+    ref = ref[0] if isinstance(ref, tuple) else ref
+    want = torch.autograd.grad(ref, wrt, dy)
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          f"{what}: the gradient through the Function differs from the plain version's autograd")
+    log(f"  {what}: gradient through the Function == the plain version's autograd, bit for bit "
+        f"({len(wrt)} inputs), no launch in the backward")
+
+
 def flash_kernel_phase(torch, gen, dtype_name: str) -> dict:
     """K3 against its plain version at the three serving shapes (Zamba2's,
-    OLMoE's, Whisper's decoder), GQA and ragged shapes; timed at the
-    serving shapes beside SDPA (``flash`` for Zamba2's, ``flash_olmoe`` and
-    ``flash_whisper`` for the others)."""
+    OLMoE's, Whisper's decoder), GQA and ragged shapes, and at path 7's
+    train shape through ``flash_attention`` with a gradient (its autograd
+    Function, forward and backward); timed at the serving shapes beside
+    SDPA (``flash`` for Zamba2's, ``flash_olmoe`` and ``flash_whisper``
+    for the others)."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash import attention_reference, flash_attention_cuda
+    from repro_torch.kernels.flash import attention_reference, flash_attention, flash_attention_cuda
 
     dt = getattr(torch, dtype_name)
     dev = torch.device("cuda")
     out = {}
     for case, (B, S, H, K, D) in FLASH_SHAPES.items():
-        q, k, v = (torch.randn(B, S, h, D, generator=gen, device=dev).to(dt) for h in (H, K, K))
+        train = case in TRAIN_CASES
+        q, k, v = (torch.randn(B, S, h, D, generator=gen, device=dev).to(dt).requires_grad_(train)
+                   for h in (H, K, K))
         for causal in ((True,) if case != "ragged" else (True, False)):
             route = expected_route(dtype_name)
             before = dict(flash_attention_cuda.launches_by_route)
-            got = flash_attention_cuda(q, k, v, causal=causal)
+            entry = flash_attention if train else flash_attention_cuda
+            got = entry(q, k, v, causal=causal)
             check(flash_attention_cuda.launches_by_route[route] == before[route] + 1,
                   f"flash[{dtype_name}] {case} did not take the {route} route")
-            # the plain version one batch row at a time: its fp32 (S, T)
-            # scores for the whole serving batch would take ~9 GB each
-            want = torch.cat([attention_reference(q[b:b + 1], k[b:b + 1], v[b:b + 1], causal=causal)
-                              for b in range(B)])
-            log(f"  flash {case} {(B, S, H, K, D)} causal={causal}, {route} route:")
-            err = compare(torch, got, want, "flash", dtype_name)
+            check(train == (got.grad_fn is not None),
+                  f"flash[{dtype_name}] {case}: autograd Function used {got.grad_fn is not None}")
+            with torch.no_grad():
+                # the plain version one batch row at a time: its fp32 (S, T)
+                # scores for the whole serving batch would take ~9 GB each
+                want = torch.cat([attention_reference(q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                                                      causal=causal) for b in range(B)])
+                log(f"  flash {case} {(B, S, H, K, D)} causal={causal}, {route} route"
+                    + (", through the autograd Function:" if train else ":"))
+                err = compare(torch, got, want, "flash", dtype_name)
             del got, want
+        if train:
+            train_gradient_check(torch, flash_attention, flash_attention_cuda, attention_reference,
+                                 (q, k, v), {"causal": True}, f"flash[{dtype_name}] {case}")
+            out[f"flash_{case}"] = dict(max_abs_err=err, shape=[B, S, H, K, D], kernel_route=route,
+                                        grad_bit_equal=True)
         if case not in FLASH_TIMED:
             del q, k, v
             continue
@@ -445,30 +518,46 @@ def ssd_pass_bytes(X, la, Bm, chunk: int, route: str) -> dict:
 def ssd_kernel_phase(torch, gen, dtype_name: str) -> dict:
     """K4 against its plain version with a non-zero initial state at the
     serving shape (shared B/C), per-head B/C, a ragged S and the mLSTM's
-    widths; timed at Zamba2's and the mLSTM's prefill, each pass too."""
-    from repro_torch.kernels.ssd import ssd_cuda, ssd_reference
+    widths, and at path 7's train shape with no initial state through
+    ``ssd`` with a gradient (its autograd Function, forward and backward);
+    timed at Zamba2's and the mLSTM's prefill, each pass too."""
+    from repro_torch.kernels.ssd import ssd, ssd_cuda, ssd_reference
 
     dt = getattr(torch, dtype_name)
     dev = torch.device("cuda")
     out = {}
     for case, (B, S, H, P, N, L) in SSD_SHAPES.items():
+        train = case in TRAIN_CASES
         bc = (B, S, H, N) if case in SSD_PER_HEAD else (B, S, N)
         X = torch.randn(B, S, H, P, generator=gen, device=dev).to(dt)
         la = -torch.rand(B, S, H, generator=gen, device=dev) * 0.3
         Bm = (torch.randn(*bc, generator=gen, device=dev) * 0.3).to(dt)
         Cm = (torch.randn(*bc, generator=gen, device=dev) * 0.3).to(dt)
-        init = torch.randn(B, H, P, N, generator=gen, device=dev) * 0.1
+        init = None if train else torch.randn(B, H, P, N, generator=gen, device=dev) * 0.1
+        for t in (X, la, Bm, Cm):
+            t.requires_grad_(train)
         route = expected_route(dtype_name, (P, N, L))
         before = dict(ssd_cuda.launches_by_route)
-        Y, fin = ssd_cuda(X, la, Bm, Cm, chunk=L, initial_state=init)
+        entry = ssd if train else ssd_cuda
+        Y, fin = entry(X, la, Bm, Cm, chunk=L, initial_state=init)
         check(ssd_cuda.launches_by_route[route] == before[route] + 1,
               f"ssd[{dtype_name}] {case} did not take the {route} route")
-        Yr, finr = ssd_reference(X, la, Bm, Cm, chunk=L, initial_state=init)
-        log(f"  ssd {case} X {(B, S, H, P)} B/C {bc} chunk {L}, initial state, {route} route:")
-        err = compare(torch, Y, Yr, "ssd", dtype_name)
-        err = max(err, compare(torch, fin, finr, "ssd", dtype_name))
+        check(train == (Y.grad_fn is not None),
+              f"ssd[{dtype_name}] {case}: autograd Function used {Y.grad_fn is not None}")
+        with torch.no_grad():
+            Yr, finr = ssd_reference(X, la, Bm, Cm, chunk=L, initial_state=init)
+            log(f"  ssd {case} X {(B, S, H, P)} B/C {bc} chunk {L}, "
+                + ("no initial state, through the autograd Function" if train else "initial state")
+                + f", {route} route:")
+            err = compare(torch, Y, Yr, "ssd", dtype_name)
+            err = max(err, compare(torch, fin, finr, "ssd", dtype_name))
         check(fin.dtype == dt, f"ssd[{dtype_name}] final state in {fin.dtype}, not X's dtype")
         del Y, Yr, fin, finr
+        if train:
+            train_gradient_check(torch, ssd, ssd_cuda, ssd_reference, (X, la, Bm, Cm),
+                                 {"chunk": L, "initial_state": None}, f"ssd[{dtype_name}] {case}")
+            out[f"ssd_{case}"] = dict(max_abs_err=err, shape=[B, S, H, P, N, L], kernel_route=route,
+                                      grad_bit_equal=True)
         if case not in SSD_TIMED:
             del X, la, Bm, Cm, init
             continue
@@ -831,7 +920,9 @@ def _kernel_times(torch, prof):
     out = {"flash (K3)": 0.0, "ssd (K4)": 0.0, "matmul (cuBLAS)": 0.0, "other": 0.0}
     other, k4 = [], {}
     for e in prof.key_averages():
-        if e.device_type != cuda:
+        # a span's device-side copy (a user annotation) is no kernel
+        if e.device_type != cuda or getattr(e, "is_user_annotation", False) \
+                or e.key in TRAIN_SPANS.values():
             continue
         us = _device_us(e)
         name = e.key.lower()
@@ -1236,6 +1327,456 @@ def whisper_parity_phase(torch, device) -> dict:
     return out
 
 
+# ---------------------------------------------------------- training phases
+
+
+def train_launches(cfg, microbatches: int) -> dict:
+    """K3's and K4's launches per train step: a prefill's per microbatch,
+    twice where remat wraps the layers (the backward pass recomputes each
+    wrapped body's forward, which launches the kernels again; their
+    Function's backward launches nothing)."""
+    passes = 1 if cfg.remat == "none" else 2
+    return {k: v * passes * microbatches for k, v in prefill_launches(cfg).items()}
+
+
+# profiler spans (``record_function``) of the windows TrainTimer times
+TRAIN_SPANS = {"flash": "smoke::plain_backward_k3", "ssd": "smoke::plain_backward_k4",
+               "adamw": "smoke::adamw_update"}
+
+
+class TrainTimer:
+    """While installed: CUDA events around every backward of the kernels'
+    autograd Function (the plain version's autograd), by kernel, and around
+    every AdamW update of the train step, each window also a profiler span
+    (:data:`TRAIN_SPANS`); and the calls of each plain version made outside
+    that backward, which on a path with the kernels on must be none for K3
+    and K4 (the forward pass, the remat recompute included, launches the
+    kernels).  It wraps module attributes the port looks up at each call."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def _events(self):
+        return tuple(self.torch.cuda.Event(enable_timing=True) for _ in range(2))
+
+    def __enter__(self):
+        from repro_torch.kernels import autograd
+        from repro_torch.kernels.flash import ops as flash_ops
+        from repro_torch.kernels.ssd import ops as ssd_ops
+        from repro_torch.models import attention, ssm
+        from repro_torch.train import train_step
+
+        self.events = {"flash": [], "ssd": [], "adamw": []}
+        self.outside = {"flash": 0, "ssd": 0, "model_ssd": 0, "model_attend": 0}
+        self.depth = 0
+        self.saved = [(autograd.PlainGradient, "backward", autograd.PlainGradient.backward),
+                      (flash_ops, "attention_reference", flash_ops.attention_reference),
+                      (ssd_ops, "ssd_reference", ssd_ops.ssd_reference),
+                      (ssm, "ssd_reference", ssm.ssd_reference),
+                      (attention, "_attend", attention._attend),
+                      (train_step, "adamw_update", train_step.adamw_update)]
+
+        def counted(fn, name):
+            def plain(*args, **kwargs):
+                if self.depth == 0:
+                    self.outside[name] += 1
+                return fn(*args, **kwargs)
+            return plain
+
+        flash_ops.attention_reference = counted(flash_ops.attention_reference, "flash")
+        ssd_ops.ssd_reference = counted(ssd_ops.ssd_reference, "ssd")
+        ssm.ssd_reference = counted(ssm.ssd_reference, "model_ssd")
+        attention._attend = counted(attention._attend, "model_attend")
+        kernel_of = {flash_ops.attention_reference: "flash", ssd_ops._plain: "ssd"}
+        backward = self.saved[0][2]
+
+        def timed_backward(ctx, *grads):
+            kind = kernel_of[ctx.plain]
+            start, end = self._events()
+            start.record()
+            self.depth += 1
+            try:
+                with self.torch.profiler.record_function(TRAIN_SPANS[kind]):
+                    out = backward(ctx, *grads)
+            finally:
+                self.depth -= 1
+            end.record()
+            self.events[kind].append((start, end))
+            return out
+
+        update = self.saved[-1][2]
+
+        def timed_update(*args, **kwargs):
+            start, end = self._events()
+            start.record()
+            with self.torch.profiler.record_function(TRAIN_SPANS["adamw"]):
+                out = update(*args, **kwargs)
+            end.record()
+            self.events["adamw"].append((start, end))
+            return out
+
+        autograd.PlainGradient.backward = staticmethod(timed_backward)
+        train_step.adamw_update = timed_update
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, value in self.saved:
+            setattr(owner, name, staticmethod(value) if name == "backward" else value)
+
+    def ms(self) -> dict:
+        """Device ms of each timed kind, summed over its windows."""
+        self.torch.cuda.synchronize()
+        return {k: sum(s.elapsed_time(e) for s, e in v) for k, v in self.events.items()}
+
+
+def _routes(fn) -> dict:
+    return dict(fn.launches_by_route)
+
+
+def train_setup(torch, cfg, device, *, rows=TRAIN_BATCH, seq=TRAIN_SEQ,
+                microbatches=TRAIN_MICROBATCHES, steps=TRAIN_STEPS) -> dict:
+    """What a user builds before training: random weights from the seed,
+    an AdamW state (``OptimizerConfig()``), ``make_train_step``, and the
+    pipeline's batches on the card."""
+    from repro_torch.data import DataConfig, SyntheticLMData, to_device
+    from repro_torch.models import build_model
+    from repro_torch.train import OptimizerConfig, init_opt_state, make_train_step
+
+    t = time.perf_counter()
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=device).manual_seed(SEED), device)
+    data = SyntheticLMData(cfg, DataConfig(global_batch=rows, seq_len=seq, seed=SEED))
+    setup = dict(model=model, params=params, state=init_opt_state(params),
+                 step=make_train_step(model, OptimizerConfig(), microbatches=microbatches),
+                 batches=[to_device(data.global_batch(i), device) for i in range(steps)],
+                 tokens=rows * seq)
+    torch.cuda.synchronize()
+    log(f"  model, AdamW state and {steps} batches of {rows} x {seq} on the card, "
+        f"{sum(p.numel() for p in params.parameters()) / 1e9:.3f} B parameters: "
+        f"{time.perf_counter() - t:.3f} s")
+    return setup
+
+
+def train_path(torch, r) -> dict:
+    """Training, as a user calls it: ``train_step`` over the batches of
+    ``r`` (from :func:`train_setup`), step 0 cold and under a
+    :class:`TrainTimer`, the rest timed.  Adds what it produced to ``r``,
+    for the checks made after the counted window."""
+    from repro_torch.kernels.flash import flash_attention_cuda
+    from repro_torch.kernels.ssd import ssd_cuda
+
+    params, state, step = r["params"], r["state"], r["step"]
+    watched = {k: v.detach().clone() for k, v in params.named_parameters()
+               if k in ("ln_f.scale", "shared.attn.wq", "lm_head")}
+    per_step, metrics = [], []
+    timer = TrainTimer(torch)
+    t = time.perf_counter()
+    for i, batch in enumerate(r["batches"]):
+        before = (_routes(flash_attention_cuda), _routes(ssd_cuda))
+        if i == 0:
+            with timer:
+                params, state, m = step(params, state, batch)
+            torch.cuda.synchronize()
+            cold, t = time.perf_counter() - t, time.perf_counter()
+        else:
+            params, state, m = step(params, state, batch)
+        per_step.append({name: {k: n - b[k] for k, n in _routes(fn).items()}
+                         for name, fn, b in (("flash", flash_attention_cuda, before[0]),
+                                             ("ssd", ssd_cuda, before[1]))})
+        metrics.append(m)
+    torch.cuda.synchronize()
+    warm = (time.perf_counter() - t) / max(len(r["batches"]) - 1, 1)
+    changed = {k: not torch.equal(v, params.state_dict()[k]) for k, v in watched.items()}
+    r.update(params=params, state=state, per_step=per_step, metrics=metrics, cold_s=cold,
+             warm_s=warm, changed=changed, outside=dict(timer.outside))
+    return r
+
+
+def plain_train_loss(torch, cfg, params, batch, microbatches: int) -> float:
+    """The plain path's loss (``use_pallas=False``) on the same parameters
+    and batch under ``no_grad``: the mean of its microbatches' losses, as
+    the train step's."""
+    from repro_torch.models import build_model
+    from repro_torch.train.train_step import _microbatches
+
+    plain = build_model(replace(cfg, use_pallas=False))
+    with torch.no_grad():
+        parts = [plain.loss(params, one)[0] for one in _microbatches(batch, microbatches)]
+    return float(sum(parts) / microbatches)
+
+
+def check_train(torch, r, cfg, plain_loss: float) -> dict:
+    """What the train path produced: finite losses and gradient norms,
+    parameters that moved, each step's K3 and K4 launches and route, no
+    plain version run outside the Function's backward, and the step-0 loss
+    against the plain path's."""
+    want = train_launches(cfg, TRAIN_MICROBATCHES)
+    routes = {"flash": expected_route(cfg.dtype), "ssd": expected_route(cfg.dtype, ssd_widths(cfg))}
+    for i, launched in enumerate(r["per_step"]):
+        for name, n in want.items():
+            route = routes[name]
+            check(launched[name] == {**{k: 0 for k in launched[name]}, route: n},
+                  f"train step {i} launched {name} {launched[name]}, not {n} on the {route} route")
+    log(f"  launches a step (2 microbatches, remat {cfg.remat}): "
+        + ", ".join(f"{k} {v}" for k, v in r["per_step"][0].items()))
+    check(r["outside"]["flash"] == r["outside"]["ssd"] == r["outside"]["model_ssd"]
+          == r["outside"]["model_attend"] == 0,
+          f"a plain version ran outside the kernels' backward: {r['outside']}")
+    log(f"  plain versions called outside the Function's backward in step 0: {r['outside']}")
+    losses = [float(m["loss"]) for m in r["metrics"]]
+    norms = [float(m["grad_norm"]) for m in r["metrics"]]
+    log(f"  losses {[f'{x:.5f}' for x in losses]}, grad norms {[f'{x:.4f}' for x in norms]}")
+    check(all(math.isfinite(x) for x in losses + norms), "a loss or grad norm is not finite")
+    check(all(r["changed"].values()), f"parameters did not change: {r['changed']}")
+    rel = abs(losses[0] - plain_loss) / abs(plain_loss)
+    log(f"  step-0 loss with the kernels {losses[0]:.6f} vs the plain path's {plain_loss:.6f}: "
+        f"rel {rel:.3e} (tol {TRAIN_LOSS_TOL})")
+    check(rel <= TRAIN_LOSS_TOL, "the step-0 loss with the kernels disagrees with the plain path")
+    log(f"  step 0 (cold) {r['cold_s']:.3f} s; warm {1e3 * r['warm_s']:.1f} ms a step, "
+        f"{r['tokens'] / r['warm_s']:.1f} tokens/s")
+    return {"losses": losses, "grad_norms": norms, "plain_step0_loss": plain_loss,
+            "step0_rel_err": rel, "cold_step_s": r["cold_s"], "warm_ms_per_step": 1e3 * r["warm_s"],
+            "tokens_per_s": r["tokens"] / r["warm_s"], "launches_per_step": r["per_step"][0]}
+
+
+def span_device_ms(torch, prof, label: str) -> float:
+    """Device ms of the kernels launched inside every ``label`` span: the
+    kernels of its host-side ops and of their children, found through the
+    profiler's launch correlation (the span's own device-side copy, a user
+    annotation, is left out)."""
+    cpu = torch.autograd.DeviceType.CPU
+
+    def kernels_us(e):
+        return (sum(k.duration for k in e.kernels if k.name != label)
+                + sum(kernels_us(c) for c in e.cpu_children))
+
+    return sum(kernels_us(e) for e in prof.events()
+               if e.device_type == cpu and e.name == label) / 1e3
+
+
+def profile_train(torch, r) -> dict:
+    """Two more warm steps under the profiler, with the plain backward of K3
+    and K4 and the AdamW update timed by CUDA events.  The first records
+    the device only: device time by class, and each window's width by its
+    events, which also holds the host's time inside it while the device
+    idles.  The second records host ops too, which link each kernel to the
+    window (profiler span) that launched it: the device time of the kernels
+    inside each window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = r["batches"][-1]
+    # device-side events only on the card (the CPU rehearsal records host ops)
+    on_card = next(r["params"].parameters()).device.type == "cuda"
+
+    def profiled_step(acts):
+        with TrainTimer(torch) as timer, profile(activities=acts) as prof:
+            r["params"], r["state"], _ = r["step"](r["params"], r["state"], batch)
+            torch.cuda.synchronize()
+        return timer, prof
+
+    timer, prof = profiled_step([ProfilerActivity.CUDA] if on_card else [ProfilerActivity.CPU])
+    times, other, k4 = _kernel_times(torch, prof)
+    ev = timer.ms()
+    busy = sum(times.values())
+    wall = 1e3 * r["warm_s"]
+    if busy == 0.0:
+        log("  profile train step: the profiler saw no device time")
+        return {"events_ms": ev}
+    log(f"  profile train step: device busy {busy:.1f} ms of {wall:.1f} ms wall "
+        f"({100 * busy / wall:.1f} % busy, {100 * (1 - busy / wall):.1f} % idle); "
+        + ", ".join(f"{k} {v:.1f}" for k, v in times.items()) + " ms")
+    # an event window holds the device's idle time inside it too (the host's
+    # Python between launches): shares of the wall
+    log(f"    CUDA event windows: plain backward of K3 {ev['flash']:.1f} ms ({100 * ev['flash'] / wall:.1f} %"
+        f" of the step's wall), of K4 {ev['ssd']:.1f} ms ({100 * ev['ssd'] / wall:.1f} %), AdamW "
+        f"{ev['adamw']:.1f} ms ({100 * ev['adamw'] / wall:.1f} %)")
+    log("    heaviest of other (ms, launches, kernel): "
+        + "; ".join(f"{ms:.1f}, {c}, {k}" for ms, c, k in other))
+    del prof
+    _, prof = profiled_step([ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    busy2 = sum(_kernel_times(torch, prof)[0].values())
+    spans = {k: span_device_ms(torch, prof, label) for k, label in TRAIN_SPANS.items()}
+    # the device's own time inside each window: shares of the device's busy time
+    log(f"    device time inside the windows (a second step, host ops recorded; device busy "
+        f"{busy2:.1f} ms): plain backward of K3 {spans['flash']:.1f} ms "
+        f"({100 * spans['flash'] / busy2:.1f} % of device busy), of K4 {spans['ssd']:.1f} ms "
+        f"({100 * spans['ssd'] / busy2:.1f} %), AdamW {spans['adamw']:.1f} ms "
+        f"({100 * spans['adamw'] / busy2:.1f} %)")
+    check(0.0 < spans["ssd"] and sum(spans.values()) <= busy2 * 1.001,
+          f"the windows' device time {spans} does not fit the step's device busy {busy2:.1f} ms")
+    return {"device_ms": busy, "wall_ms": wall, **times, "events_ms": ev,
+            "span_device_ms": spans, "span_step_device_ms": busy2, "k4_pass_ms": k4}
+
+
+def train_parity_phase(torch, device, arch, n_layers, seed) -> dict:
+    """``arch`` at full widths in fp32, cut to ``n_layers`` (one group):
+    ``loss`` and every parameter's gradient with K3/K4 (the fma route)
+    against the plain path, on a batch of 2 x 512."""
+    from repro_torch.kernels.flash import flash_attention_cuda
+    from repro_torch.kernels.ssd import ssd_cuda
+    from repro_torch.models import build_model
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    cut = dict(n_layers=n_layers, dtype="float32")
+    kernels = build_model(model_config(arch, True, **cut))
+    plain = build_model(model_config(arch, False, **cut))
+    cfg = kernels.cfg
+    params = kernels.init(gen, device)
+    params.requires_grad_(True)
+    names = [k for k, _ in params.named_parameters()]
+    batch = {"tokens": torch.randint(0, cfg.vocab, (TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ),
+                                     generator=gen, device=device)}
+    before = (_routes(flash_attention_cuda), _routes(ssd_cuda))
+    with TrainTimer(torch) as timer:
+        loss_k, _ = kernels.loss(params, batch)
+        grads_k = torch.autograd.grad(loss_k, list(params.parameters()))
+    launched = {name: {r: n - b[r] for r, n in _routes(fn).items()}
+                for name, fn, b in (("flash", flash_attention_cuda, before[0]),
+                                    ("ssd", ssd_cuda, before[1]))}
+    want = train_launches(cfg, 1)
+    for name, n in want.items():
+        check(device.type != "cuda" or launched[name] == {"wgmma": 0, "fma": n},
+              f"{arch} fp32 train parity launched {name} {launched[name]}, not {n} on the fma route")
+    check(device.type != "cuda" or timer.outside["flash"] == timer.outside["ssd"] == 0,
+          f"{arch}: a kernel's plain version ran outside its backward: {timer.outside}")
+    loss_p, _ = plain.loss(params, batch)
+    grads_p = torch.autograd.grad(loss_p, list(params.parameters()))
+    loss_k, loss_p = loss_k.detach(), loss_p.detach()
+    err = abs(float(loss_k) - float(loss_p))
+    worst, worst_name = 0.0, ""
+    for name, gk, gp in zip(names, grads_k, grads_p):
+        scale = gp.abs().max().item()
+        diff = (gk - gp).abs().max().item()
+        ratio = diff / scale if scale > 0 else (0.0 if diff == 0 else math.inf)
+        if ratio > worst:
+            worst, worst_name = ratio, name
+    norm_k = torch.sqrt(sum(g.square().sum() for g in grads_k)).item()
+    norm_p = torch.sqrt(sum(g.square().sum() for g in grads_p)).item()
+    norm_rel = abs(norm_k - norm_p) / norm_p
+    log(f"  {arch} fp32 train parity ({n_layers} layers, batch {TRAIN_PARITY_BATCH} x "
+        f"{TRAIN_PARITY_SEQ}), launches {launched}: loss {float(loss_k):.6f} vs plain "
+        f"{float(loss_p):.6f}, |diff| {err:.3e} (tol {TRAIN_PARITY_LOSS_TOL}); worst leaf "
+        f"max|dg| / max|g| {worst:.3e} ({worst_name}; tol {TRAIN_PARITY_GRAD_TOL}); grad norm "
+        f"{norm_k:.6f} vs {norm_p:.6f}, rel {norm_rel:.3e} (tol {TRAIN_PARITY_LOSS_TOL})")
+    check(math.isfinite(float(loss_k)) and err <= TRAIN_PARITY_LOSS_TOL,
+          f"{arch}: the loss with the kernels disagrees with the plain path")
+    check(worst <= TRAIN_PARITY_GRAD_TOL, f"{arch}: gradient of {worst_name} disagrees")
+    check(norm_rel <= TRAIN_PARITY_LOSS_TOL, f"{arch}: the global grad norm disagrees")
+    return {"loss_abs_err": err, "worst_grad_rel_err": worst, "worst_grad_leaf": worst_name,
+            "grad_norm_rel_err": norm_rel, "launches": launched}
+
+
+def _example():
+    """``examples/pccl_dp_training_torch.py`` as a module."""
+    import importlib.util
+
+    path = SRC.parent / "examples" / "pccl_dp_training_torch.py"
+    spec = importlib.util.spec_from_file_location("pccl_dp_training_torch", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def dp_path(torch, device, steps=DP_STEPS, **override) -> dict:
+    """The data-parallel example's step as a user calls it: the example's
+    config and defaults (``override`` shrinks them for a rehearsal), its
+    ranks stacked on the card, the gradients all-reduced through
+    ``PcclSession(H100_DGX)``'s planned communicator; CUDA events around
+    each all-reduce.  Step 0 cold, the rest timed."""
+    from repro_torch import PcclSession
+    from repro_torch.core import cost_model as cm
+    from repro_torch.data import DataConfig, SyntheticLMData, to_device
+    from repro_torch.models import build_model
+    from repro_torch.train import OptimizerConfig, init_opt_state, make_dp_train_step
+
+    ex = _example()
+    args = ex.parser().parse_args([])
+    for k, v in override.items():
+        setattr(args, k, v)
+    cfg = ex.dp_config(args.d_model, args.layers)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=device).manual_seed(SEED), device)
+    n_params = sum(p.numel() for p in params.parameters())
+    comm = PcclSession(cm.H100_DGX, device=device).communicator("data", ex.RANKS)
+    algorithm = comm.chosen_algorithm("all_reduce", 4.0 * n_params)
+    data = SyntheticLMData(cfg, DataConfig(global_batch=args.batch, seq_len=args.seq))
+    batches = [to_device(data.global_batch(i), device) for i in range(steps)]
+    step = make_dp_train_step(model, OptimizerConfig(lr=1e-3, total_steps=args.steps,
+                                                     warmup_steps=10), comm, ex.RANKS)
+    state = init_opt_state(params)
+    start = {k: v.detach().clone() for k, v in params.named_parameters()}
+    events, all_reduce = [], comm.all_reduce
+
+    def timed_all_reduce(x):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        out = all_reduce(x)
+        e.record()
+        events.append((s, e))
+        return out
+
+    comm.all_reduce = timed_all_reduce
+    losses = []
+    t = time.perf_counter()
+    for i in range(steps):
+        if i == 1:
+            torch.cuda.synchronize()
+            cold, t = time.perf_counter() - t, time.perf_counter()
+            events.clear()
+        params, state, m = step(params, state, batches[i])
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    warm = (time.perf_counter() - t) / max(steps - 1, 1)
+    ar_ms = sum(s.elapsed_time(e) for s, e in events) / max(steps - 1, 1)
+    comm.all_reduce = all_reduce
+    log(f"  {n_params / 1e6:.1f} M parameters (fp32), {ex.RANKS} ranks stacked, batch "
+        f"{args.batch} x {args.seq}: PCCL chose '{algorithm}' for the "
+        f"{4.0 * n_params / 1e6:.0f} MB gradient all-reduce (H100_DGX fabric model), "
+        f"{len(start)} leaves a step")
+    return dict(model=model, params=params, start=start, comm=comm, batch0=batches[0],
+                losses=losses, algorithm=algorithm, cold_s=cold, warm_s=warm, ar_ms=ar_ms,
+                tokens=args.batch * args.seq, n=ex.RANKS)
+
+
+def check_dp(torch, r) -> dict:
+    """Step 0 again from the starting weights: every rank's row of each
+    all-reduced leaf the same bits, the ranks' mean loss the full batch's
+    loss (and the step's), the mean gradient the full batch's."""
+    from repro_torch.models import ParamTree
+    from repro_torch.train import dp_gradients
+
+    params = ParamTree.from_state_dict(r["start"])
+    n = r["n"]
+    losses, reduced = dp_gradients(r["model"], params, r["batch0"], r["comm"], n)
+    for name, red in reduced.items():
+        check(all(torch.equal(red[i], red[0]) for i in range(1, n)),
+              f"the all-reduced rows of {name} differ across ranks")
+    log(f"  every rank's row of all {len(reduced)} all-reduced leaves: bit-identical")
+    full_loss, _ = r["model"].loss(params, r["batch0"])
+    names = [k for k, _ in params.named_parameters()]
+    full = dict(zip(names, torch.autograd.grad(full_loss, list(params.parameters()))))
+    full_loss = full_loss.detach()
+    step0 = float(r["losses"][0])
+    loss_err = max(abs(step0 - float(full_loss)), abs(float(losses.mean()) - float(full_loss)))
+    worst = max(((reduced[k][0] / n - g).abs().max().item() / max(g.abs().max().item(), 1e-30), k)
+                for k, g in full.items())
+    log(f"  step-0 loss {step0:.6f} vs one full-batch loss {float(full_loss):.6f}: "
+        f"|diff| {loss_err:.3e} (tol {DP_LOSS_TOL}); mean gradient vs the full batch's: worst "
+        f"max|dg| / max|g| {worst[0]:.3e} ({worst[1]}; tol {DP_GRAD_TOL})")
+    check(loss_err <= DP_LOSS_TOL, "the data-parallel loss disagrees with the full batch's")
+    check(worst[0] <= DP_GRAD_TOL, f"the all-reduced gradient of {worst[1]} disagrees")
+    losses = [float(x) for x in r["losses"]]
+    check(all(math.isfinite(x) for x in losses), "a data-parallel loss is not finite")
+    share = r["ar_ms"] / (1e3 * r["warm_s"])
+    log(f"  losses {[f'{x:.4f}' for x in losses]}; step 0 (cold) {r['cold_s']:.3f} s; warm "
+        f"{1e3 * r['warm_s']:.1f} ms a step, all-reduce {r['ar_ms']:.1f} ms of it ({100 * share:.1f} "
+        f"%, CUDA events), {r['tokens'] / r['warm_s']:.1f} tokens/s")
+    return {"algorithm": r["algorithm"], "losses": losses, "warm_ms_per_step": 1e3 * r["warm_s"],
+            "all_reduce_ms_per_step": r["ar_ms"], "all_reduce_share": share,
+            "tokens_per_s": r["tokens"] / r["warm_s"], "step0_loss_err": loss_err,
+            "worst_grad_rel_err": worst[0]}
+
+
 # ---------------------------------------------------------------------- main
 
 
@@ -1430,12 +1971,65 @@ def main() -> int:
     whisper_parity = whisper_parity_phase(torch, torch.device("cuda"))
     torch.cuda.empty_cache()
     log(f"  phase Whisper parity: {time.perf_counter() - t:.3f} s")
+    log("== main path 7: train zamba2-2.7b at published widths and depth (K3 and K4 in the "
+        "forward pass, their plain versions' autograd backward), AdamW, remat full")
+    zamba2_train = model_config("zamba2-2.7b", True)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    trained = train_setup(torch, zamba2_train, torch.device("cuda"))
+    # the plain path's loss on the same weights and first batch, before any update
+    plain_loss = plain_train_loss(torch, zamba2_train, trained["params"], trained["batches"][0],
+                                  TRAIN_MICROBATCHES)
+    reset_counts()
+    train_path(torch, trained)
+    path7 = read_counts()
+    routes7 = {"flash": dict(flash_attention_cuda.launches_by_route),
+               "ssd": dict(ssd_cuda.launches_by_route)}
+    log(f"  phase main path 7: {time.perf_counter() - t:.3f} s; kernel launches {path7}")
+    check(path7["flash"] > 0 and path7["ssd"] > 0, "main path 7 never launched K3 or K4")
+    train_stats = check_train(torch, trained, zamba2_train, plain_loss)
+    train_stats["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  peak device memory: {train_stats['peak_gib']:.2f} GiB")
+    t = time.perf_counter()
+    train_stats["profile"] = profile_train(torch, trained)
+    del trained
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  phase train profile: {time.perf_counter() - t:.3f} s")
+
+    log("== main path 8: data-parallel training through PCCL (examples/pccl_dp_training_torch.py "
+        "defaults), 8 ranks stacked on the card")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t = time.perf_counter()
+    dp = dp_path(torch, torch.device("cuda"))
+    path8 = read_counts()
+    log(f"  phase main path 8: {time.perf_counter() - t:.3f} s; kernel launches {path8} "
+        "(the example's model runs the plain path, as the JAX example's)")
+    dp_stats = check_dp(torch, dp)
+    dp_stats["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del dp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("== parity: training Zamba2 and xLSTM (one group, fp32) with the kernels against the "
+        "plain path on the card")
+    t = time.perf_counter()
+    train_parity = {"zamba2": train_parity_phase(torch, torch.device("cuda"), "zamba2-2.7b",
+                                                 PARITY_LAYERS, SEED + 5)}
+    torch.cuda.empty_cache()
+    train_parity["xlstm"] = train_parity_phase(torch, torch.device("cuda"), "xlstm-1.3b",
+                                               XLSTM_PARITY_LAYERS, SEED + 6)
+    torch.cuda.empty_cache()
+    log(f"  phase train parity: {time.perf_counter() - t:.3f} s")
     log("serve: " + json.dumps({**serve_stats, **parity}))
     log("serve olmoe: " + json.dumps(olmoe_stats))
     log("serve deepseek: " + json.dumps(deepseek_stats))
     log("serve xlstm: " + json.dumps({**xlstm_stats, **xlstm_parity}))
     log("decoder parity: " + json.dumps(decoder_parity))
     log("serve whisper: " + json.dumps({**whisper_stats, **whisper_parity}))
+    log("train zamba2: " + json.dumps({**train_stats, "parity": train_parity}))
+    log("train dp: " + json.dumps(dp_stats))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
 
     # the bf16 kernels of each path; K1, K3 and K4 on their tensor-core route
@@ -1446,11 +2040,12 @@ def main() -> int:
                     "src/repro/kernels/rmsnorm/kernel.py:37", path1, None),
         "flash": ("cuda", "src/repro_torch/kernels/flash/csrc/flash_sm90.cu",
                   "src/repro/kernels/flash/kernel.py:79",
-                  {"flash": path2["flash"] + path3["flash"] + path6["flash"]},
+                  {"flash": path2["flash"] + path3["flash"] + path6["flash"] + path7["flash"]},
                   {r: routes2["flash"][r] + routes3["flash"][r] + routes6["flash"][r]
-                   for r in routes2["flash"]}),
+                   + routes7["flash"][r] for r in routes2["flash"]}),
         "ssd": ("cuda", "src/repro_torch/kernels/ssd/csrc/ssd_sm90.cu",
-                "src/repro/kernels/ssd/kernel.py:80", path2, routes2["ssd"]),
+                "src/repro/kernels/ssd/kernel.py:80", {"ssd": path2["ssd"] + path7["ssd"]},
+                {r: routes2["ssd"][r] + routes7["ssd"][r] for r in routes2["ssd"]}),
         # K4's CUDA-core route at the mLSTM's widths: bf16 off the tensor-core route
         "ssd_mlstm": ("cuda", "src/repro_torch/kernels/ssd/csrc/ssd.cu",
                       "src/repro/kernels/ssd/kernel.py:80", {"ssd_mlstm": path5["ssd"]},
@@ -1475,12 +2070,16 @@ def main() -> int:
         if "pass_ms" in k:
             entry["pass_ms"] = k["pass_ms"]
         if name == "flash":
-            # launches on path 2 (Zamba2), path 3 (OLMoE) and path 6 (Whisper);
-            # timed at the three prefills
+            # launches on path 2 (Zamba2), path 3 (OLMoE), path 6 (Whisper) and
+            # path 7 (training Zamba2); timed at the three prefills
             entry["launches_by_path"] = {"zamba2": path2["flash"], "olmoe": path3["flash"],
-                                         "whisper": path6["flash"]}
+                                         "whisper": path6["flash"], "zamba2_train": path7["flash"]}
             entry["at_olmoe_prefill"] = kernels["bfloat16"]["flash_olmoe"]
             entry["at_whisper_prefill"] = kernels["bfloat16"]["flash_whisper"]
+            entry["at_train"] = kernels["bfloat16"]["flash_train"]
+        if name == "ssd":
+            entry["launches_by_path"] = {"zamba2": path2["ssd"], "zamba2_train": path7["ssd"]}
+            entry["at_train"] = kernels["bfloat16"]["ssd_train"]
         record["kernels"].append(entry)
     print(smi)
     print(json.dumps(record))

@@ -5,7 +5,8 @@ Arrays cross as numpy: the caller turns the reference's arrays into numpy
 device.  :func:`from_reference` covers the collectives' parameters — the
 fused matmul's projection weight ``w``, the RMSNorm ``gamma`` and an
 ``ErrorFeedbackState`` ``residual``; :func:`model_params_from_reference`
-carries a whole model's parameter tree.
+carries a whole model's parameter tree, and :func:`opt_state_from_reference`
+an AdamW state over it.
 """
 
 from __future__ import annotations
@@ -90,3 +91,20 @@ def model_params_from_reference(cfg, tree: Mapping[str, Any]) -> Dict[str, torch
             )
         out[name] = _to_tensor(a)
     return out
+
+
+def opt_state_from_reference(cfg, state):
+    """The port's :class:`~repro_torch.train.optimizer.OptState` from the
+    reference's ``OptState(step, mu, nu)`` for the model ``cfg`` builds,
+    as numpy (``jax.tree.map(np.asarray, state)``): the step a 0-dim int32
+    tensor, the moments ``{name: tensor}`` checked and carried as
+    :func:`model_params_from_reference` carries parameters.  CPU tensors,
+    equal bit for bit."""
+    from repro_torch.train.optimizer import OptState
+
+    step, mu, nu = state
+    return OptState(
+        step=torch.tensor(int(np.asarray(step)), dtype=torch.int32),
+        mu=model_params_from_reference(cfg, mu),
+        nu=model_params_from_reference(cfg, nu),
+    )

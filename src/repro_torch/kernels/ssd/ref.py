@@ -12,8 +12,12 @@ algorithm (chunk length L):
 
 B/C may be per-head (B,S,H,N) or shared across heads (B,S,N).  Returns
 (Y (B,S,H,P), final_state (B,H,P,N)), both in ``X.dtype`` as the reference
-returns them.  The CPU tests run it; on the card only ``chip_smoke.py`` and
-the card tests run it, to hold the kernel against it.
+returns them.  The CPU tests run it; on the card ``chip_smoke.py`` and the
+card tests run it to hold the kernel against it, and the kernel's backward
+pass differentiates it (``kernels/autograd.py``).  One deviation from the
+reference: the intra-chunk decays are masked before the exp, not after, so
+the gradient stays finite where the reference's is NaN; the values are the
+same bits.
 """
 
 from __future__ import annotations
@@ -60,10 +64,13 @@ def ssd_reference(
     cum = torch.cumsum(lac, dim=2)                             # (B,nc,L,H)
     total = cum[:, :, -1, :]                                   # (B,nc,H)
 
-    # intra-chunk: decay[t,s] = exp(cum_t - cum_s) for s<=t
+    # intra-chunk: decay[t,s] = exp(cum_t - cum_s) for s<=t.  Masked before
+    # the exp: above the diagonal cum_t - cum_s > 0 overflows to inf at
+    # Mamba-2's decays, and the reference's where(tri, exp(dec), 0) then
+    # back-propagates 0 · inf = NaN; the values are the same bits
     dec = cum[:, :, :, None, :] - cum[:, :, None, :, :]        # (B,nc,t,s,H)
     tri = torch.tril(torch.ones((L, L), dtype=torch.bool, device=X.device))
-    dec = torch.where(tri[None, None, :, :, None], torch.exp(dec), 0.0)
+    dec = torch.exp(torch.where(tri[None, None, :, :, None], dec, -torch.inf))
     scores = torch.einsum("bclgn,bcmgn->bclmg", Cc, Bc)        # (B,nc,L,L,Hb)
     w = scores * dec                                           # broadcasts Hb == 1
     Y_diag = torch.einsum("bclmh,bcmhp->bclhp", w, Xc)

@@ -6,24 +6,34 @@ hybrid, ssm (xLSTM) and audio (encoder–decoder).  ``build_model(cfg)``
 returns a :class:`Model` exposing:
 
 * ``init(generator, device=None)``          → :class:`ParamTree` (an ``nn.Module``)
+* ``loss(params, batch)``                   → (scalar loss, metrics)
 * ``prefill(params, batch, max_len=None)``  → (last-position logits, decode state)
 * ``decode_step(params, state, tokens)``    → (logits, new state)
 * ``init_decode_state(batch, max_len, device)`` → zeroed cache/state tree
 
 Parameters are fp32 (``param_dtype``) and cast to the activation dtype at
 use.  The layer stack is a Python loop over the stacked ``(L, …)``
-parameters (the reference's ``lax.scan``).  Entry points run on CUDA unless
-the caller asks for the CPU, and raise without CUDA.  Training (``loss``)
-is not ported yet.  The modality frontends are stubs, as in the
-reference: batches carry precomputed ``img_embeds`` (VLM) or
-``enc_frames`` (audio) at ``d_model`` width.
+parameters (the reference's ``lax.scan``), taken apart by
+:func:`~repro_torch.models.module.unstack`.  Entry points run on CUDA unless
+the caller asks for the CPU, and raise without CUDA.  ``loss`` runs the
+train mode of every layer (zero recurrent states, no cache) and wraps the
+bodies the reference wraps in ``jax.checkpoint`` in :func:`_remat`.  The
+modality frontends are stubs, as in the reference: batches carry
+precomputed ``img_embeds`` (VLM) or ``enc_frames`` (audio) at ``d_model``
+width.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -41,13 +51,53 @@ from .layers import (
     logits_projection,
     sinusoidal_positions,
 )
-from .module import ParamTree, init_tree, layer, normal_init, shapes_of, stack_init
+from .module import ParamTree, init_tree, normal_init, shapes_of, stack_init, unstack
 
 Batch = Dict[str, torch.Tensor]
 
 
 def _positions(B: int, S: int, device=None) -> torch.Tensor:
     return torch.arange(S, device=device)[None].expand(B, S)
+
+
+def _xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean softmax cross-entropy of fp32 ``logits`` against token ids."""
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, targets[..., None].long())[..., 0]
+    return (lse - gold).mean()
+
+
+# the products JAX's ``dots_with_no_batch_dims_saveable`` keeps: the 2-D
+# matmuls (a projection of (B, S, d) activations folds into one); batched
+# products (the attention einsums) are recomputed, as everything else
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg: ModelConfig):
+    """``fn`` recomputed in the backward pass, as the reference's ``_remat``:
+    ``"full"`` saves only its inputs, ``"dots"`` also the outputs of its
+    matmuls, ``"none"`` does not wrap.  Non-reentrant
+    ``torch.utils.checkpoint``; without grad mode ``fn`` runs as it is.
+    The loss and gradients are the same in every mode."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "dots":
+        extra = {"context_fn": functools.partial(create_selective_checkpoint_contexts, _save_dots)}
+    elif cfg.remat == "full":
+        extra = {}
+    else:
+        raise ValueError(f"remat {cfg.remat!r}: need full, dots or none")
+
+    def wrapped(*args, **kwargs):
+        if not torch.is_grad_enabled():
+            return fn(*args, **kwargs)
+        return checkpoint(fn, *args, use_reentrant=False, **extra, **kwargs)
+
+    return wrapped
 
 
 class Model:
@@ -57,6 +107,10 @@ class Model:
     # -- to be provided by subclasses ------------------------------------
     def specs(self):  # pragma: no cover - interface
         """The parameter tree as :class:`~repro_torch.models.module.ParamSpec` s."""
+        raise NotImplementedError
+
+    def loss(self, params, batch: Batch):
+        """(scalar fp32 loss, metrics ``{"xent", …}``) of next-token prediction."""
         raise NotImplementedError
 
     def prefill(self, params, batch: Batch, max_len: Optional[int] = None):
@@ -108,10 +162,9 @@ def _init_decoder_layer(cfg: ModelConfig, *, kind: str, cross: bool = False):
 
 def _apply_decoder_layer(p, cfg: ModelConfig, x, *, positions, cache, mode, kind: str,
                          enc: Optional[torch.Tensor] = None, cross_kv=None):
-    """One pre-norm block; the cache views are written in place.  A layer
-    with ``xattn`` attends to the encoder's output ``enc``, or to its
-    precomputed keys and values ``cross_kv``.  The MoE aux loss is dropped:
-    only training (``loss``, not ported) reads it."""
+    """One pre-norm block → (output, MoE aux loss or None); the cache views
+    are written in place.  A layer with ``xattn`` attends to the encoder's
+    output ``enc``, or to its precomputed keys and values ``cross_kv``."""
     h = apply_norm(p["ln1"], x, eps=cfg.norm_eps, norm_type=cfg.norm_type)
     attn_fn = A.apply_mla if cfg.mla else A.apply_gqa
     a_out, _ = attn_fn(p["attn"], cfg, h, positions=positions, cache=cache, mode=mode)
@@ -125,10 +178,10 @@ def _apply_decoder_layer(p, cfg: ModelConfig, x, *, positions, cache, mode, kind
         x = x + xa
     h = apply_norm(p["ln2"], x, eps=cfg.norm_eps, norm_type=cfg.norm_type)
     if kind == "moe":
-        f_out, _ = M.apply_moe(p["ffn"], cfg, h)
+        f_out, aux = M.apply_moe(p["ffn"], cfg, h)
     else:
-        f_out = apply_mlp(p["ffn"], h, mlp_type=cfg.mlp_type)
-    return x + f_out
+        f_out, aux = apply_mlp(p["ffn"], h, mlp_type=cfg.mlp_type), None
+    return x + f_out, aux
 
 
 # ===========================================================================
@@ -172,16 +225,41 @@ class DecoderLM(Model):
             x = torch.cat([img, x], dim=1)
         return x
 
-    def _stack(self, params, x, positions, caches: A.KVCache, mode: str):
-        """Every layer in order; layer i reads and writes cache row i."""
+    def _stack(self, params, x, positions, caches: Optional[A.KVCache], mode: str):
+        """Every layer in order → (output, the layers' summed MoE aux loss,
+        None when serving).  Serving: layer i reads and writes cache row i.
+        Training (``caches`` None): each stacked layer under :func:`_remat`,
+        the front layers not, as in the reference."""
         cfg = self.cfg
-        for i in range(self.n_front + self.n_scan):
-            cache = A.KVCache(caches.k[i], caches.v[i], caches.length[i])
-            front = i < self.n_front
-            lp = params[f"front_{i}"] if front else layer(params["layers"], i - self.n_front)
-            x = _apply_decoder_layer(lp, cfg, x, positions=positions, cache=cache, mode=mode,
-                                     kind="dense_wide" if front else self.kind)
-        return x
+        front = [params[f"front_{i}"] for i in range(self.n_front)]
+        train = mode == "train"
+        body = _remat(_apply_decoder_layer, cfg) if train else _apply_decoder_layer
+        aux = torch.zeros((), dtype=torch.float32, device=x.device) if train else None
+        for i, lp in enumerate(front + unstack(params["layers"])):
+            is_front = i < self.n_front
+            cache = None if caches is None else A.KVCache(caches.k[i], caches.v[i], caches.length[i])
+            x, a = (_apply_decoder_layer if is_front else body)(
+                lp, cfg, x, positions=positions, cache=cache, mode=mode,
+                kind="dense_wide" if is_front else self.kind)
+            if train and a is not None:
+                aux = aux + a
+        return x, aux
+
+    def loss(self, params, batch: Batch):
+        """Next-token cross-entropy over the text positions (a VLM's image
+        tokens are context only), plus ``0.01 · aux / n_scan`` for MoE, as
+        the reference (whose ``xent`` metric is that sum too)."""
+        cfg = self.cfg
+        x = self._embed_inputs(params, batch)
+        B, S = x.shape[:2]
+        x, aux = self._stack(params, x, _positions(B, S, device=x.device), None, "train")
+        x = apply_norm(params["ln_f"], x, eps=cfg.norm_eps, norm_type=cfg.norm_type)
+        n_img = cfg.vlm.n_img_tokens if cfg.vlm else 0
+        logits = logits_projection(params["lm_head"], x[:, n_img:-1])
+        loss = _xent(logits, batch["tokens"][:, 1:])
+        if cfg.moe:
+            loss = loss + 0.01 * aux / max(self.n_scan, 1)
+        return loss, {"xent": loss, "aux": aux}
 
     def init_decode_state(self, batch: int, max_len: int, device=None) -> A.KVCache:
         cfg = self.cfg
@@ -199,7 +277,7 @@ class DecoderLM(Model):
         B, S = x.shape[:2]
         # cache headroom: decode appends after the prompt (and the image tokens)
         caches = self.init_decode_state(B, max_len or S + 64, x.device)
-        x = self._stack(params, x, _positions(B, S, device=x.device), caches, "prefill")
+        x, _ = self._stack(params, x, _positions(B, S, device=x.device), caches, "prefill")
         x = apply_norm(params["ln_f"], x, eps=cfg.norm_eps, norm_type=cfg.norm_type)
         return logits_projection(params["lm_head"], x[:, -1:]), caches
 
@@ -210,7 +288,7 @@ class DecoderLM(Model):
         B = x.shape[0]
         # a copy: the caches' lengths advance in place during the step
         positions = state.length[0].clone().expand(B, 1)
-        x = self._stack(params, x, positions, state, "decode")
+        x, _ = self._stack(params, x, positions, state, "decode")
         x = apply_norm(params["ln_f"], x, eps=cfg.norm_eps, norm_type=cfg.norm_type)
         return logits_projection(params["lm_head"], x), state
 
@@ -269,26 +347,47 @@ class HybridLM(Model):
         h = apply_norm(sp["ln2"], x, eps=cfg.norm_eps, norm_type=cfg.norm_type)
         return x + apply_mlp(sp["ffn"], h, mlp_type=cfg.mlp_type), new_cache
 
+    def _mamba(self, lp, x, state, mode):
+        """One pre-normed residual Mamba-2 layer → (output, its new state)."""
+        cfg = self.cfg
+        z = apply_norm(lp["ln"], x, eps=cfg.norm_eps, norm_type=cfg.norm_type)
+        out, new_st = SSM.apply_mamba2(lp["p"], cfg, z, state=state, mode=mode)
+        return x + out, new_st
+
+    def _train_group(self, params, x, positions, mamba, lora):
+        """One group in train mode: its Mamba-2 layers from zero states,
+        then the shared attention with no cache."""
+        for lp in mamba:
+            x, _ = self._mamba(lp, x, None, "train")
+        x, _ = self._shared_attn(params, lora, self.cfg, x, positions, None, "train")
+        return x
+
     def _stack(self, params, x, positions, states, mode):
+        """Every group in order: its Mamba-2 layers, then the shared
+        attention with the group's LoRA.  Training (``states`` None) runs
+        each group under :func:`_remat` and returns no state; serving
+        threads the decode states through."""
         cfg = self.cfg
         G, Pg = self.n_groups, self.per_group
+        mamba, loras = unstack(params["mamba"]), unstack(params["lora"])
+        if mode == "train":
+            group = _remat(self._train_group, cfg)
+            for g in range(G):
+                x = group(params, x, positions, mamba[g * Pg:(g + 1) * Pg], loras[g])
+            return x, None
         ms, kv = states["mamba"], states["attn"]
         convs, ssms = [], []
         for g in range(G):
             for j in range(Pg):
-                lp = layer(params["mamba"], g * Pg + j)
                 mst = SSM.Mamba2State(ms.conv[g, j], ms.ssm[g, j])
-                z = apply_norm(lp["ln"], x, eps=cfg.norm_eps, norm_type=cfg.norm_type)
-                out, new_st = SSM.apply_mamba2(lp["p"], cfg, z, state=mst, mode=mode)
+                x, new_st = self._mamba(mamba[g * Pg + j], x, mst, mode)
                 if new_st is None:
                     new_st = mst
-                x = x + out
                 convs.append(new_st.conv)
                 ssms.append(new_st.ssm)
             cache = A.KVCache(kv.k[g], kv.v[g], kv.length[g])
             # the cache views are written in place, so ``kv`` holds the result
-            x, _ = self._shared_attn(params, layer(params["lora"], g), cfg, x, positions,
-                                     cache, mode)
+            x, _ = self._shared_attn(params, loras[g], cfg, x, positions, cache, mode)
         mamba = SSM.Mamba2State(
             conv=torch.stack(convs).reshape(G, Pg, *convs[0].shape),
             ssm=torch.stack(ssms).reshape(G, Pg, *ssms[0].shape),
@@ -306,6 +405,17 @@ class HybridLM(Model):
             "mamba": SSM.Mamba2State(*(a[None, None].repeat(G, Pg, *([1] * a.ndim)) for a in m_one)),
             "attn": A.KVCache(*(a[None].repeat(G, *([1] * a.ndim)) for a in kv_one)),
         }
+
+    def loss(self, params, batch: Batch):
+        """Next-token cross-entropy; zero Mamba-2 states and no attention
+        cache (the reference's train mode ignores the caches it is handed)."""
+        cfg = self.cfg
+        x = embed_lookup(params["embed"], batch["tokens"], cfg.act_dtype())
+        B, S = x.shape[:2]
+        x, _ = self._stack(params, x, _positions(B, S, device=x.device), None, "train")
+        x = apply_norm(params["ln_f"], x, eps=cfg.norm_eps, norm_type=cfg.norm_type)
+        loss = _xent(logits_projection(params["lm_head"], x[:, :-1]), batch["tokens"][:, 1:])
+        return loss, {"xent": loss}
 
     def prefill(self, params, batch: Batch, max_len: Optional[int] = None):
         cfg = self.cfg
@@ -369,8 +479,7 @@ class XLSTMLM(Model):
         cfg = self.cfg
         ms = states["mlstm"]
         Cs, ns = [], []
-        for j in range(self.m_per_group):
-            lp = layer(gp["mlstm"], j)
+        for j, lp in enumerate(unstack(gp["mlstm"])):
             st = SSM.MLSTMState(ms.C[j], ms.n[j])
             h = apply_norm(lp["ln"], x, eps=cfg.norm_eps, norm_type=cfg.norm_type)
             out, new_st = SSM.apply_mlstm(lp["p"], cfg, h, state=st, mode=mode)
@@ -387,13 +496,32 @@ class XLSTMLM(Model):
         return x + out, {"mlstm": SSM.MLSTMState(torch.stack(Cs), torch.stack(ns)),
                          "slstm": new_s}
 
+    def _train_group(self, gp, x):
+        """One group in train mode: its mLSTM blocks, then its sLSTM block,
+        each from zero states."""
+        cfg = self.cfg
+        for lp in unstack(gp["mlstm"]):
+            h = apply_norm(lp["ln"], x, eps=cfg.norm_eps, norm_type=cfg.norm_type)
+            x = x + SSM.apply_mlstm(lp["p"], cfg, h, state=None, mode="train")[0]
+        sp = gp["slstm"]
+        h = apply_norm(sp["ln"], x, eps=cfg.norm_eps, norm_type=cfg.norm_type)
+        return x + SSM.apply_slstm(sp["p"], cfg, h, state=None, mode="train")[0]
+
     def _stack(self, params, x, states, mode: str):
-        """Every group in order; the new states are stacked as the old."""
+        """Every group in order; the new states are stacked as the old.
+        Training (``states`` None) runs each group under :func:`_remat` and
+        returns no state."""
+        groups = unstack(params["groups"])
+        if mode == "train":
+            group = _remat(self._train_group, self.cfg)
+            for gp in groups:
+                x = group(gp, x)
+            return x, None
         news = []
-        for g in range(self.n_groups):
+        for g, gp in enumerate(groups):
             st = {"mlstm": SSM.MLSTMState(*(a[g] for a in states["mlstm"])),
                   "slstm": SSM.SLSTMState(*(a[g] for a in states["slstm"]))}
-            x, new_st = self._apply_block(layer(params["groups"], g), x, st, mode)
+            x, new_st = self._apply_block(gp, x, st, mode)
             news.append(new_st)
         return x, {
             "mlstm": SSM.MLSTMState(*(torch.stack(a) for a in zip(*(n["mlstm"] for n in news)))),
@@ -411,6 +539,15 @@ class XLSTMLM(Model):
             "mlstm": SSM.MLSTMState(*(a[None, None].repeat(G, Mg, *([1] * a.ndim)) for a in m_one)),
             "slstm": SSM.SLSTMState(*(a[None].repeat(G, *([1] * a.ndim)) for a in s_one)),
         }
+
+    def loss(self, params, batch: Batch):
+        """Next-token cross-entropy from zero recurrent states."""
+        cfg = self.cfg
+        x = embed_lookup(params["embed"], batch["tokens"], cfg.act_dtype())
+        x, _ = self._stack(params, x, None, "train")
+        x = apply_norm(params["ln_f"], x, eps=cfg.norm_eps, norm_type=cfg.norm_type)
+        loss = _xent(logits_projection(params["lm_head"], x[:, :-1]), batch["tokens"][:, 1:])
+        return loss, {"xent": loss}
 
     def prefill(self, params, batch: Batch, max_len: Optional[int] = None):
         cfg = self.cfg
@@ -475,24 +612,45 @@ class EncDecLM(Model):
                                      cfg.n_layers),
         }
 
-    def _encode(self, params, frames: torch.Tensor) -> torch.Tensor:
+    def _encode(self, params, frames: torch.Tensor, mode: str = "prefill") -> torch.Tensor:
+        """The encoder over ``frames``; in train mode each layer under
+        :func:`_remat`."""
         cfg = self.cfg
         x = frames.to(cfg.act_dtype())
         x = x + sinusoidal_positions(x.shape[1], cfg.d_model, x.device).to(x.dtype)[None]
-        for i in range(cfg.enc_dec.n_enc_layers):
-            x = _apply_encoder_layer(layer(params["enc_layers"], i), cfg, x)
+        body = _remat(_apply_encoder_layer, cfg) if mode == "train" else _apply_encoder_layer
+        for lp in unstack(params["enc_layers"]):
+            x = body(lp, cfg, x)
         return apply_norm(params["ln_enc"], x, eps=cfg.norm_eps, norm_type=cfg.norm_type)
 
     def _decode_stack(self, params, x, positions, caches: A.KVCache, cross, mode: str):
         """Every decoder layer in order; layer i reads and writes self-cache
         row i and reads cross row i."""
         cfg = self.cfg
-        for i in range(cfg.n_layers):
+        for i, lp in enumerate(unstack(params["dec_layers"])):
             cache = A.KVCache(caches.k[i], caches.v[i], caches.length[i])
-            x = _apply_decoder_layer(layer(params["dec_layers"], i), cfg, x, positions=positions,
-                                     cache=cache, mode=mode, kind="dense",
-                                     cross_kv={"k": cross["k"][i], "v": cross["v"][i]})
+            x, _ = _apply_decoder_layer(lp, cfg, x, positions=positions, cache=cache, mode=mode,
+                                        kind="dense",
+                                        cross_kv={"k": cross["k"][i], "v": cross["v"][i]})
         return x
+
+    def loss(self, params, batch: Batch):
+        """Next-token cross-entropy of the decoder, which attends to the
+        encoder's output of ``enc_frames``; every encoder and decoder layer
+        under :func:`_remat`, as the reference."""
+        cfg = self.cfg
+        enc = self._encode(params, batch["enc_frames"], "train")
+        x = embed_lookup(params["embed"], batch["tokens"], cfg.act_dtype())
+        B, S = x.shape[:2]
+        x = x + sinusoidal_positions(S, cfg.d_model, x.device).to(x.dtype)[None]
+        body = _remat(_apply_decoder_layer, cfg)
+        positions = _positions(B, S, device=x.device)
+        for lp in unstack(params["dec_layers"]):
+            x, _ = body(lp, cfg, x, positions=positions, cache=None, mode="train", kind="dense",
+                        enc=enc)
+        x = apply_norm(params["ln_f"], x, eps=cfg.norm_eps, norm_type=cfg.norm_type)
+        loss = _xent(logits_projection(params["lm_head"], x[:, :-1]), batch["tokens"][:, 1:])
+        return loss, {"xent": loss}
 
     def _cross_kv(self, params, enc: torch.Tensor):
         """Per-layer cross-attention K/V of the encoder's output, in its dtype."""

@@ -130,8 +130,10 @@ class ParamTree(nn.Module):
     ``tree["mamba"]["p"]["in_proj"]`` is a tensor, ``tree["mamba"]`` a
     subtree; ``dict(tree)`` gives one level.  A list node (DeepSeek's
     ``shared`` experts) is a subtree with ``is_list`` set: it is indexed
-    by position and iterates over its entries in order.  Parameters carry
-    no gradient (this slice serves; training comes with ROADMAP item 11).
+    by position and iterates over its entries in order.  Parameters are
+    made without a gradient, which serving (under ``torch.inference_mode()``)
+    never needs; training turns it on (``requires_grad_()``, as
+    :func:`repro_torch.train.train_step.make_train_step` does).
     """
 
     def __init__(self, tree: Union[Mapping[str, Any], Sequence[Any]]):
@@ -216,13 +218,18 @@ def shapes_of(tree, prefix: str = "") -> Dict[str, Tuple[int, ...]]:
     return out
 
 
-def layer(tree, i: int):
-    """Layer ``i`` of a stacked tree, as nested dicts (and lists) of views."""
+def unstack(tree) -> list:
+    """The layers of a stacked tree, in order, each as nested dicts (and
+    lists) of views.  One ``unbind`` per tensor: a gradient flows back into
+    the stacked parameter as one stack of the layers' gradients, where
+    indexing layer by layer would add one zero-padded full-size gradient a
+    layer."""
     if isinstance(tree, torch.Tensor):
-        return tree[i]
+        return list(tree.unbind(0))
     if _is_list(tree):
-        return [layer(v, i) for v in tree]
-    return {k: layer(v, i) for k, v in tree.items()}
+        return [list(entries) for entries in zip(*(unstack(v) for v in tree))]
+    names = list(tree.keys())
+    return [dict(zip(names, leaves)) for leaves in zip(*(unstack(tree[k]) for k in names))]
 
 
 def param_count(tree) -> int:

@@ -1,4 +1,5 @@
-"""The port on the card: its CUDA and Triton kernels, its main path and its model.
+"""The port on the card: its CUDA and Triton kernels, its main path, its models
+and their training.
 
 Every test here needs an NVIDIA GPU (a CUDA kernel has no CPU mode), so
 each carries the ``cuda`` marker and skips without one.  On a machine with
@@ -10,7 +11,9 @@ The file imports no JAX, so it runs where only the port is installed.
 Tolerances: kernel against plain version fp32 rtol 2e-5 / atol 2e-4 (K1's
 fp32 sum runs in another order), bf16 2e-2; K3 and K4 fp32 rtol and atol
 1e-4 (sums of up to T products and an online softmax in another order);
-everything else bit for bit.  K1, K3 and K4 have two routes each
+a reduced model or train step on the card against the CPU 1e-4; everything
+else bit for bit, the gradients through K3 and K4 (their plain versions'
+autograd) included.  K1, K3 and K4 have two routes each
 (tensor-core ``wgmma`` kernels for bf16, CUDA-core ``fma`` kernels
 otherwise); the tests count the launches of each.
 """
@@ -498,3 +501,107 @@ def test_whisper_reduced_on_the_card_equals_the_cpu(dev):
                                                          for r, n in k3.items()}  # none in decode
     for a, b in zip(out[dev], out["cpu"]):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
+def _grad_case(fn, inputs, weights):
+    """The outputs of ``fn`` and the gradients of Σ out·w (fp32) with
+    respect to the inputs that take one."""
+    leaves = [None if t is None else t.detach().clone().requires_grad_(t.requires_grad)
+              for t in inputs]
+    outs = fn(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    total = sum((o.float() * w).sum() for o, w in zip(outs, weights) if w is not None)
+    return outs, torch.autograd.grad(total, [t for t in leaves if t is not None and t.requires_grad])
+
+
+@pytest.mark.parametrize("case", ["gqa", "ragged"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_gradient_through_the_kernel_is_the_plain_versions(dev, case, dtype):
+    """K3 forward on the card under autograd: the kernel launches once (its
+    route as without autograd), and the gradient is the plain version's
+    autograd, bit for bit (the backward recomputes the plain version on the
+    same inputs); at the smoke's GQA and ragged shapes."""
+    from repro_torch.kernels.flash import attention_reference, flash_attention, flash_attention_cuda
+
+    B, S, H, K, D = {"gqa": (2, 256, 8, 2, 64), "ragged": (1, 200, 32, 32, 80)}[case]
+    q, k, v = (t.requires_grad_() for t in _flash_inputs(dev, B, S, H, K, D, dtype, seed=7))
+    w = [torch.randn(B, S, H, D, generator=torch.Generator(device=dev).manual_seed(8), device=dev)]
+    route = "wgmma" if dtype == torch.bfloat16 else "fma"
+    before = _routes(flash_attention_cuda)
+    (got,), grads = _grad_case(lambda *t: flash_attention(*t, causal=True), (q, k, v), w)
+    _launched(flash_attention_cuda, before, route)  # one launch, the backward launches none
+    (want,), want_grads = _grad_case(lambda *t: attention_reference(*t, causal=True), (q, k, v), w)
+    tol = dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 else dict(rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    assert all(torch.equal(a, b) for a, b in zip(grads, want_grads))
+
+
+@pytest.mark.parametrize("case", ["per_head", "ragged", "initial_state"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_gradient_through_the_kernel_is_the_plain_versions(dev, case, dtype):
+    """K4 forward on the card under autograd: one launch, and the gradient
+    of X, la, B, C (shared B/C summed over heads on the ragged case) and an
+    initial state is ``ssd_reference``'s autograd, bit for bit; the final
+    state takes no gradient where nothing reads it."""
+    from repro_torch.kernels.ssd import ssd, ssd_cuda, ssd_reference
+
+    B, S, H, P, N = {"per_head": (2, 512, 8, 64, 64), "ragged": (2, 1000, 80, 64, 64),
+                     "initial_state": (1, 200, 4, 64, 64)}[case]
+    X, la, Bm, Cm, init = _ssd_inputs(dev, B, S, H, P, N, dtype, case != "ragged", seed=9)
+    inputs = [X, la, Bm, Cm, init if case == "initial_state" else None]
+    for t in inputs:
+        if t is not None:
+            t.requires_grad_()
+    g = torch.Generator(device=dev).manual_seed(10)
+    w = [torch.randn(B, S, H, P, generator=g, device=dev),
+         torch.randn(B, H, P, N, generator=g, device=dev) if case == "initial_state" else None]
+    route = "wgmma" if dtype == torch.bfloat16 else "fma"
+    before = _routes(ssd_cuda)
+    (Y, _), grads = _grad_case(lambda *t: ssd(*t[:4], chunk=64, initial_state=t[4]), inputs, w)
+    _launched(ssd_cuda, before, route)
+    (Yr, _), want = _grad_case(lambda *t: ssd_reference(*t[:4], chunk=64, initial_state=t[4]),
+                               inputs, w)
+    tol = dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 else dict(rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(Y.float(), Yr.float(), **tol)
+    assert len(grads) == (5 if case == "initial_state" else 4)
+    assert all(torch.equal(a, b) for a, b in zip(grads, want))
+
+
+def test_reduced_train_step_on_the_card_equals_the_cpu(dev):
+    """Reduced Zamba2 with the kernels (fma route in fp32): one microbatched
+    train step on the card against the same step on the CPU from the same
+    weights, fp32, within 1e-4: loss, grad norm and every parameter after
+    the update (the default schedule's first step moves a parameter by at
+    most lr = 3e-6, so a gradient near zero cannot move it past 1e-4)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMData, to_device
+    from repro_torch.kernels.flash import flash_attention_cuda
+    from repro_torch.kernels.ssd import ssd_cuda
+    from repro_torch.models import ParamTree, build_model
+    from repro_torch.train import OptimizerConfig, init_opt_state, make_train_step
+
+    cfg = dataclasses.replace(get_config("zamba2-2.7b").reduced(), use_pallas=True)
+    model = build_model(cfg)
+    start = model.init(torch.Generator().manual_seed(0), "cpu").state_dict()
+    batch = SyntheticLMData(cfg, DataConfig(global_batch=4, seq_len=64)).global_batch(0)
+    step = make_train_step(model, OptimizerConfig(), microbatches=2)
+    out = {}
+    for device in ("cpu", dev):
+        params = ParamTree.from_state_dict({k: v.clone().to(device) for k, v in start.items()})
+        k3, k4 = _routes(flash_attention_cuda), _routes(ssd_cuda)
+        params, _, metrics = step(params, init_opt_state(params), to_device(batch, device))
+        if device == dev:
+            groups = cfg.n_layers // cfg.hybrid.shared_attn_every
+            # forward and remat recompute, 2 microbatches
+            assert {r: n - k3[r] for r, n in _routes(flash_attention_cuda).items()} == \
+                {"wgmma": 0, "fma": 4 * groups}
+            assert {r: n - k4[r] for r, n in _routes(ssd_cuda).items()} == \
+                {"wgmma": 0, "fma": 4 * cfg.n_layers}
+        out[device] = (metrics, {k: v.detach().cpu() for k, v in params.state_dict().items()})
+    (m_cpu, p_cpu), (m_dev, p_dev) = out["cpu"], out[dev]
+    for key in ("loss", "grad_norm", "lr"):
+        torch.testing.assert_close(m_dev[key].cpu(), m_cpu[key], rtol=1e-4, atol=1e-4)
+    for name in p_cpu:
+        torch.testing.assert_close(p_dev[name], p_cpu[name], rtol=1e-4, atol=1e-4)

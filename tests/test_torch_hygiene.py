@@ -18,6 +18,7 @@ torch = pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
+EXAMPLE = ROOT / "examples" / "pccl_dp_training_torch.py"
 
 
 def _modules():
@@ -30,11 +31,15 @@ def _modules():
 def test_importing_every_module_loads_no_jax_and_no_repro():
     mods = list(_modules())
     assert "repro_torch.comm.fusion" in mods and "repro_torch.models.moe" in mods
+    assert {"repro_torch.train.optimizer", "repro_torch.train.data_parallel",
+            "repro_torch.data.pipeline", "repro_torch.kernels.autograd"} <= set(mods)
     assert len(mods) > 20
     code = (
-        "import importlib, sys\n"
+        "import importlib, importlib.util, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
+        f"spec = importlib.util.spec_from_file_location('example', {str(EXAMPLE)!r})\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith('jax.') or m == 'jaxlib'\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
@@ -49,7 +54,7 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
     assert "BAD []" in proc.stdout
 
 
-@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", EXAMPLE],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_sources_import_no_jax_and_no_repro(path):
     tree = ast.parse(path.read_text())

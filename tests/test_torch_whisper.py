@@ -156,9 +156,10 @@ def test_decoder_layer_cross_branch_matches_reference(source, dtype):
     want, _, _ = ref_lm._apply_decoder_layer(jp, ref_cfg, jnp.asarray(x).astype(jdt),
                                              positions=jnp.asarray(pos), cache=None, mode="train",
                                              kind="dense", **kw_ref)
-    got = lm._apply_decoder_layer(tp, cfg, torch.from_numpy(x).to(tdt),
-                                  positions=torch.from_numpy(pos.copy()), cache=None, mode="train",
-                                  kind="dense", **kw)
+    got, aux = lm._apply_decoder_layer(tp, cfg, torch.from_numpy(x).to(tdt),
+                                       positions=torch.from_numpy(pos.copy()), cache=None,
+                                       mode="train", kind="dense", **kw)
+    assert aux is None  # a dense layer has no MoE aux loss
     assert got.dtype == tdt and got.shape == x.shape
     _check(got, want, TOL32 if dtype == "float32" else TOL16, f"decoder layer ({source})")
 

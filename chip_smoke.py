@@ -64,6 +64,19 @@ and then drives the port's main paths:
    all-reduced on ``PcclSession(H100_DGX)``'s plan; every rank's row of the
    sum the same bits, the mean the full batch's gradient.
 
+9. training Whisper-small at its published widths and depth through the
+   fault-tolerant ``Trainer``: batches of 8 x 448 tokens (1500 encoder
+   frames a row) in 2 microbatches, 10 steps, an async checkpoint every 3
+   steps, a failure injected at step 8, the restart from the step-6
+   checkpoint and the replay of steps 6 and 7 (48 K3 launches a step, on
+   the tensor-core route), the final save; the last checkpoint restored
+   into a fresh tree and served (8 new tokens for path 6's prompts), the
+   same tokens as from the trained tree; an uninterrupted run to the same
+   loss; and ``python -m repro_torch.launch.train`` on a reduced Whisper
+   in a fresh process, on the card by default.  The kernel phase holds K3
+   at this path's shape, ``(4, 448, 12, 12, 64)``, through its autograd
+   Function too.
+
 A parity phase then holds Zamba2's prefill with the kernels against its
 plain path in fp32 (6 layers, batch 2, 512 tokens), and teacher-forced
 decode against a longer prefill, xLSTM's the same way (one group: 7
@@ -89,6 +102,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import replace
@@ -123,10 +137,10 @@ WHISPER_PROMPTS = (228, 132, 36, 4)
 FLASH_SHAPES = {"serving": (4, 4096, 32, 32, 80), "olmoe": (4, 4096, 16, 16, 128),
                 "whisper": (4, 228, 12, 12, 64),
                 "gqa": (2, 256, 8, 2, 64), "ragged": (1, 200, 32, 32, 80),
-                "train": (1, 4096, 32, 32, 80)}
+                "train": (1, 4096, 32, 32, 80), "whisper_train": (4, 448, 12, 12, 64)}
 # the timed cases, and the launches each timing averages over: one call at
-# Whisper's shape is a few microseconds, near the cost of its timing events
-FLASH_TIMED = {"serving": 1, "olmoe": 1, "whisper": 50}
+# Whisper's shapes is a few microseconds, near the cost of its timing events
+FLASH_TIMED = {"serving": 1, "olmoe": 1, "whisper": 50, "whisper_train": 50}
 # K4 (B, S, H, P, N, chunk) at Zamba2's serving prefill (shared B/C), the
 # per-head and ragged cases, at xLSTM-1.3B's mLSTM prefill (per-head B/C:
 # k and q) and at Zamba2's train microbatch (path 7: shared B/C, no initial
@@ -135,10 +149,11 @@ SSD_SHAPES = {"serving": (4, 4096, 80, 64, 64, 64), "per_head": (2, 512, 8, 64, 
               "ragged": (2, 1000, 80, 64, 64, 64), "mlstm": (4, 4096, 4, 1024, 512, 64),
               "train": (1, 4096, 80, 64, 64, 64)}
 SSD_PER_HEAD = ("per_head", "mlstm")
-# the cases called as path 7 calls K3 and K4: through the entry point on
-# inputs that require a gradient, so through the autograd Function, whose
-# backward is then held bit for bit against the plain version's autograd
-TRAIN_CASES = ("train",)
+# the cases called as paths 7 and 9 call K3 and K4 (Zamba2's and Whisper's
+# decoder train microbatch): through the entry point on inputs that require
+# a gradient, so through the autograd Function, whose backward is then held
+# bit for bit against the plain version's autograd
+TRAIN_CASES = ("train", "whisper_train")
 SSD_TIMED = {"serving": "ssd", "mlstm": "ssd_mlstm"}
 # parity: Zamba2 at full widths in fp32, cut to one shared-attention group;
 # xLSTM-1.3B cut to one group (7 mLSTMs, one sLSTM); OLMoE and
@@ -161,6 +176,19 @@ TRAIN_PARITY_LOSS_TOL, TRAIN_PARITY_GRAD_TOL = 1e-4, 1e-3
 # data-parallel training (path 8): the example's defaults, 5 steps
 DP_STEPS = 5
 DP_LOSS_TOL, DP_GRAD_TOL = 1e-5, 1e-4
+# Training Whisper-small through the Trainer (path 9): global batch 8 x 448
+# (Whisper's text context) in 2 microbatches, 10 steps, a checkpoint every 3
+# (keeping 2), a failure injected at step 8; then serving 8 new tokens for
+# path 6's prompts from the last checkpoint.  Replayed steps against their
+# first pass, and the final loss against an uninterrupted run's
+# (tests/test_train_substrate.py's restart tolerance), relative
+TRAINER_BATCH, TRAINER_SEQ, TRAINER_MICROBATCHES, TRAINER_STEPS = 8, 448, 2, 10
+TRAINER_CKPT_EVERY, TRAINER_CKPT_KEEP, TRAINER_FAIL_AT = 3, 2, 8
+TRAINER_SERVE_NEW_TOKENS = 8
+REPLAY_TOL, UNINTERRUPTED_TOL = 1e-6, 1e-5
+# the reduced run of the training CLI in a fresh process (no --device)
+CLI_ARGS = ("--arch", "whisper-small", "--reduced", "--steps", "6", "--batch", "4", "--seq", "64",
+            "--ckpt-every", "2", "--fail-at", "3")
 
 # Published peaks of one H100 SXM (dense): bf16 tensor cores, fp32 CUDA
 # cores, HBM bandwidth.  Bounds are stated against these.
@@ -398,11 +426,11 @@ def train_gradient_check(torch, fn, kernel, plain, inputs, kw, what: str) -> Non
 
 def flash_kernel_phase(torch, gen, dtype_name: str) -> dict:
     """K3 against its plain version at the three serving shapes (Zamba2's,
-    OLMoE's, Whisper's decoder), GQA and ragged shapes, and at path 7's
-    train shape through ``flash_attention`` with a gradient (its autograd
-    Function, forward and backward); timed at the serving shapes beside
-    SDPA (``flash`` for Zamba2's, ``flash_olmoe`` and ``flash_whisper``
-    for the others)."""
+    OLMoE's, Whisper's decoder), GQA and ragged shapes, and at path 7's and
+    path 9's train shapes through ``flash_attention`` with a gradient (its
+    autograd Function, forward and backward); timed at the serving shapes
+    and Whisper's train shape beside SDPA (``flash`` for Zamba2's,
+    ``flash_<case>`` for the others)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash import attention_reference, flash_attention, flash_attention_cuda
@@ -432,28 +460,31 @@ def flash_kernel_phase(torch, gen, dtype_name: str) -> dict:
                     + (", through the autograd Function:" if train else ":"))
                 err = compare(torch, got, want, "flash", dtype_name)
             del got, want
+        key = "flash" if case == "serving" else f"flash_{case}"
         if train:
             train_gradient_check(torch, flash_attention, flash_attention_cuda, attention_reference,
                                  (q, k, v), {"causal": True}, f"flash[{dtype_name}] {case}")
-            out[f"flash_{case}"] = dict(max_abs_err=err, shape=[B, S, H, K, D], kernel_route=route,
-                                        grad_bit_equal=True)
+            out[key] = dict(max_abs_err=err, shape=[B, S, H, K, D], kernel_route=route,
+                            grad_bit_equal=True)
         if case not in FLASH_TIMED:
             del q, k, v
             continue
         inner = FLASH_TIMED[case]
-        ms = time_ms(torch, lambda: flash_attention_cuda(q, k, v, causal=True), 3, inner)
-        plain_ms = time_ms(torch, lambda: [attention_reference(q[b:b + 1], k[b:b + 1], v[b:b + 1])
-                                           for b in range(B)], 2, inner)
-        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
-                         5, inner)
-        del qt, kt, vt
+        with torch.no_grad():  # the forward alone, no graph recorded around the library call
+            ms = time_ms(torch, lambda: flash_attention_cuda(q, k, v, causal=True), 3, inner)
+            plain_ms = time_ms(torch, lambda: [attention_reference(q[b:b + 1], k[b:b + 1],
+                                                                   v[b:b + 1])
+                                               for b in range(B)], 2, inner)
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                           is_causal=True),
+                             5, inner)
+            del qt, kt, vt
         flops = 2.0 * B * H * S * S * D  # causal: half of QKᵀ and PV, 2 ops per MAC
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         b_ms, b_by = bound(flops, nbytes, dtype_name)
-        key = "flash" if case == "serving" else f"flash_{case}"
-        out[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                        bound_by=b_by, library_ms=lib_ms, shape=[B, S, H, K, D],
+        out[key] = dict(out.get(key, {}), max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, shape=[B, S, H, K, D],
                         kernel_route=route, launches_timed=inner)
         log(f"  flash[{dtype_name}] {(B, S, H, K, D)} causal: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms (per batch row), SDPA {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
@@ -1554,14 +1585,14 @@ def span_device_ms(torch, prof, label: str) -> float:
                if e.device_type == cpu and e.name == label) / 1e3
 
 
-def profile_train(torch, r) -> dict:
+def profile_train(torch, r, expect=("flash", "ssd")) -> dict:
     """Two more warm steps under the profiler, with the plain backward of K3
     and K4 and the AdamW update timed by CUDA events.  The first records
     the device only: device time by class, and each window's width by its
     events, which also holds the host's time inside it while the device
     idles.  The second records host ops too, which link each kernel to the
     window (profiler span) that launched it: the device time of the kernels
-    inside each window."""
+    inside each window, which must be some for each kernel in ``expect``."""
     from torch.profiler import ProfilerActivity, profile
 
     batch = r["batches"][-1]
@@ -1602,7 +1633,7 @@ def profile_train(torch, r) -> dict:
         f"({100 * spans['flash'] / busy2:.1f} % of device busy), of K4 {spans['ssd']:.1f} ms "
         f"({100 * spans['ssd'] / busy2:.1f} %), AdamW {spans['adamw']:.1f} ms "
         f"({100 * spans['adamw'] / busy2:.1f} %)")
-    check(0.0 < spans["ssd"] and sum(spans.values()) <= busy2 * 1.001,
+    check(all(spans[k] > 0.0 for k in expect) and sum(spans.values()) <= busy2 * 1.001,
           f"the windows' device time {spans} does not fit the step's device busy {busy2:.1f} ms")
     return {"device_ms": busy, "wall_ms": wall, **times, "events_ms": ev,
             "span_device_ms": spans, "span_step_device_ms": busy2, "k4_pass_ms": k4}
@@ -1775,6 +1806,391 @@ def check_dp(torch, r) -> dict:
             "all_reduce_ms_per_step": r["ar_ms"], "all_reduce_share": share,
             "tokens_per_s": r["tokens"] / r["warm_s"], "step0_loss_err": loss_err,
             "worst_grad_rel_err": worst[0]}
+
+
+# ------------------------------------------------------ the Trainer (path 9)
+
+
+def checkpoint_bytes(cfg) -> int:
+    """Bytes of one checkpoint of ``cfg``'s train state: fp32 parameters and
+    two fp32 moments (and the int32 step)."""
+    from repro_torch.models import build_model
+    from repro_torch.models.module import param_count
+
+    return 3 * 4 * param_count(build_model(cfg).specs()) + 4
+
+
+def check_disk(directory, cfg, count: int) -> dict:
+    """Room under ``directory`` for ``count`` checkpoints of ``cfg``: the
+    kept ones, the one being written and the one the trainer's last save
+    replaces.  Raises when there is not."""
+    import shutil
+
+    need = count * checkpoint_bytes(cfg)
+    free = shutil.disk_usage(directory).free
+    log(f"  checkpoints under {directory}: {free / 1e9:.1f} GB free, {count} checkpoints of "
+        f"{checkpoint_bytes(cfg) / 1e9:.2f} GB need {need / 1e9:.1f} GB")
+    check(free >= need, f"{directory} has {free / 1e9:.1f} GB free; path 9's {count} checkpoints "
+          f"of {cfg.name} need {need / 1e9:.1f} GB (set TMPDIR to a larger disk)")
+    return {"free_gb": free / 1e9, "need_gb": need / 1e9}
+
+
+class TrainerProbe:
+    """Watches a :class:`~repro_torch.train.Trainer` as it runs, through the
+    instance attributes it calls: each step's K3 launches by route and the
+    time its device work ended (a synchronize after the step), the time the
+    injected failure fired and the device memory then, each save's wait for
+    the previous writer and its blocking time (the device → host copy and
+    the writer's start), each write's seconds in the writer thread, and
+    each restore's wait for the writer, its load and copy time and the
+    device memory after it."""
+
+    def __init__(self, torch, trainer):
+        from repro_torch.kernels.flash import flash_attention_cuda
+        from repro_torch.runtime.fault import InjectedFailure
+
+        self.steps, self.saves, self.writes, self.restores, self.failure = [], [], [], [], None
+        build, check_step = trainer._build, trainer.injector.check
+
+        def built():
+            build()
+            step_fn = trainer._step_fn
+
+            def step(params, state, batch):
+                before = _routes(flash_attention_cuda)
+                out = step_fn(params, state, batch)
+                torch.cuda.synchronize()
+                self.steps.append({"flash": {k: n - before[k]
+                                             for k, n in _routes(flash_attention_cuda).items()},
+                                   "end": time.perf_counter()})
+                return out
+
+            trainer._step_fn = step
+
+        def checked(step):
+            try:
+                check_step(step)
+            except InjectedFailure:
+                self.failure = {"step": step, "t": time.perf_counter(),
+                                "memory_gib": torch.cuda.memory_allocated() / 2**30}
+                raise
+
+        trainer._build, trainer.injector.check = built, checked
+        mgr = trainer.ckpt
+        save, write, restore = mgr.save, mgr._write, mgr.restore
+
+        def timed_save(step, tree, extra=None):
+            t = time.perf_counter()
+            mgr.wait()
+            t1 = time.perf_counter()
+            save(step, tree, extra)
+            self.saves.append({"step": step, "wait_ms": 1e3 * (t1 - t),
+                               "blocking_ms": 1e3 * (time.perf_counter() - t1)})
+
+        def timed_write(step, *args):
+            t = time.perf_counter()
+            write(step, *args)
+            self.writes.append({"step": step, "s": time.perf_counter() - t})
+
+        def timed_restore(template, step=None):
+            t = time.perf_counter()
+            mgr.wait()
+            t1 = time.perf_counter()
+            out = restore(template, step)
+            torch.cuda.synchronize()
+            self.restores.append({"step": out[1], "wait_ms": 1e3 * (t1 - t),
+                                  "load_ms": 1e3 * (time.perf_counter() - t1),
+                                  "memory_gib": torch.cuda.memory_allocated() / 2**30})
+            return out
+
+        mgr.save, mgr._write, mgr.restore = timed_save, timed_write, timed_restore
+
+
+def make_trainer(torch, cfg, device, ckpt_dir=None, fail_at=()):
+    """Path 9's Trainer, as a user builds it: the pipeline's batches of 8 x
+    448, AdamW warming up over one step, a checkpoint every 3 steps (2
+    kept, written asynchronously) under ``ckpt_dir``, failures at
+    ``fail_at``."""
+    from repro_torch.ckpt import CheckpointConfig
+    from repro_torch.data import DataConfig
+    from repro_torch.runtime.fault import FailureInjector
+    from repro_torch.train import OptimizerConfig, Trainer, TrainerConfig
+
+    return Trainer(
+        cfg, DataConfig(global_batch=TRAINER_BATCH, seq_len=TRAINER_SEQ, seed=SEED),
+        OptimizerConfig(lr=1e-4, total_steps=TRAINER_STEPS, warmup_steps=1),
+        TrainerConfig(total_steps=TRAINER_STEPS, ckpt_every=TRAINER_CKPT_EVERY, log_every=1,
+                      microbatches=TRAINER_MICROBATCHES, seed=SEED),
+        ckpt_cfg=None if ckpt_dir is None else CheckpointConfig(
+            str(ckpt_dir), keep=TRAINER_CKPT_KEEP, async_write=True),
+        failure_injector=FailureInjector(fail_at_steps=fail_at), device=device)
+
+
+def trainer_path(torch, cfg, device, ckpt_dir) -> dict:
+    """Training through the Trainer, as a user runs it: checkpoints, the
+    injected failure, the restart from the newest committed checkpoint and
+    the replay, the final save."""
+    trainer = make_trainer(torch, cfg, device, ckpt_dir, fail_at=(TRAINER_FAIL_AT,))
+    probe = TrainerProbe(torch, trainer)
+    t = time.perf_counter()
+    out = trainer.run()
+    torch.cuda.synchronize()
+    # the run's own restores (a later restore of its checkpoints is probed too)
+    return dict(trainer=trainer, probe=probe, out=out, restores=list(probe.restores),
+                wall_s=time.perf_counter() - t)
+
+
+def _dir_bytes(path) -> int:
+    return sum(p.stat().st_size for p in Path(path).rglob("*") if p.is_file())
+
+
+def check_trainer(torch, r, cfg) -> dict:
+    """What the Trainer did: every step's K3 launches on the tensor-core
+    route, one restart from step 6 with steps 6 and 7 replayed, finite
+    losses and norms, the replays equal to their first pass, the
+    checkpoints on disk, the failed attempt's state released before the
+    restore; and its times."""
+    out, probe, mgr = r["out"], r["probe"], r["trainer"].ckpt
+    hist = out["history"]
+    steps = [h["step"] for h in hist]
+    want_steps = list(range(TRAINER_FAIL_AT)) + list(range(6, TRAINER_STEPS))
+    check(steps == want_steps, f"the Trainer ran steps {steps}, not {want_steps}")
+    check([x["step"] for x in r["restores"]] == [6], f"restored {r['restores']}, not step 6 once")
+    check(probe.failure is not None and probe.failure["step"] == TRAINER_FAIL_AT,
+          f"the failure fired as {probe.failure}")
+    want = train_launches(cfg, TRAINER_MICROBATCHES)["flash"]
+    route = expected_route(cfg.dtype)
+    check(len(probe.steps) == len(hist), f"{len(probe.steps)} steps probed, {len(hist)} run")
+    for i, launched in enumerate(probe.steps):
+        check(launched["flash"] == {**{k: 0 for k in launched["flash"]}, route: want},
+              f"Trainer step {steps[i]} launched K3 {launched['flash']}, not {want} on {route}")
+    log(f"  K3 a step: {probe.steps[0]['flash']} ({cfg.n_layers} decoder layers x forward and "
+        f"remat recompute x {TRAINER_MICROBATCHES} microbatches), {len(hist)} steps")
+    losses = [h["loss"] for h in hist]
+    norms = [h["grad_norm"] for h in hist]
+    check(all(math.isfinite(x) for x in losses + norms), "a loss or grad norm is not finite")
+    first = {h["step"]: h for h in hist[:TRAINER_FAIL_AT]}
+    replay = hist[TRAINER_FAIL_AT:TRAINER_FAIL_AT + 2]
+    rel = max(abs(h["loss"] - first[h["step"]]["loss"]) / abs(first[h["step"]]["loss"])
+              for h in replay)
+    bit_equal = all(h["loss"] == first[h["step"]]["loss"]
+                    and h["grad_norm"] == first[h["step"]]["grad_norm"] for h in replay)
+    log(f"  losses {[round(x, 5) for x in losses]}; replayed steps 6, 7 against their first pass: "
+        f"max rel {rel:.3e} (tol {REPLAY_TOL}), loss and grad norm bit-identical: {bit_equal}")
+    check(rel <= REPLAY_TOL, "a replayed step's loss differs from its first pass")
+    check(mgr.latest_step() == TRAINER_STEPS and mgr.steps() == [TRAINER_STEPS - 1, TRAINER_STEPS],
+          f"checkpoints on disk {mgr.steps()}")
+    tmp = sorted(p.name for p in mgr.dir.glob(".tmp_step_*"))
+    check(not tmp, f"temporary checkpoint directories left: {tmp}")
+    restored = r["restores"][0]
+    # the restart builds a fresh state and restores into it: the failed
+    # attempt's parameters and moments must be gone by then
+    check(restored["memory_gib"] <= probe.failure["memory_gib"] + 1.0,
+          f"{restored['memory_gib']:.2f} GiB after the restore against "
+          f"{probe.failure['memory_gib']:.2f} GiB at the failure: the failed state is still held")
+    times = [h["step_time_s"] for h in hist]
+    warm = statistics.median(t for i, t in enumerate(times) if i not in (0, TRAINER_FAIL_AT))
+    tokens = TRAINER_BATCH * TRAINER_SEQ
+    restart_s = probe.steps[TRAINER_FAIL_AT]["end"] - probe.failure["t"]
+    gb = _dir_bytes(mgr.dir / f"step_{TRAINER_STEPS:09d}") / 1e9
+    stats = {
+        "steps": steps, "losses": losses, "grad_norms": norms, "replay_rel_err": rel,
+        "replay_bit_identical": bit_equal, "step_ms": [1e3 * t for t in times],
+        "cold_step_ms": 1e3 * times[0], "warm_ms_per_step": 1e3 * warm,
+        "tokens_per_s": tokens / warm, "saves": probe.saves, "writes": probe.writes,
+        "restore": restored, "failure_memory_gib": probe.failure["memory_gib"],
+        "restart_s": restart_s, "ckpt_gb": gb, "write_gb_per_s": [gb / w["s"] for w in probe.writes],
+        "wall_s": r["wall_s"], "launches_per_step": probe.steps[0]["flash"],
+    }
+    log(f"  step 0 (cold) {1e3 * times[0]:.1f} ms; warm {1e3 * warm:.1f} ms a step (median of "
+        f"{len(times) - 2}), {tokens / warm:.1f} decoder tokens/s")
+    log("  saves: " + "; ".join(f"step {x['step']}: waited {x['wait_ms']:.1f} ms, blocked "
+                                f"{x['blocking_ms']:.1f} ms" for x in probe.saves))
+    log("  writes: " + "; ".join(f"step {x['step']}: {x['s']:.2f} s" for x in probe.writes)
+        + f"; {gb:.3f} GB a checkpoint on disk")
+    log(f"  restore of step 6: waited {restored['wait_ms']:.1f} ms for the writer, loaded and "
+        f"copied in {restored['load_ms']:.1f} ms; device memory {probe.failure['memory_gib']:.2f} "
+        f"GiB at the failure, {restored['memory_gib']:.2f} GiB after the restore")
+    log(f"  restart: {restart_s:.3f} s from the failure to the end of the first replayed step, "
+        f"against {warm:.3f} s for a warm step")
+    return stats
+
+
+def restore_round_trip(torch, r, cfg, device):
+    """The last checkpoint restored into a tree initialised from another
+    seed: every leaf equal to the Trainer's final parameters and moments."""
+    from repro_torch.ckpt.checkpoint import flatten
+    from repro_torch.train import init_opt_state
+
+    model = r["trainer"].model
+    params = model.init(torch.Generator(device=device).manual_seed(SEED + 7), device)
+    t = time.perf_counter()
+    (params, state), step, extra = r["trainer"].ckpt.restore((params, init_opt_state(params)))
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t)
+    got = dict(flatten((params, state)))
+    want = dict(flatten((r["out"]["params"], r["out"]["opt_state"])))
+    check(step == TRAINER_STEPS and list(got) == list(want),
+          f"restored step {step} with {len(got)} leaves, want {len(want)}")
+    equal = [k for k in want if torch.equal(got[k], want[k])]
+    log(f"  step-{step} checkpoint restored into a fresh tree (seed {SEED + 7}) in {ms:.1f} ms: "
+        f"{len(equal)} of {len(want)} leaves equal the Trainer's final state")
+    check(len(equal) == len(want), "a restored leaf differs from the Trainer's final state")
+    return params, {"restore_ms": ms, "leaves": len(want), "extra": extra}
+
+
+def serve_tokens(torch, cfg, device, params, prompts):
+    """Greedy tokens of a ServeEngine on ``params`` for ``prompts``, and the
+    prefill logits of the same batch (a trained model's greedy tokens can
+    all be the data's commonest token, so the tokens alone say little)."""
+    import numpy as np
+
+    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+
+    engine = ServeEngine(cfg, EngineConfig(batch_size=len(prompts),
+                                           max_len=max(prompts) + TRAINER_SERVE_NEW_TOKENS),
+                         params=params, device=device)
+    rng = np.random.default_rng(SEED)
+    requests = [Request(prompt=rng.integers(0, cfg.vocab, size=n).astype(np.int32),
+                        max_new_tokens=TRAINER_SERVE_NEW_TOKENS) for n in prompts]
+    engine.generate(requests)
+    check(all(len(q.generated) == TRAINER_SERVE_NEW_TOKENS for q in requests),
+          "a request came up short")
+    check(all(0 <= x < cfg.vocab for q in requests for x in q.generated),
+          "a generated token is out of the vocabulary")
+    with torch.inference_mode():
+        logits, _ = engine.model.prefill(engine.params, served_batch(torch, engine, prompts),
+                                         max_len=engine.ecfg.max_len)
+    return [q.generated for q in requests], logits
+
+
+def uninterrupted_path(torch, cfg, device, r) -> dict:
+    """The same Trainer without the failure and without checkpoints: its
+    final loss against the interrupted run's, and how far apart the two
+    runs' parameters and moments ended."""
+    from repro_torch.ckpt.checkpoint import flatten
+
+    trainer = make_trainer(torch, cfg, device)
+    out = trainer.run()
+    torch.cuda.synchronize()
+    a, b = out["final_metrics"]["loss"], r["out"]["final_metrics"]["loss"]
+    rel = abs(a - b) / abs(b)
+    mine = dict(flatten((out["params"], out["opt_state"])))
+    theirs = dict(flatten((r["out"]["params"], r["out"]["opt_state"])))
+    worst = max(((mine[k].float() - theirs[k].float()).abs().max().item(), k) for k in mine)
+    params_equal = all(torch.equal(mine[k], theirs[k]) for k in mine if k.startswith("0."))
+    state_equal = all(torch.equal(mine[k], theirs[k]) for k in mine)
+    first_pass = {h["step"]: h["loss"] for h in r["out"]["history"]}
+    step_rel = max(abs(h["loss"] - first_pass[h["step"]]) / abs(first_pass[h["step"]])
+                   for h in out["history"])
+    warm = statistics.median(h["step_time_s"] for h in out["history"][1:])
+    log(f"  uninterrupted run (no checkpoint writer beside its steps): warm {1e3 * warm:.1f} ms a "
+        f"step, {TRAINER_BATCH * TRAINER_SEQ / warm:.1f} decoder tokens/s")
+    log(f"  uninterrupted run: final loss {a:.7f} vs the interrupted run's {b:.7f}, rel {rel:.3e} "
+        f"(tol {UNINTERRUPTED_TOL}); worst step's loss rel {step_rel:.3e}; worst leaf max-abs "
+        f"difference {worst[0]:.3e} ({worst[1]}); parameters bit-identical {params_equal}, "
+        f"with the moments {state_equal}")
+    check(rel <= UNINTERRUPTED_TOL, "the interrupted run's final loss differs from an uninterrupted run's")
+    return dict(trainer=trainer, out=out, stats={
+        "final_loss_rel_err": rel, "worst_step_loss_rel_err": step_rel,
+        "worst_leaf_max_abs": worst[0], "worst_leaf": worst[1],
+        "params_bit_identical": params_equal, "state_bit_identical": state_equal,
+        "warm_ms_per_step": 1e3 * warm, "tokens_per_s": TRAINER_BATCH * TRAINER_SEQ / warm})
+
+
+def cli_path(torch, ckpt_dir) -> dict:
+    """``python -m repro_torch.launch.train`` in a fresh process with no
+    ``--device``: a reduced Whisper with a checkpoint every 2 steps and a
+    failure at step 3, on the card by default."""
+    import os
+
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", *CLI_ARGS, "--ckpt-dir", str(ckpt_dir)]
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t
+    lines = proc.stdout.strip().splitlines()
+    log(f"  {' '.join(cmd[1:])}: exit {proc.returncode} in {wall:.1f} s; first line {lines[:1]}, "
+        f"last two {lines[-2:]}")
+    check(proc.returncode == 0, f"the training CLI failed: {proc.stderr[-2000:]}")
+    check(bool(lines) and re.fullmatch(r"\[train\] whisper-small on cuda(:\d+)?", lines[0]) is not None,
+          f"the training CLI did not report the card as its device: {lines[:1]}")
+    check(any("injected node failure at step 3" in x and "restarting from latest checkpoint" in x
+              for x in lines), "the training CLI printed no restart")
+    check("[trainer] resumed from step 2" in lines, "the training CLI did not resume from step 2")
+    check(lines[-2].startswith("final: {") and lines[-1].startswith(
+        "DP gradient all-reduce algorithm chosen by PCCL: "), "the training CLI's last lines")
+    return {"exit": proc.returncode, "wall_s": wall, "device_line": lines[0],
+            "last_lines": lines[-2:]}
+
+
+def trainer_phase(torch, reset_counts, read_counts):
+    """Main path 9 with the counts set to 0 just before it (the Trainer's
+    run, the restore of its last checkpoint and serving from it) and read
+    just after; then its checks, the uninterrupted run, a profiled step and
+    the CLI.  Returns (the counts, K3's launches by route, the stats)."""
+    from repro_torch.data import to_device
+    from repro_torch.kernels.flash import flash_attention_cuda
+    from repro_torch.train import make_train_step
+
+    log("== main path 9: train whisper-small at published widths and depth through the Trainer "
+        f"(K3 in the decoder's forward), a failure at step {TRAINER_FAIL_AT}, restart from the "
+        "last checkpoint, serve from the final one")
+    whisper_train = model_config("whisper-small", True)
+    cuda = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_dir:
+        # the 2 kept, the one being written, the final save's replacement
+        trainer_stats = {"disk": check_disk(ckpt_dir, whisper_train, TRAINER_CKPT_KEEP + 2)}
+        reset_counts()
+        run9 = trainer_path(torch, whisper_train, cuda, ckpt_dir)
+        restored, trainer_stats["round_trip"] = restore_round_trip(torch, run9, whisper_train, cuda)
+        served, logits = serve_tokens(torch, whisper_train, cuda, restored, WHISPER_PROMPTS)
+        path9 = read_counts()
+        routes9 = {"flash": dict(flash_attention_cuda.launches_by_route)}
+        log(f"  phase main path 9: {time.perf_counter() - t:.3f} s; kernel launches {path9}")
+        check(path9["flash"] > 0, "main path 9 never launched K3")
+        trainer_stats.update(check_trainer(torch, run9, whisper_train))
+        trainer_stats["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        log(f"  peak device memory across the run, the restart and serving: "
+            f"{trainer_stats['peak_gib']:.2f} GiB")
+        run9["out"]["params"].requires_grad_(False)  # as the restored tree: serving alike
+        direct, direct_logits = serve_tokens(torch, whisper_train, cuda, run9["out"]["params"],
+                                             WHISPER_PROMPTS)
+        same_logits = torch.equal(logits, direct_logits)
+        log(f"  served from the step-{TRAINER_STEPS} checkpoint: {[g[:4] for g in served]}; from the "
+            f"Trainer's final parameters the same tokens: {served == direct}, the same prefill "
+            f"logits bit for bit: {same_logits}")
+        check(served == direct, "serving from the checkpoint gave other tokens than the trained tree")
+        check(same_logits, "serving from the checkpoint gave other prefill logits than the trained tree")
+        trainer_stats["served_tokens"] = served
+        del logits, direct_logits
+        del restored
+    t = time.perf_counter()
+    clean = uninterrupted_path(torch, whisper_train, cuda, run9)
+    trainer_stats["uninterrupted"] = clean["stats"]
+    del run9
+    gc.collect()
+    torch.cuda.empty_cache()
+    t9 = clean["trainer"]
+    # the profiled step runs with no checkpoint writer beside it: its wall is
+    # the uninterrupted run's warm step
+    trainer_stats["profile"] = profile_train(torch, dict(
+        params=clean["out"]["params"], state=clean["out"]["opt_state"],
+        step=make_train_step(t9.model, t9.opt_cfg, microbatches=TRAINER_MICROBATCHES),
+        batches=[to_device(t9.data.global_batch(0), cuda)],
+        warm_s=clean["stats"]["warm_ms_per_step"] / 1e3), expect=("flash",))
+    del clean, t9
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  phase uninterrupted run and profile: {time.perf_counter() - t:.3f} s")
+    log("== the training CLI in a fresh process, on the card by default")
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as cli_dir:
+        trainer_stats["cli"] = cli_path(torch, cli_dir)
+    log(f"  phase CLI: {time.perf_counter() - t:.3f} s")
+    return path9, routes9, trainer_stats
 
 
 # ---------------------------------------------------------------------- main
@@ -2022,6 +2438,7 @@ def main() -> int:
                                                XLSTM_PARITY_LAYERS, SEED + 6)
     torch.cuda.empty_cache()
     log(f"  phase train parity: {time.perf_counter() - t:.3f} s")
+    path9, routes9, trainer_stats = trainer_phase(torch, reset_counts, read_counts)
     log("serve: " + json.dumps({**serve_stats, **parity}))
     log("serve olmoe: " + json.dumps(olmoe_stats))
     log("serve deepseek: " + json.dumps(deepseek_stats))
@@ -2030,6 +2447,7 @@ def main() -> int:
     log("serve whisper: " + json.dumps({**whisper_stats, **whisper_parity}))
     log("train zamba2: " + json.dumps({**train_stats, "parity": train_parity}))
     log("train dp: " + json.dumps(dp_stats))
+    log("train whisper (Trainer): " + json.dumps(trainer_stats))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
 
     # the bf16 kernels of each path; K1, K3 and K4 on their tensor-core route
@@ -2040,9 +2458,10 @@ def main() -> int:
                     "src/repro/kernels/rmsnorm/kernel.py:37", path1, None),
         "flash": ("cuda", "src/repro_torch/kernels/flash/csrc/flash_sm90.cu",
                   "src/repro/kernels/flash/kernel.py:79",
-                  {"flash": path2["flash"] + path3["flash"] + path6["flash"] + path7["flash"]},
+                  {"flash": path2["flash"] + path3["flash"] + path6["flash"] + path7["flash"]
+                   + path9["flash"]},
                   {r: routes2["flash"][r] + routes3["flash"][r] + routes6["flash"][r]
-                   + routes7["flash"][r] for r in routes2["flash"]}),
+                   + routes7["flash"][r] + routes9["flash"][r] for r in routes2["flash"]}),
         "ssd": ("cuda", "src/repro_torch/kernels/ssd/csrc/ssd_sm90.cu",
                 "src/repro/kernels/ssd/kernel.py:80", {"ssd": path2["ssd"] + path7["ssd"]},
                 {r: routes2["ssd"][r] + routes7["ssd"][r] for r in routes2["ssd"]}),
@@ -2070,13 +2489,17 @@ def main() -> int:
         if "pass_ms" in k:
             entry["pass_ms"] = k["pass_ms"]
         if name == "flash":
-            # launches on path 2 (Zamba2), path 3 (OLMoE), path 6 (Whisper) and
-            # path 7 (training Zamba2); timed at the three prefills
+            # launches on path 2 (Zamba2), path 3 (OLMoE), path 6 (Whisper),
+            # path 7 (training Zamba2) and path 9 (training Whisper through the
+            # Trainer, and serving from its checkpoint); timed at the three
+            # prefills and Whisper's train shape
             entry["launches_by_path"] = {"zamba2": path2["flash"], "olmoe": path3["flash"],
-                                         "whisper": path6["flash"], "zamba2_train": path7["flash"]}
+                                         "whisper": path6["flash"], "zamba2_train": path7["flash"],
+                                         "whisper_trainer": path9["flash"]}
             entry["at_olmoe_prefill"] = kernels["bfloat16"]["flash_olmoe"]
             entry["at_whisper_prefill"] = kernels["bfloat16"]["flash_whisper"]
             entry["at_train"] = kernels["bfloat16"]["flash_train"]
+            entry["at_whisper_train"] = kernels["bfloat16"]["flash_whisper_train"]
         if name == "ssd":
             entry["launches_by_path"] = {"zamba2": path2["ssd"], "zamba2_train": path7["ssd"]}
             entry["at_train"] = kernels["bfloat16"]["ssd_train"]

@@ -16,8 +16,8 @@ With ``EngineConfig.tp > 1`` the engine also accounts for the
 tensor-parallel activation all-reduces through the port's PCCL session
 (``sim`` backend: the planner prices each collective, no data moves) —
 ``engine.comm_report()`` returns the planned communication time and
-algorithm.  ``arbiter()`` and the concurrent pricing of ``dp > 1`` replicas
-wait for the port of ``serve/arbiter.py`` (ROADMAP Queue 1, item 13).
+algorithm, and with ``dp > 1`` replicas also the fabric arbiter's joint
+pricing of prefill-TP with decode-DP (``concurrent_report``).
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import cost_model as cm
 from repro_torch.device import resolve_device
 from repro_torch.models import ParamTree, build_model
+from repro_torch.serve.arbiter import ArbiterConfig, FabricArbiter
 
 
 @dataclass
@@ -205,6 +206,7 @@ class ServeEngine:
                  device: Optional[Union[str, torch.device]] = None):
         self.cfg = cfg
         self.ecfg = engine_cfg
+        self._arbiter = None
         self.device = resolve_device(device)
         self.model = build_model(cfg)
         if params is None:
@@ -254,24 +256,49 @@ class ServeEngine:
             report["concurrent"] = self.concurrent_report()
         return report
 
-    def arbiter(self, cfg: Optional[Any] = None) -> Any:
-        """The online fabric arbiter: not ported yet."""
-        raise NotImplementedError(
-            "ServeEngine.arbiter needs serve/arbiter.py and runtime/fault.py, "
-            "not ported yet (ROADMAP Queue 1, item 13)"
-        )
+    def arbiter(self, cfg: Optional[ArbiterConfig] = None) -> FabricArbiter:
+        """The engine's online fabric arbiter (lazily built, then shared).
+
+        Returns a :class:`repro_torch.serve.arbiter.FabricArbiter` bound to
+        this engine's session and ``tp × dp`` layout; pass an
+        :class:`~repro_torch.serve.arbiter.ArbiterConfig` to rebuild with
+        different control-plane policy.
+        """
+        if self._arbiter is None or cfg is not None:
+            self.pccl = self.pccl or PcclSession(cm.TPU_V5E_PHOTONIC, device=self.device)
+            self._arbiter = FabricArbiter(
+                self.pccl, tp=self.ecfg.tp, dp=self.ecfg.dp,
+                d_model=self.cfg.d_model, cfg=cfg,
+            )
+        return self._arbiter
 
     def concurrent_report(self) -> Dict[str, Any]:
-        """Joint fabric pricing of prefill-TP with decode-DP.  With ``tp < 2``
-        or ``dp < 2`` there is nothing to overlap, as in the reference; the
-        joint pricing itself goes through the arbiter, not ported yet."""
+        """Joint fabric pricing for a continuous-batching step with ``dp``
+        replicas on one photonic fabric: the prefill TP all-reduces (full
+        ``(batch, max_len, d_model)`` prompt activation, within each
+        replica's TP group) run *concurrently* with the decode-side DP
+        all-gather (per-token activations exchanged across replicas).  The
+        arbiter overlaps the two axes with per-link contention pricing;
+        ``speedup`` is the planned gain over pricing each collective as if
+        it owned the fabric (sequential baseline).  Pricing goes through
+        :meth:`arbiter`, the same control plane that runs the online
+        admission/preemption loop (see ``repro_torch.serve.arbiter``).
+        """
         tp, dp = self.ecfg.tp, self.ecfg.dp
         if tp < 2 or dp < 2:
             return {"tp": tp, "dp": dp, "speedup": 1.0, "serialized": False}
-        raise NotImplementedError(
-            "ServeEngine.concurrent_report with tp and dp > 1 needs the arbiter, "
-            "not ported yet (ROADMAP Queue 1, item 13)"
-        )
+        prefill_bytes = 4.0 * self.ecfg.batch_size * self.ecfg.max_len * self.cfg.d_model
+        decode_bytes = 4.0 * self.ecfg.batch_size * self.cfg.d_model
+        cp = self.arbiter().price_joint(prefill_bytes, decode_bytes)
+        return {
+            "tp": tp,
+            "dp": dp,
+            "joint_s": cp.cost,
+            "sequential_s": cp.sequential_cost,
+            "speedup": cp.speedup,
+            "serialized": cp.serialized,
+            "algorithms": cp.algorithms,
+        }
 
     def _extra_inputs(self, B: int) -> Dict[str, torch.Tensor]:
         """The stub frontends' inputs: zero fp32 image embeddings for a VLM,

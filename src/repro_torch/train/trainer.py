@@ -1,0 +1,185 @@
+"""Trainer: the fault-tolerant training loop (``repro.train.trainer``).
+
+* the train step (:func:`~repro_torch.train.train_step.make_train_step`:
+  microbatched, parameters and AdamW moments updated in place), batches
+  from the deterministic pipeline put on the trainer's device;
+* periodic async checkpoints; auto-resume from the newest committed step;
+* survive injected node failures by checkpoint-restart (the outer loop
+  catches, restores, and replays the deterministic data stream);
+* straggler detection hooks recording per-step times;
+* PCCL integration point: a :class:`repro_torch.api.PcclSession` owned by
+  the trainer plans the data-parallel gradient all-reduce (paper §2.2),
+  cold and then warm on the threaded fabric, and reports both costs — a
+  price on the fabric model, not a time on the card.
+
+It runs on one device, CUDA unless the caller passes ``device="cpu"``.  A
+device mesh with sharding rules (``mesh=``, ``rules=``) and so the joint
+DP × TP step pricing wait for the port's multi-device group.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Union
+
+import torch
+
+from repro_torch.api import PcclSession
+from repro_torch.ckpt.checkpoint import CheckpointConfig, CheckpointManager
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import cost_model as cm
+from repro_torch.data.pipeline import DataConfig, SyntheticLMData, to_device
+from repro_torch.device import resolve_device
+from repro_torch.models import build_model
+from repro_torch.models.module import param_count
+from repro_torch.runtime.fault import (
+    FailureInjector,
+    InjectedFailure,
+    StragglerConfig,
+    StragglerDetector,
+)
+
+from .optimizer import OptimizerConfig, init_opt_state
+from .train_step import make_train_step
+
+
+@dataclass
+class TrainerConfig:
+    total_steps: int = 100
+    ckpt_every: int = 20
+    log_every: int = 10
+    microbatches: int = 1
+    seed: int = 0
+    max_restarts: int = 8
+    # Relative-error tolerance the job accepts on the DP gradient
+    # all-reduce (see repro_torch.core.cost_model.compressed_ef_error_bound):
+    # when set, PCCL's auto arbitration may plan the int8-on-the-wire
+    # ring_ef8 algorithm (bytes/4 wire time) for the gradient collective.
+    # None (default) keeps the gradient sum exact.
+    grad_allreduce_rel_error_tol: Optional[float] = None
+
+
+class Trainer:
+    def __init__(
+        self,
+        model_cfg: ModelConfig,
+        data_cfg: DataConfig,
+        opt_cfg: OptimizerConfig,
+        trainer_cfg: TrainerConfig,
+        ckpt_cfg: Optional[CheckpointConfig] = None,
+        mesh=None,
+        rules=None,
+        failure_injector: Optional[FailureInjector] = None,
+        device: Optional[Union[str, torch.device]] = None,
+    ):
+        if mesh is not None or rules is not None:
+            raise NotImplementedError(
+                "Trainer(mesh=..., rules=...) needs the port's multi-device group "
+                "(sharding rules, process-group backend), not ported yet (ROADMAP Queue 1, item 7)"
+            )
+        self.cfg = model_cfg
+        self.data_cfg = data_cfg
+        self.opt_cfg = opt_cfg
+        self.tcfg = trainer_cfg
+        self.device = resolve_device(device)
+        self.model = build_model(model_cfg)
+        self.data = SyntheticLMData(model_cfg, data_cfg)
+        self.ckpt = CheckpointManager(ckpt_cfg) if ckpt_cfg else None
+        self.injector = failure_injector or FailureInjector()
+        self.straggler = StragglerDetector(StragglerConfig(), data_cfg.n_hosts)
+        self.metrics_log: list = []
+
+        # PCCL planning for the DP gradient all-reduce (paper integration):
+        # one session per trainer; warm-plan (cold + threaded re-plan) gives
+        # the steady-state per-step cost the job will actually pay.
+        n_dp = data_cfg.n_hosts
+        grad_bytes = 4.0 * param_count(self.model.specs())
+        self.pccl = PcclSession(cm.TPU_V5E_PHOTONIC, device=self.device)
+        if n_dp >= 2:
+            tol = trainer_cfg.grad_allreduce_rel_error_tol
+            cold = self.pccl.plan(
+                "all_reduce", grad_bytes, n=n_dp, algorithm="auto",
+                rel_error_tol=tol,
+            )
+            warm = self.pccl.plan(
+                "all_reduce", grad_bytes, n=n_dp, algorithm="auto",
+                rel_error_tol=tol,
+            )
+            self.grad_allreduce_algorithm = warm.algorithm
+            self.grad_allreduce_cost_s = {"cold": cold.cost, "steady": warm.cost}
+        else:
+            self.grad_allreduce_algorithm = "none"
+            self.grad_allreduce_cost_s = {"cold": 0.0, "steady": 0.0}
+        # the joint DP × TP pricing needs a 2-D mesh (none without one)
+        self.concurrent_step_cost = None
+        self._step_fn = None
+
+    # ------------------------------------------------------------- plumbing
+    def _build(self):
+        self._step_fn = make_train_step(self.model, self.opt_cfg, microbatches=self.tcfg.microbatches)
+
+    def _init_state(self):
+        gen = torch.Generator(device=self.device).manual_seed(self.tcfg.seed)
+        params = self.model.init(gen, self.device)
+        return params, init_opt_state(params)
+
+    # ----------------------------------------------------------------- run
+    def run(self) -> Dict[str, Any]:
+        self._build()
+        restarts = 0
+        while True:
+            try:
+                return self._run_once()
+            except InjectedFailure as e:
+                # the failed attempt's state went with its frame: nothing
+                # here holds it while the next attempt builds its own
+                restarts += 1
+                if restarts > self.tcfg.max_restarts:
+                    raise RuntimeError("restart budget exhausted") from e
+                print(f"[trainer] {e} — restarting from latest checkpoint "
+                      f"(restart {restarts}/{self.tcfg.max_restarts})")
+                continue
+
+    def _run_once(self) -> Dict[str, Any]:
+        params, opt_state = self._init_state()
+        start_step = 0
+        if self.ckpt is not None and self.ckpt.latest_step() is not None:
+            (params, opt_state), start_step, extra = self.ckpt.restore((params, opt_state))
+            print(f"[trainer] resumed from step {start_step}")
+
+        last_metrics: Dict[str, float] = {}
+        for step in range(start_step, self.tcfg.total_steps):
+            self.injector.check(step)  # may raise → checkpoint-restart
+            batch = to_device(self.data.global_batch(step), self.device)
+            t0 = time.perf_counter()
+            params, opt_state, metrics = self._step_fn(params, opt_state, batch)
+            # the loss is read after the whole step on the stream: the
+            # window ends when the device is done
+            last_metrics = {k: float(v) for k, v in metrics.items()}
+            dt = time.perf_counter() - t0
+            for h in range(self.data_cfg.n_hosts):
+                self.straggler.record(h, dt)  # single-process: same signal
+            last_metrics["step_time_s"] = dt
+            self.metrics_log.append({"step": step, **last_metrics})
+            if step % self.tcfg.log_every == 0:
+                print(f"[trainer] step {step} loss={last_metrics['loss']:.4f} "
+                      f"({dt*1e3:.0f} ms)")
+            if self.ckpt is not None and (step + 1) % self.tcfg.ckpt_every == 0:
+                self.ckpt.save(step + 1, (params, opt_state), extra={"loss": last_metrics["loss"]})
+        if self.ckpt is not None:
+            self.ckpt.save(self.tcfg.total_steps, (params, opt_state),
+                           extra={"loss": last_metrics.get("loss")})
+            self.ckpt.wait()
+        return {
+            "params": params,
+            "opt_state": opt_state,
+            "final_metrics": last_metrics,
+            "history": self.metrics_log,
+            "grad_allreduce_algorithm": self.grad_allreduce_algorithm,
+            "grad_allreduce_cost_s": self.grad_allreduce_cost_s,
+            "pccl_concurrent": self.concurrent_step_cost,
+            "pccl_cache": self.pccl.stats,
+            "pccl_exec": self.pccl.exec_stats(),
+            "stragglers": self.straggler.stragglers(),
+        }

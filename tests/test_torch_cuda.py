@@ -605,3 +605,96 @@ def test_reduced_train_step_on_the_card_equals_the_cpu(dev):
         torch.testing.assert_close(m_dev[key].cpu(), m_cpu[key], rtol=1e-4, atol=1e-4)
     for name in p_cpu:
         torch.testing.assert_close(p_dev[name], p_cpu[name], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.float32, "fma"), (torch.bfloat16, "wgmma")])
+def test_flash_kernel_at_whisper_train_shape(dev, dtype, route):
+    """K3 as a Whisper-small train step calls it: each decoder layer's causal
+    self-attention over a microbatch of 4 rows of 448 tokens (Whisper's
+    text context), 12 heads of 64, through ``flash_attention`` on inputs
+    that take a gradient: one launch on the route, the forward within the
+    kernel tolerance of the plain version, the gradient the plain version's
+    autograd bit for bit."""
+    from repro_torch.kernels.flash import attention_reference, flash_attention, flash_attention_cuda
+
+    q, k, v = (t.requires_grad_() for t in _flash_inputs(dev, 4, 448, 12, 12, 64, dtype, seed=11))
+    w = [torch.randn(4, 448, 12, 64, generator=torch.Generator(device=dev).manual_seed(12),
+                     device=dev)]
+    before = _routes(flash_attention_cuda)
+    (got,), grads = _grad_case(lambda *t: flash_attention(*t, causal=True), (q, k, v), w)
+    _launched(flash_attention_cuda, before, route)
+    (want,), want_grads = _grad_case(lambda *t: attention_reference(*t, causal=True), (q, k, v), w)
+    tol = dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 else dict(rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    assert all(torch.equal(a, b) for a, b in zip(grads, want_grads))
+
+
+def test_checkpoint_round_trip_of_cuda_tensors(dev, tmp_path):
+    """An async save of a train state on the card, its parameters and
+    moments then updated in place by AdamW: the restore into a template on
+    the card gives the state as it was at save time, bit for bit, on the
+    card."""
+    from repro_torch.ckpt import CheckpointConfig, CheckpointManager
+    from repro_torch.ckpt.checkpoint import flatten
+    from repro_torch.train import OptimizerConfig, adamw_update, init_opt_state
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    params = {"w": torch.randn(512, 384, generator=g, device=dev),
+              "b": {"c": torch.randn(384, generator=g, device=dev)}}
+    flat = {"w": params["w"], "b.c": params["b"]["c"]}  # AdamW's view: the same tensors
+    cfg = OptimizerConfig(lr=1e-2, warmup_steps=1)
+
+    def grads():
+        return {"w": torch.randn(512, 384, generator=g, device=dev),
+                "b.c": torch.randn(384, generator=g, device=dev)}
+
+    flat, state, _ = adamw_update(cfg, grads(), flat, init_opt_state(flat))
+    saved = {k: v.clone() for k, v in flatten((params, state))}
+    mgr = CheckpointManager(CheckpointConfig(str(tmp_path), async_write=True))
+    mgr.save(1, (params, state))
+    adamw_update(cfg, grads(), flat, state)  # in place, while the writer runs
+    fresh = {"w": torch.zeros(512, 384, device=dev), "b": {"c": torch.zeros(384, device=dev)}}
+    fresh_state = init_opt_state({"w": fresh["w"], "b.c": fresh["b"]["c"]})
+    (got_params, got_state), step, _ = mgr.restore((fresh, fresh_state))
+    got = dict(flatten((got_params, got_state)))
+    assert step == 1 and set(got) == set(saved)
+    assert all(t.device.type == "cuda" for t in got.values())
+    assert all(torch.equal(got[k], saved[k]) for k in saved)
+
+
+def test_reduced_whisper_trainer_on_the_card(dev, tmp_path):
+    """Reduced whisper-small with the kernels, bf16 activations, through the
+    ``Trainer`` on the card: a failure at step 3, a resume from the step-2
+    checkpoint, and K3 on its tensor-core route in every decoder layer's
+    forward and remat recompute (none in the encoder or the
+    cross-attention); finite losses, the replayed steps' losses equal to
+    the first pass's within 1e-6, the final checkpoint at step 6."""
+    import dataclasses
+
+    from repro_torch.ckpt import CheckpointConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig
+    from repro_torch.kernels.flash import flash_attention_cuda
+    from repro_torch.runtime.fault import FailureInjector
+    from repro_torch.train import OptimizerConfig, Trainer, TrainerConfig
+
+    cfg = dataclasses.replace(get_config("whisper-small").reduced(), use_pallas=True,
+                              dtype="bfloat16")
+    trainer = Trainer(cfg, DataConfig(global_batch=4, seq_len=64),
+                      OptimizerConfig(lr=1e-3, total_steps=6, warmup_steps=1),
+                      TrainerConfig(total_steps=6, ckpt_every=2, log_every=1, microbatches=2),
+                      ckpt_cfg=CheckpointConfig(str(tmp_path), keep=2),
+                      failure_injector=FailureInjector(fail_at_steps=(3,)))
+    assert trainer.device.type == "cuda"
+    before = _routes(flash_attention_cuda)
+    out = trainer.run()
+    launched = {r: n - before[r] for r, n in _routes(flash_attention_cuda).items()}
+    steps = [h["step"] for h in out["history"]]
+    assert steps == [0, 1, 2, 2, 3, 4, 5]
+    # each step: n_layers decoder layers x (forward + remat recompute) x 2 microbatches
+    assert launched == {"wgmma": len(steps) * cfg.n_layers * 2 * 2, "fma": 0}, launched
+    losses = [h["loss"] for h in out["history"]]
+    assert all(math.isfinite(x) for x in losses)
+    assert losses[3] == pytest.approx(losses[2], rel=1e-6)
+    assert trainer.ckpt.latest_step() == 6 and trainer.ckpt.steps() == [4, 6]
+    assert all(p.device.type == "cuda" for p in out["params"].parameters())

@@ -140,8 +140,9 @@ def test_comm_report_at_tp4_equals_reference(zamba2):
                               device="cpu").comm_report() == {
         "tp": 1, "sim_comm_s": 0.0, "algorithm": "none", "events": 0}
     assert eng.concurrent_report() == {"tp": 4, "dp": 1, "speedup": 1.0, "serialized": False}
-    with pytest.raises(NotImplementedError, match="item 13"):
-        eng.arbiter()
+    for e in (ref, eng):  # the arbiter spans TP rows and DP columns: dp = 1 has none
+        with pytest.raises(ValueError, match="dp >= 2"):
+            e.arbiter()
 
 
 def test_engine_defaults_to_cuda():

@@ -77,6 +77,22 @@ and then drives the port's main paths:
    at this path's shape, ``(4, 448, 12, 12, 64)``, through its autograd
    Function too.
 
+10. path 1 again with ``PCCL_VERIFY=1`` after ``clear_exec_caches()``:
+   every schedule ``compile_schedule`` meets is verified
+   (``repro_torch.analysis.verify``) before its tables are built, K1 and
+   K2 launched again; path 1's calls in fp32 on fixed inputs, bit for bit
+   as without the variable; a schedule with a transfer dropped refused
+   with no cache grown.  Then the four collectives through the deprecated
+   ``PcclComm`` shim, bit for bit as the communicator; a cold
+   ``compile_schedule``'s host time with and without the hook for ring and
+   RHD all-reduce and ring and DEX all-to-all at n = 8, 16, 64 and 128;
+   and in fresh processes, on the card by default, ``python -m
+   repro_torch.analysis`` (PASS), ``python -m
+   repro_torch.analysis.lint_concurrency`` (0 findings), both examples
+   (``quickstart_torch.py``, ``serve_decode_torch.py``) and ``python -m
+   repro_torch.launch.serve --arch zamba2-2.7b --no-reduced`` (the
+   published config, its tokens/s and peak memory).
+
 A parity phase then holds Zamba2's prefill with the kernels against its
 plain path in fp32 (6 layers, batch 2, 512 tokens), and teacher-forced
 decode against a longer prefill, xLSTM's the same way (one group: 7
@@ -186,6 +202,12 @@ TRAINER_BATCH, TRAINER_SEQ, TRAINER_MICROBATCHES, TRAINER_STEPS = 8, 448, 2, 10
 TRAINER_CKPT_EVERY, TRAINER_CKPT_KEEP, TRAINER_FAIL_AT = 3, 2, 8
 TRAINER_SERVE_NEW_TOKENS = 8
 REPLAY_TOL, UNINTERRUPTED_TOL = 1e-6, 1e-5
+# Path 10c: cold compile_schedule with and without PCCL_VERIFY=1, the
+# median of 3, for ring and RHD all-reduce, ring and DEX all-to-all
+VERIFY_COST_CASES = (("all_reduce", "ring"), ("all_reduce", "rhd"), ("all_to_all", "ring"),
+                     ("all_to_all", "dex"))
+VERIFY_COST_NS = (8, 16, 64, 128)
+VERIFY_COST_REPS = 3
 # the reduced run of the training CLI in a fresh process (no --device)
 CLI_ARGS = ("--arch", "whisper-small", "--reduced", "--steps", "6", "--batch", "4", "--seq", "64",
             "--ckpt-every", "2", "--fail-at", "3")
@@ -216,6 +238,20 @@ KERNEL_TOL = {
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+class _Launches:
+    """The kernels' launch counts, ``repro_torch.kernels.build.LAUNCHES``,
+    looked up at each use: the package is importable only once ``main``
+    has put it on the path."""
+
+    def __getattr__(self, name):
+        from repro_torch.kernels.build import LAUNCHES as counts
+
+        return getattr(counts, name)
+
+
+LAUNCHES = _Launches()
 
 
 def check(ok: bool, what: str) -> None:
@@ -350,9 +386,9 @@ def kernel_phase(torch, gen, dtype_name: str) -> dict:
     x = torch.randn(M, K, generator=gen, device=dev).to(dt)
     w = (torch.randn(K, N, generator=gen, device=dev) / math.sqrt(K)).to(dt)
     route = expected_route(dtype_name)
-    before = dict(matmul_cuda.launches_by_route)
+    before = LAUNCHES.by_route("matmul")
     got = matmul_cuda(x, w)
-    check(matmul_cuda.launches_by_route[route] == before[route] + 1,
+    check(LAUNCHES.by_route("matmul")[route] == before[route] + 1,
           f"matmul[{dtype_name}] did not take the {route} route")
     log(f"  matmul[{dtype_name}] took the {route} route")
     want = matmul_reference(x, w, block_k=BLOCKS[2])
@@ -404,16 +440,17 @@ def kernel_phase(torch, gen, dtype_name: str) -> dict:
 
 def train_gradient_check(torch, fn, kernel, plain, inputs, kw, what: str) -> None:
     """``plain``'s autograd gradient of ``fn``'s first output, as the
-    Function gives it (its backward launches no ``kernel``), equals direct
+    Function gives it (its backward launches no ``kernel``, a name of
+    ``LAUNCHES``), equals direct
     autograd of ``plain`` on the same inputs, bit for bit."""
     out = fn(*inputs, **kw)
     out = out[0] if isinstance(out, tuple) else out
     check(out.grad_fn is not None, f"{what}: the entry point recorded no gradient")
     dy = torch.randn_like(out)
     wrt = [t for t in inputs if t.requires_grad]
-    before = kernel.launches
+    before = LAUNCHES.total(kernel)
     got = torch.autograd.grad(out, wrt, dy)
-    check(kernel.launches == before, f"{what}: the Function's backward launched the kernel")
+    check(LAUNCHES.total(kernel) == before, f"{what}: the Function's backward launched the kernel")
     del out
     ref = plain(*inputs, **kw)
     ref = ref[0] if isinstance(ref, tuple) else ref
@@ -444,10 +481,10 @@ def flash_kernel_phase(torch, gen, dtype_name: str) -> dict:
                    for h in (H, K, K))
         for causal in ((True,) if case != "ragged" else (True, False)):
             route = expected_route(dtype_name)
-            before = dict(flash_attention_cuda.launches_by_route)
+            before = LAUNCHES.by_route("flash")
             entry = flash_attention if train else flash_attention_cuda
             got = entry(q, k, v, causal=causal)
-            check(flash_attention_cuda.launches_by_route[route] == before[route] + 1,
+            check(LAUNCHES.by_route("flash")[route] == before[route] + 1,
                   f"flash[{dtype_name}] {case} did not take the {route} route")
             check(train == (got.grad_fn is not None),
                   f"flash[{dtype_name}] {case}: autograd Function used {got.grad_fn is not None}")
@@ -462,7 +499,7 @@ def flash_kernel_phase(torch, gen, dtype_name: str) -> dict:
             del got, want
         key = "flash" if case == "serving" else f"flash_{case}"
         if train:
-            train_gradient_check(torch, flash_attention, flash_attention_cuda, attention_reference,
+            train_gradient_check(torch, flash_attention, "flash", attention_reference,
                                  (q, k, v), {"causal": True}, f"flash[{dtype_name}] {case}")
             out[key] = dict(max_abs_err=err, shape=[B, S, H, K, D], kernel_route=route,
                             grad_bit_equal=True)
@@ -568,10 +605,10 @@ def ssd_kernel_phase(torch, gen, dtype_name: str) -> dict:
         for t in (X, la, Bm, Cm):
             t.requires_grad_(train)
         route = expected_route(dtype_name, (P, N, L))
-        before = dict(ssd_cuda.launches_by_route)
+        before = LAUNCHES.by_route("ssd")
         entry = ssd if train else ssd_cuda
         Y, fin = entry(X, la, Bm, Cm, chunk=L, initial_state=init)
-        check(ssd_cuda.launches_by_route[route] == before[route] + 1,
+        check(LAUNCHES.by_route("ssd")[route] == before[route] + 1,
               f"ssd[{dtype_name}] {case} did not take the {route} route")
         check(train == (Y.grad_fn is not None),
               f"ssd[{dtype_name}] {case}: autograd Function used {Y.grad_fn is not None}")
@@ -585,7 +622,7 @@ def ssd_kernel_phase(torch, gen, dtype_name: str) -> dict:
         check(fin.dtype == dt, f"ssd[{dtype_name}] final state in {fin.dtype}, not X's dtype")
         del Y, Yr, fin, finr
         if train:
-            train_gradient_check(torch, ssd, ssd_cuda, ssd_reference, (X, la, Bm, Cm),
+            train_gradient_check(torch, ssd, "ssd", ssd_reference, (X, la, Bm, Cm),
                                  {"chunk": L, "initial_state": None}, f"ssd[{dtype_name}] {case}")
             out[f"ssd_{case}"] = dict(max_abs_err=err, shape=[B, S, H, P, N, L], kernel_route=route,
                                       grad_bit_equal=True)
@@ -635,8 +672,6 @@ def main_path(torch, gen, device) -> dict:
     from repro_torch import PcclSession
     from repro_torch.comm import fusion
     from repro_torch.core import cost_model as cm
-    from repro_torch.kernels.matmul import matmul_cuda
-    from repro_torch.kernels.rmsnorm import rmsnorm_triton
 
     results = {}
     session = PcclSession(cm.H100_DGX, device=device)
@@ -674,7 +709,7 @@ def main_path(torch, gen, device) -> dict:
         w = (torch.randn(K, D_MODEL, generator=gen, device=device) / math.sqrt(K)).to(dt)
         t = time.perf_counter()
         before = session.exec_stats().fused_dispatches
-        k1_before = dict(matmul_cuda.launches_by_route)
+        k1_before = LAUNCHES.by_route("matmul")
         out = fusion.fused_matmul_reduce_scatter(
             comm_ring, xm, w, block_m=BLOCKS[0], block_n=BLOCKS[1], block_k=BLOCKS[2]
         )
@@ -682,7 +717,7 @@ def main_path(torch, gen, device) -> dict:
         check(session.exec_stats().fused_dispatches == before + 1,
               f"fused mm+RS [{name}] did not take the fused path")
         route = expected_route(name)
-        k1 = {r: matmul_cuda.launches_by_route[r] - k1_before[r] for r in k1_before}
+        k1 = {r: LAUNCHES.by_route("matmul")[r] - k1_before[r] for r in k1_before}
         check(device.type != "cuda" or k1 == {**{r: 0 for r in k1}, route: TP},
               f"fused mm+RS [{name}] launched K1 {k1}, not {TP} on the {route} route")
         log(f"  fused mm+RS [{name}] K1 launches by route: {k1}")
@@ -693,12 +728,12 @@ def main_path(torch, gen, device) -> dict:
     gamma = torch.randn(D_MODEL, generator=gen, device=device) + 1.0
     t = time.perf_counter()
     before = session.exec_stats().fused_dispatches
-    k2_before = rmsnorm_triton.launches
+    k2_before = LAUNCHES.total("rmsnorm")
     results["ar_rms"] = fusion.fused_all_reduce_rmsnorm(comm, x, gamma, eps=EPS)
     torch.cuda.synchronize(device)
     check(session.exec_stats().fused_dispatches == before + 1,
           "fused AR+RMSNorm did not take the fused path")
-    check(device.type != "cuda" or rmsnorm_triton.launches > k2_before,
+    check(device.type != "cuda" or LAUNCHES.total("rmsnorm") > k2_before,
           "fused AR+RMSNorm launched no K2")
     log(f"  phase fused all-reduce→RMSNorm [bfloat16]: {time.perf_counter() - t:.3f} s")
     results.update(session=session, comm=comm, comm_ring=comm_ring, gamma=gamma)
@@ -849,8 +884,6 @@ def serve_path(torch, cfg, device, prompts, new_tokens, seed=SEED) -> dict:
 
     from repro_torch import PcclSession
     from repro_torch.core import cost_model as cm
-    from repro_torch.kernels.flash import flash_attention_cuda
-    from repro_torch.kernels.ssd import ssd_cuda
     from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
 
     t = time.perf_counter()
@@ -876,16 +909,16 @@ def serve_path(torch, cfg, device, prompts, new_tokens, seed=SEED) -> dict:
 
     def watched_decode(*args, **kwargs):
         if seen["at_first_decode"] is None:
-            seen["at_first_decode"] = (flash_attention_cuda.launches, ssd_cuda.launches)
-            seen["k3_routes_at_first_decode"] = dict(flash_attention_cuda.launches_by_route)
-            seen["k4_routes_at_first_decode"] = dict(ssd_cuda.launches_by_route)
+            seen["at_first_decode"] = (LAUNCHES.total("flash"), LAUNCHES.total("ssd"))
+            seen["k3_routes_at_first_decode"] = LAUNCHES.by_route("flash")
+            seen["k4_routes_at_first_decode"] = LAUNCHES.by_route("ssd")
         logits, state = decode_step(*args, **kwargs)
         seen["finite"].append(torch.isfinite(logits).all())
         return logits, state
 
     engine.model.prefill, engine.model.decode_step = watched_prefill, watched_decode
-    seen["k3_routes_before"] = dict(flash_attention_cuda.launches_by_route)
-    seen["k4_routes_before"] = dict(ssd_cuda.launches_by_route)
+    seen["k3_routes_before"] = LAUNCHES.by_route("flash")
+    seen["k4_routes_before"] = LAUNCHES.by_route("ssd")
     rng = np.random.default_rng(seed)
     requests = [Request(prompt=rng.integers(0, cfg.vocab, size=n).astype(np.int32),
                         max_new_tokens=new_tokens) for n in prompts]
@@ -894,7 +927,7 @@ def serve_path(torch, cfg, device, prompts, new_tokens, seed=SEED) -> dict:
     wall = time.perf_counter() - t
     engine.model.prefill, engine.model.decode_step = prefill, decode_step
     return dict(engine=engine, requests=requests, seen=seen, wall=wall,
-                launches_end=(flash_attention_cuda.launches, ssd_cuda.launches))
+                launches_end=(LAUNCHES.total("flash"), LAUNCHES.total("ssd")))
 
 
 def check_serve(torch, r, cfg) -> dict:
@@ -1152,7 +1185,6 @@ def parity_phase(torch, device, arch="zamba2-2.7b", n_layers=PARITY_LAYERS, seed
     one shared-attention group; xLSTM: 8, one group): prefill logits with
     K3/K4 against the plain path, and teacher-forced decode against a
     longer prefill."""
-    from repro_torch.kernels.ssd import ssd_cuda
     from repro_torch.models import build_model
 
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -1164,11 +1196,11 @@ def parity_phase(torch, device, arch="zamba2-2.7b", n_layers=PARITY_LAYERS, seed
     tokens = torch.randint(0, cfg.vocab, (PARITY_BATCH, PARITY_PROMPT), generator=gen,
                            device=device)
     out = {}
-    k4_before = dict(ssd_cuda.launches_by_route)
+    k4_before = LAUNCHES.by_route("ssd")
     want_k4 = prefill_launches(cfg)["ssd"]
     with torch.inference_mode():
         got, _ = kernels.prefill(params, {"tokens": tokens})
-        k4 = {r: ssd_cuda.launches_by_route[r] - k4_before[r] for r in k4_before}
+        k4 = {r: LAUNCHES.by_route("ssd")[r] - k4_before[r] for r in k4_before}
         check(device.type != "cuda" or k4 == {"wgmma": 0, "fma": want_k4},
               f"{arch} fp32 parity prefill launched K4 {k4}, not {want_k4} on the fma route")
         log(f"  {arch} fp32 parity prefill K4 launches by route: {k4}")
@@ -1269,7 +1301,6 @@ def decoder_parity_phase(torch, device) -> dict:
     counting routing flips; then, for OLMoE and for DeepSeek-V2-Lite (MLA's
     absorbed decode against its expanded prefill), teacher-forced decode
     against a longer prefill with no copy dropped."""
-    from repro_torch.kernels.flash import flash_attention_cuda
     from repro_torch.models import build_model
 
     out = {}
@@ -1282,10 +1313,10 @@ def decoder_parity_phase(torch, device) -> dict:
     tokens = torch.randint(0, cfg.vocab, (PARITY_BATCH, PARITY_PROMPT), generator=gen,
                            device=device)
     with torch.inference_mode():
-        k3_before = dict(flash_attention_cuda.launches_by_route)
+        k3_before = LAUNCHES.by_route("flash")
         with RouteRecorder() as rec:
             got, _ = kernels.prefill(params, {"tokens": tokens})
-            k3 = {r: flash_attention_cuda.launches_by_route[r] - k3_before[r] for r in k3_before}
+            k3 = {r: LAUNCHES.by_route("flash")[r] - k3_before[r] for r in k3_before}
             with_k3 = list(rec.calls)
             rec.calls.clear()
             want, _ = plain.prefill(params, {"tokens": tokens})
@@ -1324,7 +1355,6 @@ def whisper_parity_phase(torch, device) -> dict:
     frames, batch 2 with a 228-token prompt: prefill logits with K3 (the
     fma route, one per decoder layer) against the plain path, and
     teacher-forced decode against a longer prefill."""
-    from repro_torch.kernels.flash import flash_attention_cuda
     from repro_torch.models import build_model
 
     gen = torch.Generator(device=device).manual_seed(SEED + 4)
@@ -1338,9 +1368,9 @@ def whisper_parity_phase(torch, device) -> dict:
                                         generator=gen, device=device)}
     out = {}
     with torch.inference_mode():
-        k3_before = dict(flash_attention_cuda.launches_by_route)
+        k3_before = LAUNCHES.by_route("flash")
         got, _ = kernels.prefill(params, {"tokens": tokens, **frames})
-        k3 = {r: flash_attention_cuda.launches_by_route[r] - k3_before[r] for r in k3_before}
+        k3 = {r: LAUNCHES.by_route("flash")[r] - k3_before[r] for r in k3_before}
         check(device.type != "cuda" or k3 == {"wgmma": 0, "fma": cfg.n_layers},
               f"Whisper fp32 parity prefill launched K3 {k3}, not {cfg.n_layers} on the fma route")
         log(f"  Whisper fp32 parity prefill K3 launches by route: {k3}")
@@ -1460,8 +1490,8 @@ class TrainTimer:
         return {k: sum(s.elapsed_time(e) for s, e in v) for k, v in self.events.items()}
 
 
-def _routes(fn) -> dict:
-    return dict(fn.launches_by_route)
+def _routes(kernel: str) -> dict:
+    return LAUNCHES.by_route(kernel)
 
 
 def train_setup(torch, cfg, device, *, rows=TRAIN_BATCH, seq=TRAIN_SEQ,
@@ -1493,8 +1523,6 @@ def train_path(torch, r) -> dict:
     ``r`` (from :func:`train_setup`), step 0 cold and under a
     :class:`TrainTimer`, the rest timed.  Adds what it produced to ``r``,
     for the checks made after the counted window."""
-    from repro_torch.kernels.flash import flash_attention_cuda
-    from repro_torch.kernels.ssd import ssd_cuda
 
     params, state, step = r["params"], r["state"], r["step"]
     watched = {k: v.detach().clone() for k, v in params.named_parameters()
@@ -1503,7 +1531,7 @@ def train_path(torch, r) -> dict:
     timer = TrainTimer(torch)
     t = time.perf_counter()
     for i, batch in enumerate(r["batches"]):
-        before = (_routes(flash_attention_cuda), _routes(ssd_cuda))
+        before = (_routes("flash"), _routes("ssd"))
         if i == 0:
             with timer:
                 params, state, m = step(params, state, batch)
@@ -1511,9 +1539,8 @@ def train_path(torch, r) -> dict:
             cold, t = time.perf_counter() - t, time.perf_counter()
         else:
             params, state, m = step(params, state, batch)
-        per_step.append({name: {k: n - b[k] for k, n in _routes(fn).items()}
-                         for name, fn, b in (("flash", flash_attention_cuda, before[0]),
-                                             ("ssd", ssd_cuda, before[1]))})
+        per_step.append({name: {k: n - b[k] for k, n in _routes(name).items()}
+                         for name, b in zip(("flash", "ssd"), before)})
         metrics.append(m)
     torch.cuda.synchronize()
     warm = (time.perf_counter() - t) / max(len(r["batches"]) - 1, 1)
@@ -1643,8 +1670,6 @@ def train_parity_phase(torch, device, arch, n_layers, seed) -> dict:
     """``arch`` at full widths in fp32, cut to ``n_layers`` (one group):
     ``loss`` and every parameter's gradient with K3/K4 (the fma route)
     against the plain path, on a batch of 2 x 512."""
-    from repro_torch.kernels.flash import flash_attention_cuda
-    from repro_torch.kernels.ssd import ssd_cuda
     from repro_torch.models import build_model
 
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -1657,13 +1682,12 @@ def train_parity_phase(torch, device, arch, n_layers, seed) -> dict:
     names = [k for k, _ in params.named_parameters()]
     batch = {"tokens": torch.randint(0, cfg.vocab, (TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ),
                                      generator=gen, device=device)}
-    before = (_routes(flash_attention_cuda), _routes(ssd_cuda))
+    before = (_routes("flash"), _routes("ssd"))
     with TrainTimer(torch) as timer:
         loss_k, _ = kernels.loss(params, batch)
         grads_k = torch.autograd.grad(loss_k, list(params.parameters()))
-    launched = {name: {r: n - b[r] for r, n in _routes(fn).items()}
-                for name, fn, b in (("flash", flash_attention_cuda, before[0]),
-                                    ("ssd", ssd_cuda, before[1]))}
+    launched = {name: {r: n - b[r] for r, n in _routes(name).items()}
+                for name, b in zip(("flash", "ssd"), before)}
     want = train_launches(cfg, 1)
     for name, n in want.items():
         check(device.type != "cuda" or launched[name] == {"wgmma": 0, "fma": n},
@@ -1846,7 +1870,6 @@ class TrainerProbe:
     device memory after it."""
 
     def __init__(self, torch, trainer):
-        from repro_torch.kernels.flash import flash_attention_cuda
         from repro_torch.runtime.fault import InjectedFailure
 
         self.steps, self.saves, self.writes, self.restores, self.failure = [], [], [], [], None
@@ -1857,11 +1880,11 @@ class TrainerProbe:
             step_fn = trainer._step_fn
 
             def step(params, state, batch):
-                before = _routes(flash_attention_cuda)
+                before = _routes("flash")
                 out = step_fn(params, state, batch)
                 torch.cuda.synchronize()
                 self.steps.append({"flash": {k: n - before[k]
-                                             for k, n in _routes(flash_attention_cuda).items()},
+                                             for k, n in _routes("flash").items()},
                                    "end": time.perf_counter()})
                 return out
 
@@ -2130,7 +2153,6 @@ def trainer_phase(torch, reset_counts, read_counts):
     just after; then its checks, the uninterrupted run, a profiled step and
     the CLI.  Returns (the counts, K3's launches by route, the stats)."""
     from repro_torch.data import to_device
-    from repro_torch.kernels.flash import flash_attention_cuda
     from repro_torch.train import make_train_step
 
     log("== main path 9: train whisper-small at published widths and depth through the Trainer "
@@ -2148,7 +2170,7 @@ def trainer_phase(torch, reset_counts, read_counts):
         restored, trainer_stats["round_trip"] = restore_round_trip(torch, run9, whisper_train, cuda)
         served, logits = serve_tokens(torch, whisper_train, cuda, restored, WHISPER_PROMPTS)
         path9 = read_counts()
-        routes9 = {"flash": dict(flash_attention_cuda.launches_by_route)}
+        routes9 = {"flash": LAUNCHES.by_route("flash")}
         log(f"  phase main path 9: {time.perf_counter() - t:.3f} s; kernel launches {path9}")
         check(path9["flash"] > 0, "main path 9 never launched K3")
         trainer_stats.update(check_trainer(torch, run9, whisper_train))
@@ -2193,6 +2215,277 @@ def trainer_phase(torch, reset_counts, read_counts):
     return path9, routes9, trainer_stats
 
 
+# ------------------------------------------ path 10: verified path 1, the CLIs
+
+
+def fp32_calls(torch, comm, comm_ef, comm_ring, x, xm, w, gamma) -> dict:
+    """Path 1's calls in fp32 on fixed inputs: the four planned collectives,
+    ring_ef8, fused mm → RS (K1) and fused AR → RMSNorm (K2)."""
+    from repro_torch.comm import fusion
+
+    out = {coll: getattr(comm, coll)(x) for coll in ("all_reduce", "reduce_scatter", "all_to_all")}
+    out["all_gather"] = comm.all_gather(out["reduce_scatter"])
+    out["ring_ef8"] = comm_ef.all_reduce(x)
+    out["mm_rs"] = fusion.fused_matmul_reduce_scatter(
+        comm_ring, xm, w, block_m=BLOCKS[0], block_n=BLOCKS[1], block_k=BLOCKS[2])
+    out["ar_rms"] = fusion.fused_all_reduce_rmsnorm(comm, x, gamma, eps=EPS)
+    torch.cuda.synchronize()
+    return out
+
+
+class VerifyCounter:
+    """Counts the schedules ``compile_schedule``'s ``PCCL_VERIFY`` hook
+    verifies, by wrapping ``repro_torch.analysis.verify.assert_verified``
+    (the hook looks it up at each miss) for the length of a ``with``."""
+
+    def __enter__(self):
+        from repro_torch.analysis import verify
+
+        self.module, self.real, self.fingerprints = verify, verify.assert_verified, []
+
+        def counted(schedule, **kw):
+            self.fingerprints.append(schedule.fingerprint())
+            return self.real(schedule, **kw)
+
+        verify.assert_verified = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.module.assert_verified = self.real
+
+
+def verified_path(torch, gen, device, reset_counts, read_counts) -> dict:
+    """Main path 10a: path 1 again with ``PCCL_VERIFY=1`` after
+    ``clear_exec_caches()``, the counts set to 0 just before it and read
+    just after; path 1's calls in fp32 on fixed inputs, bit for bit as
+    without the variable; a schedule with a transfer dropped refused before
+    any table is built."""
+    import os
+
+    from repro_torch import PcclSession
+    from repro_torch.analysis.verify import ScheduleVerificationError
+    from repro_torch.comm import exec_engine
+    from repro_torch.comm import primitives as prims
+    from repro_torch.core import cost_model as cm
+    from repro_torch.core import schedules as S
+
+    check("PCCL_VERIFY" not in os.environ, "PCCL_VERIFY is set before path 10")
+    fixed = torch.Generator(device=device).manual_seed(SEED + 10)
+    K = D_FF // TP
+    x = torch.randn(TP, TOKENS, D_MODEL, generator=fixed, device=device)
+    xm = torch.randn(TP, TOKENS, K, generator=fixed, device=device)
+    w = torch.randn(K, D_MODEL, generator=fixed, device=device) / math.sqrt(K)
+    gamma = torch.randn(D_MODEL, generator=fixed, device=device) + 1.0
+
+    def comms():
+        session = PcclSession(cm.H100_DGX, device=device)
+        return (session.communicator("x", TP),
+                session.communicator("x", TP, rel_error_tol=cm.compressed_ef_error_bound(TP)),
+                session.communicator("x", TP, algorithm="ring"))
+
+    exec_engine.clear_exec_caches()
+    t = time.perf_counter()
+    plain = fp32_calls(torch, *comms(), x, xm, w, gamma)
+    log(f"  fp32 calls without PCCL_VERIFY: {time.perf_counter() - t:.3f} s")
+
+    exec_engine.clear_exec_caches()
+    os.environ["PCCL_VERIFY"] = "1"
+    try:
+        with VerifyCounter() as counter:
+            reset_counts()
+            t = time.perf_counter()
+            main_path(torch, gen, device)
+            verified = fp32_calls(torch, *comms(), x, xm, w, gamma)
+            wall = time.perf_counter() - t
+            counts = read_counts()
+            routes = LAUNCHES.by_route("matmul")
+            tables = (len(exec_engine._COMPILED), len(exec_engine._DEVICE_TABLES))
+            bad_base = S.ring_reduce_scatter(TP, 4.0 * TOKENS * D_MODEL)
+            rounds = list(bad_base.rounds)
+            rounds[2] = S.Round(rounds[2].transfers[:-1], rounds[2].size)
+            bad = S.Schedule(bad_base.collective, bad_base.algorithm, bad_base.n,
+                             bad_base.buffer_bytes, tuple(rounds))
+            try:
+                prims.reduce_scatter(x, bad)
+            except ScheduleVerificationError as e:
+                refused = str(e).splitlines()
+            else:
+                raise SmokeFailure("a schedule with a transfer dropped was not refused")
+            after = (len(exec_engine._COMPILED), len(exec_engine._DEVICE_TABLES))
+    finally:
+        del os.environ["PCCL_VERIFY"]
+    n_verified = len(counter.fingerprints)
+    log(f"  phase main path 10a: {wall:.3f} s; kernel launches {counts}, K1 by route {routes}; "
+        f"{n_verified} schedules verified ({len(set(counter.fingerprints))} distinct)")
+    check(n_verified > 0, "PCCL_VERIFY=1 verified no schedule")
+    check(device.type != "cuda" or (counts["matmul"] > 0 and counts["rmsnorm"] > 0),
+          "main path 10 never launched K1 or K2")
+    check(bad.fingerprint() in counter.fingerprints, "the dropped-transfer schedule was not verified")
+    check(after == tables, f"the refused schedule changed the caches: {tables} -> {after}")
+    log(f"  dropped transfer refused: {refused[0]} {refused[1].strip()}; caches (compiled, device "
+        f"tables) {tables} -> {after}")
+    for name, got in verified.items():
+        check(torch.equal(got, plain[name]), f"{name} [float32] differs under PCCL_VERIFY=1")
+    log(f"  {', '.join(verified)} [float32] under PCCL_VERIFY=1 vs without: bit-identical")
+    del plain, verified
+    comm, _, _ = comms()
+    return {"counts": counts, "routes": routes, "verified": n_verified,
+            "distinct_verified": len(set(counter.fingerprints)), "wall_s": wall,
+            "refused": refused[0], "x": x, "comm": comm}
+
+
+def pcclcomm_path(torch, r) -> dict:
+    """Path 10b: the four collectives through the deprecated ``PcclComm``
+    shim on the card, bit for bit as the cold session's communicator."""
+    import warnings
+
+    from repro_torch import PcclSession
+    from repro_torch.comm import PcclComm
+    from repro_torch.core import cost_model as cm
+
+    x = r["x"]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        # on the card as a user makes it: no device, so CUDA
+        shim = PcclComm(axis_name="x", n=TP, hw=cm.H100_DGX,
+                        device=None if x.device.type == "cuda" else x.device)
+    check(any(w.category is DeprecationWarning and "PcclComm is deprecated" in str(w.message)
+              for w in caught), "PcclComm gave no DeprecationWarning")
+    check(shim._comm.device.type == x.device.type, f"PcclComm runs on {shim._comm.device}")
+    cold = PcclSession(cm.H100_DGX, thread_fabric=False, device=x.device).communicator("x", TP)
+    shard = cold.reduce_scatter(x)
+    algos = {}
+    for coll in ("all_reduce", "reduce_scatter", "all_gather", "all_to_all"):
+        src = shard if coll == "all_gather" else x
+        got, want = getattr(shim, coll)(src), getattr(cold, coll)(src)
+        check(torch.equal(got, want), f"PcclComm.{coll} [float32] differs from the communicator")
+        algos[coll] = shim.chosen_algorithm(coll, src[0].numel() * src.element_size())
+    log(f"  PcclComm (DeprecationWarning seen) vs a cold session's communicator, four collectives "
+        f"[float32]: bit-identical; algorithms {algos}")
+    return {"algorithms": algos}
+
+
+def verify_cost(torch) -> dict:
+    """Path 10c: the host time of a cold ``compile_schedule`` with and
+    without ``PCCL_VERIFY=1`` (median of ``VERIFY_COST_REPS``), the
+    fingerprint memoized before either."""
+    import os
+
+    from repro_torch.comm import exec_engine
+    from repro_torch.core import schedules as S
+
+    rows = []
+    for coll, algo in VERIFY_COST_CASES:
+        for n in VERIFY_COST_NS:
+            sched = S.get_schedule(coll, algo, n, 4.0 * 2**20)
+            sched.fingerprint()
+            ms = {}
+            for flag in ("0", "1"):
+                os.environ["PCCL_VERIFY"] = flag
+                times = []
+                for _ in range(VERIFY_COST_REPS):
+                    exec_engine.clear_exec_caches()
+                    t = time.perf_counter()
+                    exec_engine.compile_schedule(sched)
+                    times.append((time.perf_counter() - t) * 1e3)
+                ms[flag] = statistics.median(times)
+            del os.environ["PCCL_VERIFY"]
+            rows.append({"collective": coll, "algorithm": algo, "n": n,
+                         "rounds": sched.num_rounds, "compile_ms": ms["0"],
+                         "verified_compile_ms": ms["1"]})
+            log(f"  cold compile_schedule {coll}/{algo} n={n} ({sched.num_rounds} rounds): "
+                f"{ms['0']:.3f} ms, with PCCL_VERIFY=1 {ms['1']:.3f} ms "
+                f"(+{ms['1'] - ms['0']:.3f} ms, x{ms['1'] / ms['0']:.2f})")
+    exec_engine.clear_exec_caches()
+    return {"rows": rows}
+
+
+def fresh_process(cmd, timeout=600) -> dict:
+    """``cmd`` in a fresh Python with ``PYTHONPATH=src`` from the checkout's
+    root; its exit code, wall and lines, all printed."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    env.pop("PCCL_VERIFY", None)
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, *cmd], cwd=SRC.parent, env=env, capture_output=True,
+                          text=True, timeout=timeout)
+    wall = time.perf_counter() - t
+    lines = proc.stdout.strip().splitlines()
+    log(f"  $ python {' '.join(cmd)}: exit {proc.returncode} in {wall:.1f} s")
+    for line in lines:
+        log(f"    | {line}")
+    check(proc.returncode == 0, f"python {' '.join(cmd)} failed: {proc.stderr[-2000:]}")
+    return {"exit": proc.returncode, "wall_s": wall, "lines": lines}
+
+
+def cli_phase(torch) -> dict:
+    """Path 10d: the analysis CLI, the lint, both examples (side by side:
+    host work and small models) and then, alone, the serve CLI at
+    Zamba2-2.7B's published widths and depth, each in a fresh process on
+    the card by default."""
+    light = {
+        "analysis": ["-m", "repro_torch.analysis"],
+        "lint": ["-m", "repro_torch.analysis.lint_concurrency"],
+        "serve_decode": ["examples/serve_decode_torch.py"],
+        "quickstart": ["examples/quickstart_torch.py"],
+    }
+    with ThreadPoolExecutor(len(light)) as pool:
+        runs = dict(zip(light, pool.map(fresh_process, light.values())))
+    check(runs["analysis"]["lines"][-1] == "[verify] PASS", "the analysis CLI did not PASS")
+    check(runs["analysis"]["lines"][0].startswith("[verify] dataflow (78 schedules): ok"),
+          "the analysis CLI did not verify the 78 schedules")
+    check(runs["lint"]["lines"] == ["concurrency lint: 0 finding(s) in src/repro_torch"],
+          "the lint found something in src/repro_torch")
+    check(runs["serve_decode"]["lines"][0].startswith("[zamba2-2.7b] generated 48 tokens"),
+          "the serve_decode example served no 48 tokens")
+    check(any("on cuda" in line and "rounds" in line for line in runs["quickstart"]["lines"]),
+          "the quickstart did not run its session on the card")
+    torch.cuda.empty_cache()
+    serve = fresh_process(["-m", "repro_torch.launch.serve", "--arch", "zamba2-2.7b",
+                           "--no-reduced"])
+    lines = serve["lines"]
+    check(re.fullmatch(r"\[serve\] zamba2-2\.7b \(published config, d_model 2560, 54 layers\) "
+                       r"on cuda(:\d+)?", lines[0]) is not None,
+          f"the serve CLI did not serve the published Zamba2 on the card: {lines[:1]}")
+    m = re.fullmatch(r"generated (\d+) tokens in ([\d.]+)s \(([\d.]+) tok/s, batch=4\)", lines[1])
+    check(m is not None and int(m.group(1)) == 64, f"the serve CLI's result line: {lines[1:2]}")
+    peak = re.fullmatch(r"peak device memory: ([\d.]+) GiB", lines[-1])
+    check(peak is not None, f"the serve CLI printed no peak memory: {lines[-1:]}")
+    runs["serve"] = {**serve, "tokens_per_s": float(m.group(3)), "generate_s": float(m.group(2)),
+                     "peak_gib": float(peak.group(1))}
+    return runs
+
+
+def path10_phase(torch, gen, reset_counts, read_counts):
+    """Main path 10 and its parts b–d.  Returns (the counts, K1's launches
+    by route, the stats)."""
+    log("== main path 10: path 1 again with PCCL_VERIFY=1 (every schedule verified before it "
+        "compiles), Mistral-Large-123B widths, TP=8")
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    r = verified_path(torch, gen, torch.device("cuda"), reset_counts, read_counts)
+    counts, routes = r.pop("counts"), r.pop("routes")
+    stats = {"verified_path": {k: v for k, v in r.items() if k not in ("x", "comm")}}
+    log("== path 10b: the deprecated PcclComm shim on the card")
+    stats["pcclcomm"] = pcclcomm_path(torch, r)
+    del r
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  phase paths 10a-b: {time.perf_counter() - t:.3f} s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log("== path 10c: what PCCL_VERIFY=1 costs a cold compile_schedule (host time)")
+    t = time.perf_counter()
+    stats["verify_cost"] = verify_cost(torch)
+    log(f"  phase 10c: {time.perf_counter() - t:.3f} s")
+    log("== path 10d: the analysis and lint CLIs, the examples and the serve CLI in fresh "
+        "processes, on the card by default")
+    t = time.perf_counter()
+    stats["fresh_processes"] = cli_phase(torch)
+    log(f"  phase 10d: {time.perf_counter() - t:.3f} s")
+    return counts, routes, stats
+
+
 # ---------------------------------------------------------------------- main
 
 
@@ -2219,13 +2512,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from repro_torch.kernels import build
-    from repro_torch.kernels.flash import flash_attention_cuda
     from repro_torch.kernels.flash import kernel as k3
     from repro_torch.kernels.matmul import kernel as k1
-    from repro_torch.kernels.matmul import matmul_cuda
     from repro_torch.kernels.rmsnorm import rmsnorm_triton
     from repro_torch.kernels.ssd import kernel as k4
-    from repro_torch.kernels.ssd import ssd_cuda
 
     def timed_build(source):
         t = time.perf_counter()
@@ -2272,24 +2562,14 @@ def main() -> int:
         torch.cuda.empty_cache()
     log(f"  phase kernels K3, K4: {time.perf_counter() - t:.3f} s")
 
-    counters = (matmul_cuda, rmsnorm_triton, flash_attention_cuda, ssd_cuda)
-
-    def reset_counts():
-        for fn in counters:
-            fn.launches = 0
-            for route in getattr(fn, "launches_by_route", {}):
-                fn.launches_by_route[route] = 0
-
-    def read_counts():
-        return {"matmul": matmul_cuda.launches, "rmsnorm": rmsnorm_triton.launches,
-                "flash": flash_attention_cuda.launches, "ssd": ssd_cuda.launches}
+    reset_counts, read_counts = LAUNCHES.reset, LAUNCHES.totals
 
     log(f"== main path 1: Mistral-Large-123B widths, TP={TP} rank-stacked, {TOKENS} tokens/rank")
     reset_counts()
     t = time.perf_counter()
     results = main_path(torch, gen, torch.device("cuda"))
     path1 = read_counts()
-    routes1 = dict(matmul_cuda.launches_by_route)
+    routes1 = LAUNCHES.by_route("matmul")
     log(f"  phase main path 1: {time.perf_counter() - t:.3f} s; kernel launches {path1}")
     check(path1["matmul"] > 0, "main path 1 never launched K1")
     check(path1["rmsnorm"] > 0, "main path 1 never launched K2")
@@ -2318,8 +2598,8 @@ def main() -> int:
         t = time.perf_counter()
         served = serve_path(torch, cfg, torch.device("cuda"), prompts, SERVE_NEW_TOKENS)
         counts = read_counts()
-        routes = {"flash": dict(flash_attention_cuda.launches_by_route),
-                  "ssd": dict(ssd_cuda.launches_by_route)}
+        routes = {"flash": LAUNCHES.by_route("flash"),
+                  "ssd": LAUNCHES.by_route("ssd")}
         log(f"  phase main path {number}: {time.perf_counter() - t:.3f} s; kernel launches {counts}")
         for name, per_prefill in prefill_launches(cfg).items():
             check(per_prefill == 0 or counts[name] > 0, f"main path {number} never launched {name}")
@@ -2399,8 +2679,8 @@ def main() -> int:
     reset_counts()
     train_path(torch, trained)
     path7 = read_counts()
-    routes7 = {"flash": dict(flash_attention_cuda.launches_by_route),
-               "ssd": dict(ssd_cuda.launches_by_route)}
+    routes7 = {"flash": LAUNCHES.by_route("flash"),
+               "ssd": LAUNCHES.by_route("ssd")}
     log(f"  phase main path 7: {time.perf_counter() - t:.3f} s; kernel launches {path7}")
     check(path7["flash"] > 0 and path7["ssd"] > 0, "main path 7 never launched K3 or K4")
     train_stats = check_train(torch, trained, zamba2_train, plain_loss)
@@ -2439,6 +2719,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"  phase train parity: {time.perf_counter() - t:.3f} s")
     path9, routes9, trainer_stats = trainer_phase(torch, reset_counts, read_counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    path10, routes10, path10_stats = path10_phase(torch, gen, reset_counts, read_counts)
+    log(f"  phase main path 10 with 10b-d: {time.perf_counter() - t:.3f} s")
     log("serve: " + json.dumps({**serve_stats, **parity}))
     log("serve olmoe: " + json.dumps(olmoe_stats))
     log("serve deepseek: " + json.dumps(deepseek_stats))
@@ -2448,14 +2733,18 @@ def main() -> int:
     log("train zamba2: " + json.dumps({**train_stats, "parity": train_parity}))
     log("train dp: " + json.dumps(dp_stats))
     log("train whisper (Trainer): " + json.dumps(trainer_stats))
+    log("verified path 1, PcclComm, PCCL_VERIFY cost, CLIs: " + json.dumps(path10_stats))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
 
     # the bf16 kernels of each path; K1, K3 and K4 on their tensor-core route
     sources = {
         "matmul": ("cuda", "src/repro_torch/kernels/matmul/csrc/matmul_sm90.cu",
-                   "src/repro/kernels/matmul/kernel.py:52", path1, routes1),
+                   "src/repro/kernels/matmul/kernel.py:52",
+                   {"matmul": path1["matmul"] + path10["matmul"]},
+                   {r: routes1[r] + routes10[r] for r in routes1}),
         "rmsnorm": ("triton", "src/repro_torch/kernels/rmsnorm/kernel.py",
-                    "src/repro/kernels/rmsnorm/kernel.py:37", path1, None),
+                    "src/repro/kernels/rmsnorm/kernel.py:37",
+                    {"rmsnorm": path1["rmsnorm"] + path10["rmsnorm"]}, None),
         "flash": ("cuda", "src/repro_torch/kernels/flash/csrc/flash_sm90.cu",
                   "src/repro/kernels/flash/kernel.py:79",
                   {"flash": path2["flash"] + path3["flash"] + path6["flash"] + path7["flash"]
@@ -2488,6 +2777,9 @@ def main() -> int:
             entry.update(kernel_route=k["kernel_route"], launches_by_route=by_route)
         if "pass_ms" in k:
             entry["pass_ms"] = k["pass_ms"]
+        if name in ("matmul", "rmsnorm"):
+            # launches on path 1 and on path 10 (path 1 again under PCCL_VERIFY=1)
+            entry["launches_by_path"] = {"collectives": path1[name], "verified": path10[name]}
         if name == "flash":
             # launches on path 2 (Zamba2), path 3 (OLMoE), path 6 (Whisper),
             # path 7 (training Zamba2) and path 9 (training Whisper through the

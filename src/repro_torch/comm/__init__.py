@@ -12,6 +12,7 @@ from .exec_engine import (
 )
 from .pccl_collectives import (
     ErrorFeedbackState,
+    PcclComm,
     compressed_all_reduce,
     compressed_all_reduce_ef,
 )

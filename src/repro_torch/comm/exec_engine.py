@@ -29,6 +29,7 @@ device once per ``(CompiledSchedule, device)`` and cached.
 
 from __future__ import annotations
 
+import os
 import threading
 from collections import OrderedDict
 from dataclasses import dataclass
@@ -177,11 +178,25 @@ def _fold_groups(
 
 def compile_schedule(schedule: Schedule) -> CompiledSchedule:
     """Lower ``schedule`` to stacked round-group tables (memoized by
-    :meth:`Schedule.fingerprint`)."""
+    :meth:`Schedule.fingerprint`).
+
+    With ``PCCL_VERIFY=1`` in the environment, every schedule is first run
+    through the static chunk-dataflow verifier
+    (:func:`repro_torch.analysis.verify.assert_verified`) — a compile-time
+    proof of the collective's postcondition — before any table is built, so
+    a schedule that fails reaches neither this cache nor the device tables.
+    The check runs only on a cache miss (compiles are fingerprint-memoized)
+    and the variable is read only on that miss, so the disabled path costs
+    nothing.
+    """
     fp = schedule.fingerprint()
     cached = _COMPILED.get(fp)
     if cached is not None:
         return cached
+    if os.environ.get("PCCL_VERIFY", "0") not in ("", "0"):
+        from repro_torch.analysis.verify import assert_verified  # lazy: avoids a cycle
+
+        assert_verified(schedule)
     tables = [
         round_tables(rnd, schedule.n, ctx=_ctx(schedule, i))
         for i, rnd in enumerate(schedule.rounds)

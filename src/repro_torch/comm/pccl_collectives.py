@@ -1,27 +1,113 @@
-"""Int8-compressed all-reduce with error feedback, rank-stacked.
+"""Legacy PCCL collective API (deprecation shim) + compressed all-reduce,
+rank-stacked.
 
-The counterpart of the compressed half of ``repro.comm.pccl_collectives``:
-a ring reduce-scatter with per-hop requantization and a ring all-gather of
-the reduced int8 chunks.  Wire bytes drop 4× against fp32 at a
-quantization error bounded by each payload's ``max|x| / 127`` per hop,
-which the error-feedback residual compensates across steps.
+.. deprecated::
+    ``PcclComm`` is a thin shim over the session API — use
+    :class:`repro_torch.api.PcclSession` and ``session.communicator(...)``
+    instead, which add a shared plan cache, fabric-state threading across
+    collectives, ``split()`` sub-groups, and pluggable backends.  The
+    reference's ``algorithm="xla"`` string hack maps to ``backend="native"``
+    (the port's name for the plain-collective baseline).
+
+Migration::
+
+    # before
+    comm = PcclComm(axis_name="data", n=8, hw=cost_model.TPU_V5E_PHOTONIC)
+    # after
+    session = PcclSession(cost_model.TPU_V5E_PHOTONIC)
+    comm = session.communicator("data", 8, backend="interp")
+
+The int8-compressed gradient all-reduce with error feedback lives here too
+(not deprecated; it is schedule-independent): a ring reduce-scatter with
+per-hop requantization and a ring all-gather of the reduced int8 chunks.
+Wire bytes drop 4× against fp32 at a quantization error bounded by each
+payload's ``max|x| / 127`` per hop, which the error-feedback residual
+compensates across steps.
 
 Every operand is the global ``(n, …)`` tensor, row ``r`` being rank
 ``r``'s buffer.  The quantization scale belongs to one rank's payload (the
 reference takes one max over the hop a rank sends), so :func:`_quantize`
 reduces over every dim but the rank axis, never over the stacked tensor.
-
-The deprecated ``PcclComm`` shim is not ported.
 """
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
+from repro_torch.core import cost_model as cm
+from repro_torch.core import schedules as S
+from repro_torch.core.topology import Topology, ring
+
 from .errors import ScheduleExecutionError
+
+
+@dataclass
+class PcclComm:
+    """Deprecated: session-less communicator (see module docstring).
+
+    ``device`` is where its collectives run: CUDA unless the caller asks
+    for the CPU, as for every entry point of the port."""
+
+    axis_name: str
+    n: int
+    hw: cm.HardwareParams = cm.TPU_V5E_PHOTONIC
+    g0: Optional[Topology] = None
+    algorithm: str = "auto"  # auto | xla | ring | rhd | dex | direct
+    device: Optional[Union[str, torch.device]] = None
+
+    def __post_init__(self) -> None:
+        from repro_torch.core.pccl import SHIM_REMOVAL_VERSION
+
+        warnings.warn(
+            f"PcclComm is deprecated and will be removed in repro "
+            f"{SHIM_REMOVAL_VERSION}; use repro_torch.api.PcclSession.communicator()"
+            f" for execution and PcclSession.submit(PlanRequest(...)) for "
+            f"planning (it delegates bit-identically until then)",
+            DeprecationWarning,
+            stacklevel=2,
+        )
+        if self.g0 is None:
+            self.g0 = ring(self.n)
+        from repro_torch.api import PcclSession
+
+        # Legacy behavior: plan every collective cold from g0 (no threading).
+        self._session = PcclSession(self.hw, g0=self.g0, thread_fabric=False,
+                                    device=self.device)
+        self._comm = self._session.communicator(
+            self.axis_name,
+            self.n,
+            backend="native" if self.algorithm == "xla" else "interp",
+            algorithm="auto" if self.algorithm == "xla" else self.algorithm,
+        )
+
+    # ------------------------------------------------------------- planning
+    def _schedule(self, collective: str, nbytes: float) -> S.Schedule:
+        return self._comm._schedule(collective, nbytes)
+
+    def chosen_algorithm(self, collective: str, nbytes: float) -> str:
+        return self._comm.chosen_algorithm(collective, nbytes)
+
+    # ----------------------------------------------------------- primitives
+    # Every operand is rank-stacked: (n, *local), row r = rank r.
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        return self._comm.all_reduce(x)
+
+    def reduce_scatter(self, x: torch.Tensor) -> torch.Tensor:
+        """x: (n, n·k, …) per-rank addends → (n, k, …) reduced shards."""
+        return self._comm.reduce_scatter(x)
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """x: (n, k, …) shards → (n, n·k, …) gathered."""
+        return self._comm.all_gather(x)
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """x: (n, n·b, …) destination-major blocks → (n, n·b, …) origin-major."""
+        return self._comm.all_to_all(x)
+
 
 _INV_127 = 1.0 / 127.0  # equals float32(1) / float32(127) once cast to fp32
 

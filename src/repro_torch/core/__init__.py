@@ -12,9 +12,10 @@ Layers:
 * ``cost_model`` — extended α–β model with congestion + dilation (Alg. 2).
 * ``planner``    — the reconfiguration scheduler (Alg. 1) as an exact DP,
                    plus brute-force and MILP oracles.
+* ``simulate``   — semantic verifier for schedule post-conditions.
+* ``circuits``   — MZI-mesh circuit routing (Alg. 3).
+* ``fibers``     — inter-server fiber routing ILP/heuristic (Alg. 4).
 * ``pccl``       — user-facing planning facade.
-
-``simulate``, ``circuits`` and ``fibers`` are not copied yet.
 """
 
 from .cost_model import (
@@ -51,6 +52,7 @@ from .planner import (
     plan_sweep,
 )
 from .schedules import Round, Schedule, Transfer, get_schedule, split_for_fanout
+from .simulate import SimulationError, simulate, verify
 from .topology import (
     Topology,
     from_transfers,

@@ -79,7 +79,7 @@ class PcclPlan:
 
 
 # Version in which the deprecation shims (bare plan_collective /
-# choose_algorithm here; the PcclComm shim is not ported) are removed.  Their
+# choose_algorithm here, PcclComm in repro_torch.comm) are removed.  Their
 # replacement is the unified request surface: PcclSession.submit(PlanRequest)
 # (repro_torch.api.session) — every shim warning names both.
 SHIM_REMOVAL_VERSION = "2.0"

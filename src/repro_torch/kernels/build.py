@@ -11,6 +11,10 @@ edited source or header is rebuilt and an unchanged one is loaded as it
 is.  ``ptxas -v`` reports each kernel's registers, shared memory and
 spills; the report is kept beside the library (:func:`ptxas_report`).
 Nothing is built when a module is imported.
+
+:data:`LAUNCHES` counts each kernel's launches, by route, under a lock of
+its own: a wrapper records one where it launches its kernel and nowhere
+else.
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
 
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 SHARED_HEADERS = Path(__file__).resolve().parent / "csrc"
@@ -89,3 +93,48 @@ def load(source: Path) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build(source)))
             _LOADED[source] = lib
         return lib
+
+
+class LaunchCounts:
+    """Launches of each kernel of the port, by route, under one lock.
+
+    Readers get copies, so a count never moves under them; :meth:`reset`
+    sets every count to 0.
+    """
+
+    def __init__(self, routes: Dict[str, Tuple[str, ...]]) -> None:
+        self._lock = threading.Lock()
+        self._counts = {kernel: dict.fromkeys(names, 0) for kernel, names in routes.items()}
+
+    def record(self, kernel: str, route: str) -> None:
+        """One launch of ``kernel`` on ``route``."""
+        with self._lock:
+            self._counts[kernel][route] += 1
+
+    def by_route(self, kernel: str) -> Dict[str, int]:
+        with self._lock:
+            return dict(self._counts[kernel])
+
+    def total(self, kernel: str) -> int:
+        with self._lock:
+            return sum(self._counts[kernel].values())
+
+    def totals(self) -> Dict[str, int]:
+        """Every kernel's launches, all routes together."""
+        with self._lock:
+            return {kernel: sum(c.values()) for kernel, c in self._counts.items()}
+
+    def reset(self) -> None:
+        with self._lock:
+            for counts in self._counts.values():
+                for route in counts:
+                    counts[route] = 0
+
+
+# K1, K3 and K4 have a tensor-core and a CUDA-core route; K2 is one Triton kernel
+LAUNCHES = LaunchCounts({
+    "matmul": ("wgmma", "fma"),
+    "rmsnorm": ("triton",),
+    "flash": ("wgmma", "fma"),
+    "ssd": ("wgmma", "fma"),
+})

@@ -228,9 +228,23 @@ inline int make_map_bf16(CUtensorMap* map, const void* base, int rank, const cuu
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return ERR_NO_ENCODE_ENTRY;
   cuuint32_t elem[5] = {1, 1, 1, 1, 1};
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims,
-                  strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  auto encode = [&] {
+    return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims,
+              strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  };
+  CUresult r = encode();
+  if (r == CUDA_ERROR_INVALID_CONTEXT) {
+    // cuTensorMapEncodeTiled needs the thread's current context, which the
+    // runtime binds lazily: a host thread whose first CUDA call this is (a
+    // Python worker thread) has none yet.  cudaSetDevice binds the current
+    // device's primary context (CUDA 12), and the encode is tried again.
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaSetDevice(dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    r = encode();
+  }
   return r == CUDA_SUCCESS ? 0 : ERR_ENCODE_BASE + static_cast<int>(r);
 }
 

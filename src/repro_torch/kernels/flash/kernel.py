@@ -15,9 +15,8 @@ each a kernel of its own, chosen by the pure predicate
 The source notes say what bounds each kernel on an H100 and what its
 design does about it.  Each library is built with ``nvcc`` for ``sm_90a``
 at first launch (:mod:`repro_torch.kernels.build`) and launched on
-PyTorch's current stream.  :attr:`flash_attention_cuda.launches_by_route`
-counts the launches of each route and :attr:`flash_attention_cuda.launches`
-their sum.
+PyTorch's current stream.  :data:`~repro_torch.kernels.build.LAUNCHES`
+counts its launches under ``"flash"``, by route.
 """
 
 from __future__ import annotations
@@ -27,6 +26,8 @@ import math
 from pathlib import Path
 
 import torch
+
+from repro_torch.kernels.build import LAUNCHES
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash.cu"
 SOURCE_SM90 = Path(__file__).resolve().parent / "csrc" / "flash_sm90.cu"
@@ -131,10 +132,5 @@ def flash_attention_cuda(
             err = lib.pccl_flash_fwd(_DTYPES[q.dtype], *args, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_cuda: {route} kernel launch failed (error {err})")
-    flash_attention_cuda.launches_by_route[route] += 1
-    flash_attention_cuda.launches += 1
+    LAUNCHES.record("flash", route)
     return out
-
-
-flash_attention_cuda.launches = 0
-flash_attention_cuda.launches_by_route = {"wgmma": 0, "fma": 0}

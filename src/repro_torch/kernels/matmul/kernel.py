@@ -15,8 +15,8 @@ whole-M call):
 The source notes say what bounds each kernel on an H100 and what its
 design does about it.  Each library is built with ``nvcc`` for ``sm_90a``
 at first launch (:mod:`repro_torch.kernels.build`) and launched on
-PyTorch's current stream.  :attr:`matmul_cuda.launches_by_route` counts
-the launches of each route and :attr:`matmul_cuda.launches` their sum.
+PyTorch's current stream.  :data:`~repro_torch.kernels.build.LAUNCHES`
+counts its launches under ``"matmul"``, by route.
 """
 
 from __future__ import annotations
@@ -25,6 +25,8 @@ import ctypes
 from pathlib import Path
 
 import torch
+
+from repro_torch.kernels.build import LAUNCHES
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "matmul.cu"
 SOURCE_SM90 = Path(__file__).resolve().parent / "csrc" / "matmul_sm90.cu"
@@ -120,10 +122,5 @@ def matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
             )
     if err != 0:
         raise RuntimeError(f"matmul_cuda: {route} kernel launch failed (error {err})")
-    matmul_cuda.launches_by_route[route] += 1
-    matmul_cuda.launches += 1
+    LAUNCHES.record("matmul", route)
     return out
-
-
-matmul_cuda.launches = 0
-matmul_cuda.launches_by_route = {"wgmma": 0, "fma": 0}

@@ -14,8 +14,8 @@ once each way.  The TPU kernel padded lanes to 128 with zeros; the masked
 load reads zeros there instead, and the sum is divided by the true ``d``.
 
 Triton is imported, and the kernel compiled, at the first launch, never
-when this module is imported.  :attr:`rmsnorm_triton.launches` counts the
-launches.
+when this module is imported.  :data:`~repro_torch.kernels.build.LAUNCHES`
+counts its launches under ``"rmsnorm"`` (route ``"triton"``).
 """
 
 from __future__ import annotations
@@ -23,6 +23,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from repro_torch.kernels.build import LAUNCHES
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -110,8 +112,5 @@ def rmsnorm_triton(
             x, w, out, d, float(eps), BLOCK=block,
             num_warps=max(1, min(16, block // 1024)),
         )
-    rmsnorm_triton.launches += 1
+    LAUNCHES.record("rmsnorm", "triton")
     return out
-
-
-rmsnorm_triton.launches = 0

@@ -22,9 +22,8 @@ states, chunk totals, states before each chunk, and on the fma route each
 chunk's masked L × L scores) comes from here, with ``torch.empty``.  Each
 library is built with ``nvcc`` for ``sm_90a`` at first launch
 (:mod:`repro_torch.kernels.build`) and launched on PyTorch's current
-stream.  :attr:`ssd_cuda.launches` counts calls (one per call, the
-three passes together) and :attr:`ssd_cuda.launches_by_route` those of each
-route.
+stream.  :data:`~repro_torch.kernels.build.LAUNCHES` counts its calls
+under ``"ssd"``, by route (one per call, the three passes together).
 """
 
 from __future__ import annotations
@@ -34,6 +33,8 @@ from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
+
+from repro_torch.kernels.build import LAUNCHES
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd.cu"
 SOURCE_SM90 = Path(__file__).resolve().parent / "csrc" / "ssd_sm90.cu"
@@ -169,10 +170,5 @@ def ssd_cuda(
                                int(Bm.ndim == 4), stream)
     if err != 0:
         raise RuntimeError(f"ssd_cuda: {route} kernel launch failed (error {err})")
-    ssd_cuda.launches_by_route[route] += 1
-    ssd_cuda.launches += 1
+    LAUNCHES.record("ssd", route)
     return Y, fin
-
-
-ssd_cuda.launches = 0
-ssd_cuda.launches_by_route = {"wgmma": 0, "fma": 0}

@@ -1,1 +1,2 @@
-"""Command-line entry points (``repro.launch``): ``python -m repro_torch.launch.train``."""
+"""Command-line entry points (``repro.launch``): ``python -m
+repro_torch.launch.train`` and ``python -m repro_torch.launch.serve``."""

@@ -144,9 +144,14 @@ class Trainer:
     def _run_once(self) -> Dict[str, Any]:
         params, opt_state = self._init_state()
         start_step = 0
-        if self.ckpt is not None and self.ckpt.latest_step() is not None:
-            (params, opt_state), start_step, extra = self.ckpt.restore((params, opt_state))
-            print(f"[trainer] resumed from step {start_step}")
+        if self.ckpt is not None:
+            # a save still being written commits before the newest step is
+            # looked up: the reference looks first, and a failure that comes
+            # while the writer runs restarts it from scratch
+            self.ckpt.wait()
+            if self.ckpt.latest_step() is not None:
+                (params, opt_state), start_step, extra = self.ckpt.restore((params, opt_state))
+                print(f"[trainer] resumed from step {start_step}")
 
         last_metrics: Dict[str, float] = {}
         for step in range(start_step, self.tcfg.total_steps):

@@ -15,7 +15,8 @@ a reduced model or train step on the card against the CPU 1e-4; everything
 else bit for bit, the gradients through K3 and K4 (their plain versions'
 autograd) included.  K1, K3 and K4 have two routes each
 (tensor-core ``wgmma`` kernels for bf16, CUDA-core ``fma`` kernels
-otherwise); the tests count the launches of each.
+otherwise); the tests count the launches of each
+(``repro_torch.kernels.build.LAUNCHES``).
 """
 
 import math
@@ -24,6 +25,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+from repro_torch.kernels.build import LAUNCHES
 
 pytestmark = pytest.mark.cuda
 
@@ -41,28 +44,28 @@ def _tol(dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_matmul_kernel_matches_plain(dev, dtype):
-    from repro_torch.kernels.matmul import matmul, matmul_cuda, matmul_reference
+    from repro_torch.kernels.matmul import matmul, matmul_reference
 
     g = torch.Generator(device=dev).manual_seed(0)
     x = torch.randn(300, 520, generator=g, device=dev).to(dtype)  # ragged edges
     w = (torch.randn(520, 200, generator=g, device=dev) / math.sqrt(520)).to(dtype)
-    before = matmul_cuda.launches
+    before = LAUNCHES.total("matmul")
     got = matmul(x, w)
-    assert matmul_cuda.launches == before + 1
+    assert LAUNCHES.total("matmul") == before + 1
     torch.testing.assert_close(got.float(), matmul_reference(x, w).float(), **_tol(dtype))
     chunks = torch.cat([matmul(c, w) for c in x.split(100)])
     assert torch.equal(got, chunks)  # per-chunk calls == one whole-M call
 
 
-def _routes(fn):
-    return dict(fn.launches_by_route)
+def _routes(kernel):
+    return LAUNCHES.by_route(kernel)
 
 
-def _launched(fn, before, route):
-    after = _routes(fn)
+def _launched(kernel, before, route):
+    after = _routes(kernel)
     assert after[route] == before[route] + 1, (before, after)
     assert sum(after.values()) == sum(before.values()) + 1
-    assert fn.launches == sum(after.values())
+    assert LAUNCHES.total(kernel) == sum(after.values())
 
 
 @pytest.mark.parametrize("M,K,N", [
@@ -71,47 +74,47 @@ def _launched(fn, before, route):
     (129, 64, 8),       # one row into a second tile, one 8-column slice of N
 ])
 def test_matmul_tensor_core_route_partial_tiles(dev, M, K, N):
-    from repro_torch.kernels.matmul import matmul, matmul_cuda, matmul_reference
+    from repro_torch.kernels.matmul import matmul, matmul_reference
 
     g = torch.Generator(device=dev).manual_seed(2)
     x = torch.randn(M, K, generator=g, device=dev).to(torch.bfloat16)
     w = (torch.randn(K, N, generator=g, device=dev) / math.sqrt(K)).to(torch.bfloat16)
-    before = _routes(matmul_cuda)
+    before = _routes("matmul")
     got = matmul(x, w)
-    _launched(matmul_cuda, before, "wgmma")
+    _launched("matmul", before, "wgmma")
     assert got.dtype == torch.bfloat16 and got.shape == (M, N)
     torch.testing.assert_close(got.float(), matmul_reference(x, w).float(), rtol=2e-2, atol=2e-2)
     # per-chunk calls, at row offsets that fall inside tiles, == one whole-M call
     sizes = [M // 3, M // 5, M - M // 3 - M // 5]
-    before = _routes(matmul_cuda)
+    before = _routes("matmul")
     chunks = torch.cat([matmul(c, w) for c in x.split(sizes)])
-    assert _routes(matmul_cuda)["wgmma"] == before["wgmma"] + 3
+    assert _routes("matmul")["wgmma"] == before["wgmma"] + 3
     assert torch.equal(got, chunks)
 
 
 @pytest.mark.parametrize("K,N", [(100, 264), (200, 100), (36, 20)])
 def test_matmul_bf16_shapes_tma_cannot_address_take_the_cuda_core_route(dev, K, N):
-    from repro_torch.kernels.matmul import matmul, matmul_cuda, matmul_reference
+    from repro_torch.kernels.matmul import matmul, matmul_reference
 
     g = torch.Generator(device=dev).manual_seed(3)
     x = torch.randn(150, K, generator=g, device=dev).to(torch.bfloat16)
     w = (torch.randn(K, N, generator=g, device=dev) / math.sqrt(K)).to(torch.bfloat16)
-    before = _routes(matmul_cuda)
+    before = _routes("matmul")
     got = matmul(x, w)
-    _launched(matmul_cuda, before, "fma")
+    _launched("matmul", before, "fma")
     torch.testing.assert_close(got.float(), matmul_reference(x, w).float(), rtol=2e-2, atol=2e-2)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rmsnorm_kernel_matches_plain(dev, dtype):
-    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_reference, rmsnorm_triton
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_reference
 
     g = torch.Generator(device=dev).manual_seed(0)
     x = torch.randn(33, 300, generator=g, device=dev).to(dtype)  # d off a power of 2
     w = torch.randn(300, generator=g, device=dev) + 1.0
-    before = rmsnorm_triton.launches
+    before = LAUNCHES.total("rmsnorm")
     got = rmsnorm(x, w)
-    assert rmsnorm_triton.launches == before + 1
+    assert LAUNCHES.total("rmsnorm") == before + 1
     tol = dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 else dict(rtol=2e-5, atol=2e-5)
     torch.testing.assert_close(got.float(), rmsnorm_reference(x, w).float(), **tol)
     buf = x.clone()
@@ -150,19 +153,18 @@ def test_fused_seams_bit_identical_to_unfused(dev, dtype):
     from repro_torch import PcclSession
     from repro_torch.comm import fusion
     from repro_torch.core import cost_model as cm
-    from repro_torch.kernels.matmul import matmul_cuda
-    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_triton
+    from repro_torch.kernels.rmsnorm import rmsnorm
 
     session = PcclSession(cm.H100_DGX)
     ring = session.communicator("x", 8, algorithm="ring")
     g = torch.Generator(device=dev).manual_seed(1)
     x = torch.randn(8, 8 * 64, 256, generator=g, device=dev).to(dtype)
     w = (torch.randn(256, 384, generator=g, device=dev) / 16).to(dtype)
-    k1, fused = matmul_cuda.launches, session.exec_stats().fused_dispatches
-    k1_tc = matmul_cuda.launches_by_route["wgmma"]
+    k1, fused = LAUNCHES.total("matmul"), session.exec_stats().fused_dispatches
+    k1_tc = LAUNCHES.by_route("matmul")["wgmma"]
     out = fusion.fused_matmul_reduce_scatter(ring, x, w)
-    assert matmul_cuda.launches == k1 + 8  # one launch per step for all ranks
-    assert matmul_cuda.launches_by_route["wgmma"] == k1_tc + (8 if dtype == torch.bfloat16 else 0)
+    assert LAUNCHES.total("matmul") == k1 + 8  # one launch per step for all ranks
+    assert LAUNCHES.by_route("matmul")["wgmma"] == k1_tc + (8 if dtype == torch.bfloat16 else 0)
     assert session.exec_stats().fused_dispatches == fused + 1
     unfused = fusion._unfused_matmul_reduce_scatter(ring, x, w, blocks=(128, 128, 128))
     assert torch.equal(out, unfused)
@@ -170,9 +172,9 @@ def test_fused_seams_bit_identical_to_unfused(dev, dtype):
     comm = session.communicator("x", 8)
     a = torch.randn(8, 64, 384, generator=g, device=dev).to(dtype)
     gamma = torch.randn(384, generator=g, device=dev) + 1.0
-    k2 = rmsnorm_triton.launches
+    k2 = LAUNCHES.total("rmsnorm")
     out = fusion.fused_all_reduce_rmsnorm(comm, a, gamma)
-    assert rmsnorm_triton.launches == k2 + 1
+    assert LAUNCHES.total("rmsnorm") == k2 + 1
     assert torch.equal(out, rmsnorm(comm.all_reduce(a), gamma))
 
 
@@ -190,13 +192,13 @@ def _flash_inputs(dev, B, S, H, K, D, dtype, seed=0):
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain(dev, B, S, H, K, D, dtype):
-    from repro_torch.kernels.flash import attention_reference, flash_attention, flash_attention_cuda
+    from repro_torch.kernels.flash import attention_reference, flash_attention
 
     q, k, v = _flash_inputs(dev, B, S, H, K, D, dtype)
     for causal in (True, False):
-        before = flash_attention_cuda.launches
+        before = LAUNCHES.total("flash")
         got = flash_attention(q, k, v, causal=causal)
-        assert flash_attention_cuda.launches == before + 1
+        assert LAUNCHES.total("flash") == before + 1
         assert got.dtype == dtype and got.shape == q.shape
         want = attention_reference(q, k, v, causal=causal)
         tol = dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 else dict(rtol=1e-4, atol=1e-4)
@@ -211,7 +213,7 @@ def test_flash_kernel_matches_plain(dev, B, S, H, K, D, dtype):
     (1, 100, 300, 4, 2),    # non-causal only: T != S
 ])
 def test_flash_tensor_core_route(dev, D, B, S, T, H, K):
-    from repro_torch.kernels.flash import attention_reference, flash_attention, flash_attention_cuda
+    from repro_torch.kernels.flash import attention_reference, flash_attention
 
     g = torch.Generator(device=dev).manual_seed(D + S)
     q = torch.randn(B, S, H, D, generator=g, device=dev)
@@ -219,9 +221,9 @@ def test_flash_tensor_core_route(dev, D, B, S, T, H, K):
     for causal in ((True, False) if S == T else (False,)):
         for dtype, route in ((torch.bfloat16, "wgmma"), (torch.float32, "fma")):
             qd, kd, vd = (t.to(dtype) for t in (q, k, v))
-            before = _routes(flash_attention_cuda)
+            before = _routes("flash")
             got = flash_attention(qd, kd, vd, causal=causal)
-            _launched(flash_attention_cuda, before, route)
+            _launched("flash", before, route)
             assert got.dtype == dtype and got.shape == q.shape
             want = attention_reference(qd, kd, vd, causal=causal)
             tol = dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 else dict(rtol=1e-4, atol=1e-4)
@@ -229,12 +231,12 @@ def test_flash_tensor_core_route(dev, D, B, S, T, H, K):
 
 
 def test_flash_bf16_head_dims_off_the_tensor_core_route(dev):
-    from repro_torch.kernels.flash import attention_reference, flash_attention, flash_attention_cuda
+    from repro_torch.kernels.flash import attention_reference, flash_attention
 
     q, k, v = _flash_inputs(dev, 1, 130, 4, 2, 72, torch.bfloat16)  # D % 16 != 0
-    before = _routes(flash_attention_cuda)
+    before = _routes("flash")
     got = flash_attention(q, k, v)
-    _launched(flash_attention_cuda, before, "fma")
+    _launched("flash", before, "fma")
     torch.testing.assert_close(got.float(), attention_reference(q, k, v).float(), rtol=2e-2, atol=2e-2)
 
 
@@ -257,14 +259,14 @@ def _ssd_inputs(dev, B, S, H, P, N, dtype, per_head, seed=0):
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_kernel_matches_plain(dev, B, S, H, P, N, chunk, per_head, dtype):
-    from repro_torch.kernels.ssd import ssd, ssd_cuda, ssd_reference
+    from repro_torch.kernels.ssd import ssd, ssd_reference
 
     X, la, Bm, Cm, init = _ssd_inputs(dev, B, S, H, P, N, dtype, per_head)
     tol = dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 else dict(rtol=1e-4, atol=1e-4)
     for state in (None, init):
-        before = ssd_cuda.launches
+        before = LAUNCHES.total("ssd")
         Y, fin = ssd(X, la, Bm, Cm, chunk=chunk, initial_state=state)
-        assert ssd_cuda.launches == before + 1
+        assert LAUNCHES.total("ssd") == before + 1
         assert Y.dtype == fin.dtype == dtype  # the final state in X's dtype, as the plain version
         Yr, finr = ssd_reference(X, la, Bm, Cm, chunk=chunk, initial_state=state)
         torch.testing.assert_close(Y.float(), Yr.float(), **tol)
@@ -280,7 +282,7 @@ def test_ssd_kernel_matches_plain(dev, B, S, H, P, N, chunk, per_head, dtype):
     (2, 40, 2),     # S < chunk
 ])
 def test_ssd_tensor_core_route(dev, P, per_head, B, S, H):
-    from repro_torch.kernels.ssd import ssd, ssd_cuda, ssd_reference, tensor_core_route
+    from repro_torch.kernels.ssd import ssd, ssd_reference, tensor_core_route
 
     X, la, Bm, Cm, init = _ssd_inputs(dev, B, S, H, P, 64, torch.float32, per_head, seed=S + P)
     for dtype in (torch.bfloat16, torch.float32):
@@ -289,9 +291,9 @@ def test_ssd_tensor_core_route(dev, P, per_head, B, S, H):
         Xd, Bd, Cd = (t.to(dtype) for t in (X, Bm, Cm))
         tol = dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 else dict(rtol=1e-4, atol=1e-4)
         for state in (None, init):
-            before = _routes(ssd_cuda)
+            before = _routes("ssd")
             Y, fin = ssd(Xd, la, Bd, Cd, chunk=64, initial_state=state)
-            _launched(ssd_cuda, before, route)
+            _launched("ssd", before, route)
             assert Y.dtype == fin.dtype == dtype and Y.shape == X.shape
             Yr, finr = ssd_reference(Xd, la, Bd, Cd, chunk=64, initial_state=state)
             torch.testing.assert_close(Y.float(), Yr.float(), **tol)
@@ -327,15 +329,15 @@ def test_ssd_kernel_at_mlstm_widths(dev, dtype):
     """K4 at the mLSTM's P = 1024, N = 512 (xLSTM-1.3B), per-head B/C (k and
     q), an fp32 initial state and a ragged S: the fma route, 16 P-tiles and
     8 N-slices a chunk."""
-    from repro_torch.kernels.ssd import ssd, ssd_cuda, ssd_reference
+    from repro_torch.kernels.ssd import ssd, ssd_reference
 
     X, la, Bm, Cm, init = _ssd_inputs(dev, 1, 300, 2, 1024, 512, dtype, True, seed=5)
     la = la / 3  # the mLSTM's forget gates keep most of the state
     tol = dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 else dict(rtol=1e-4, atol=1e-4)
     for state in (None, init):
-        before = _routes(ssd_cuda)
+        before = _routes("ssd")
         Y, fin = ssd(X, la, Bm, Cm, chunk=64, initial_state=state)
-        _launched(ssd_cuda, before, "fma")
+        _launched("ssd", before, "fma")
         assert Y.dtype == fin.dtype == dtype and fin.shape == (1, 2, 1024, 512)
         Yr, finr = ssd_reference(X, la, Bm, Cm, chunk=64, initial_state=state)
         torch.testing.assert_close(Y.float(), Yr.float(), **tol)
@@ -348,8 +350,6 @@ def test_zamba2_reduced_pallas_path_matches_plain_on_the_card(dev):
     import dataclasses
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash import flash_attention_cuda
-    from repro_torch.kernels.ssd import ssd_cuda
     from repro_torch.models import build_model
 
     cfg = get_config("zamba2-2.7b").reduced()
@@ -359,11 +359,11 @@ def test_zamba2_reduced_pallas_path_matches_plain_on_the_card(dev):
     with torch.inference_mode():
         for use_pallas in (False, True):
             m = build_model(dataclasses.replace(cfg, use_pallas=use_pallas))
-            k3, k4 = flash_attention_cuda.launches, ssd_cuda.launches
+            k3, k4 = LAUNCHES.total("flash"), LAUNCHES.total("ssd")
             logits, state = m.prefill(params, {"tokens": tokens[:, :38]})
             groups = cfg.n_layers // cfg.hybrid.shared_attn_every
-            assert flash_attention_cuda.launches - k3 == (groups if use_pallas else 0)
-            assert ssd_cuda.launches - k4 == (cfg.n_layers if use_pallas else 0)
+            assert LAUNCHES.total("flash") - k3 == (groups if use_pallas else 0)
+            assert LAUNCHES.total("ssd") - k4 == (cfg.n_layers if use_pallas else 0)
             out[use_pallas] = [logits]
             for i in (38, 39):
                 logits, state = m.decode_step(params, state, tokens[:, i:i + 1])
@@ -374,12 +374,12 @@ def test_zamba2_reduced_pallas_path_matches_plain_on_the_card(dev):
 
 def test_flash_tensor_core_route_at_olmoe_head_dim(dev):
     """K3 at OLMoE's attention (16 heads of 128, MHA), bf16: the wgmma route."""
-    from repro_torch.kernels.flash import attention_reference, flash_attention, flash_attention_cuda
+    from repro_torch.kernels.flash import attention_reference, flash_attention
 
     q, k, v = _flash_inputs(dev, 1, 512, 16, 16, 128, torch.bfloat16, seed=3)
-    before = _routes(flash_attention_cuda)
+    before = _routes("flash")
     got = flash_attention(q, k, v, causal=True)
-    _launched(flash_attention_cuda, before, "wgmma")
+    _launched("flash", before, "wgmma")
     torch.testing.assert_close(got.float(), attention_reference(q, k, v).float(),
                                rtol=2e-2, atol=2e-2)
 
@@ -392,7 +392,6 @@ def test_decoder_reduced_on_the_card_equals_the_cpu(dev, arch):
     import dataclasses
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash import flash_attention_cuda
     from repro_torch.models import build_model
 
     cfg = dataclasses.replace(get_config(arch).reduced(), use_pallas=True)
@@ -403,9 +402,9 @@ def test_decoder_reduced_on_the_card_equals_the_cpu(dev, arch):
     with torch.inference_mode():
         for device in ("cpu", dev):
             p, toks = params.to(device), tokens.to(device)
-            k3 = _routes(flash_attention_cuda)
+            k3 = _routes("flash")
             logits, state = model.prefill(p, {"tokens": toks[:, :40]})
-            launched = {r: n - k3[r] for r, n in _routes(flash_attention_cuda).items()}
+            launched = {r: n - k3[r] for r, n in _routes("flash").items()}
             if device == dev:
                 want = 0 if cfg.mla else cfg.n_layers
                 assert launched == {"wgmma": 0, "fma": want}, launched
@@ -424,7 +423,6 @@ def test_xlstm_reduced_on_the_card_equals_the_cpu(dev):
     import dataclasses
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels.ssd import ssd_cuda
     from repro_torch.models import build_model
 
     cfg = dataclasses.replace(get_config("xlstm-1.3b").reduced(), use_pallas=True)
@@ -435,9 +433,9 @@ def test_xlstm_reduced_on_the_card_equals_the_cpu(dev):
     with torch.inference_mode():
         for device in ("cpu", dev):
             p, toks = params.to(device), tokens.to(device)
-            k4 = _routes(ssd_cuda)
+            k4 = _routes("ssd")
             logits, state = model.prefill(p, {"tokens": toks[:, :40]})
-            launched = {r: n - k4[r] for r, n in _routes(ssd_cuda).items()}
+            launched = {r: n - k4[r] for r, n in _routes("ssd").items()}
             if device == dev:
                 assert launched == {"wgmma": 0, "fma": model.n_groups * model.m_per_group}, launched
             out[device] = [logits]
@@ -453,12 +451,12 @@ def test_flash_kernel_at_whisper_decoder_shape(dev, dtype, route):
     """K3 at Whisper-small's decoder prefill (12 heads of 64, MHA) with the
     longest prompt OpenAI's decoding builds, S = 228: ragged against the
     tiles, causal, on each route."""
-    from repro_torch.kernels.flash import attention_reference, flash_attention, flash_attention_cuda
+    from repro_torch.kernels.flash import attention_reference, flash_attention
 
     q, k, v = _flash_inputs(dev, 2, 228, 12, 12, 64, dtype, seed=4)
-    before = _routes(flash_attention_cuda)
+    before = _routes("flash")
     got = flash_attention(q, k, v, causal=True)
-    _launched(flash_attention_cuda, before, route)
+    _launched("flash", before, route)
     assert got.dtype == dtype and got.shape == q.shape
     tol = dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 else dict(rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(got.float(), attention_reference(q, k, v).float(), **tol)
@@ -473,7 +471,6 @@ def test_whisper_reduced_on_the_card_equals_the_cpu(dev):
     import dataclasses
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash import flash_attention_cuda
     from repro_torch.models import build_model
 
     cfg = dataclasses.replace(get_config("whisper-small").reduced(), use_pallas=True)
@@ -486,10 +483,10 @@ def test_whisper_reduced_on_the_card_equals_the_cpu(dev):
     with torch.inference_mode():
         for device in ("cpu", dev):
             p, toks = params.to(device), tokens.to(device)
-            k3 = _routes(flash_attention_cuda)
+            k3 = _routes("flash")
             logits, state = model.prefill(p, {"tokens": toks[:, :40],
                                               "enc_frames": frames.to(device)}, max_len=48)
-            launched = {r: n - k3[r] for r, n in _routes(flash_attention_cuda).items()}
+            launched = {r: n - k3[r] for r, n in _routes("flash").items()}
             if device == dev:
                 assert launched == {"wgmma": 0, "fma": cfg.n_layers}, launched
             out[device] = [logits, *state["cross"].values()]
@@ -497,7 +494,7 @@ def test_whisper_reduced_on_the_card_equals_the_cpu(dev):
                 logits, state = model.decode_step(p, state, toks[:, i:i + 1])
                 out[device].append(logits)
             if device == dev:
-                assert _routes(flash_attention_cuda) == {r: n + (cfg.n_layers if r == "fma" else 0)
+                assert _routes("flash") == {r: n + (cfg.n_layers if r == "fma" else 0)
                                                          for r, n in k3.items()}  # none in decode
     for a, b in zip(out[dev], out["cpu"]):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
@@ -521,15 +518,15 @@ def test_flash_gradient_through_the_kernel_is_the_plain_versions(dev, case, dtyp
     route as without autograd), and the gradient is the plain version's
     autograd, bit for bit (the backward recomputes the plain version on the
     same inputs); at the smoke's GQA and ragged shapes."""
-    from repro_torch.kernels.flash import attention_reference, flash_attention, flash_attention_cuda
+    from repro_torch.kernels.flash import attention_reference, flash_attention
 
     B, S, H, K, D = {"gqa": (2, 256, 8, 2, 64), "ragged": (1, 200, 32, 32, 80)}[case]
     q, k, v = (t.requires_grad_() for t in _flash_inputs(dev, B, S, H, K, D, dtype, seed=7))
     w = [torch.randn(B, S, H, D, generator=torch.Generator(device=dev).manual_seed(8), device=dev)]
     route = "wgmma" if dtype == torch.bfloat16 else "fma"
-    before = _routes(flash_attention_cuda)
+    before = _routes("flash")
     (got,), grads = _grad_case(lambda *t: flash_attention(*t, causal=True), (q, k, v), w)
-    _launched(flash_attention_cuda, before, route)  # one launch, the backward launches none
+    _launched("flash", before, route)  # one launch, the backward launches none
     (want,), want_grads = _grad_case(lambda *t: attention_reference(*t, causal=True), (q, k, v), w)
     tol = dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 else dict(rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(got.float(), want.float(), **tol)
@@ -543,7 +540,7 @@ def test_ssd_gradient_through_the_kernel_is_the_plain_versions(dev, case, dtype)
     of X, la, B, C (shared B/C summed over heads on the ragged case) and an
     initial state is ``ssd_reference``'s autograd, bit for bit; the final
     state takes no gradient where nothing reads it."""
-    from repro_torch.kernels.ssd import ssd, ssd_cuda, ssd_reference
+    from repro_torch.kernels.ssd import ssd, ssd_reference
 
     B, S, H, P, N = {"per_head": (2, 512, 8, 64, 64), "ragged": (2, 1000, 80, 64, 64),
                      "initial_state": (1, 200, 4, 64, 64)}[case]
@@ -556,9 +553,9 @@ def test_ssd_gradient_through_the_kernel_is_the_plain_versions(dev, case, dtype)
     w = [torch.randn(B, S, H, P, generator=g, device=dev),
          torch.randn(B, H, P, N, generator=g, device=dev) if case == "initial_state" else None]
     route = "wgmma" if dtype == torch.bfloat16 else "fma"
-    before = _routes(ssd_cuda)
+    before = _routes("ssd")
     (Y, _), grads = _grad_case(lambda *t: ssd(*t[:4], chunk=64, initial_state=t[4]), inputs, w)
-    _launched(ssd_cuda, before, route)
+    _launched("ssd", before, route)
     (Yr, _), want = _grad_case(lambda *t: ssd_reference(*t[:4], chunk=64, initial_state=t[4]),
                                inputs, w)
     tol = dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 else dict(rtol=1e-4, atol=1e-4)
@@ -577,8 +574,6 @@ def test_reduced_train_step_on_the_card_equals_the_cpu(dev):
 
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticLMData, to_device
-    from repro_torch.kernels.flash import flash_attention_cuda
-    from repro_torch.kernels.ssd import ssd_cuda
     from repro_torch.models import ParamTree, build_model
     from repro_torch.train import OptimizerConfig, init_opt_state, make_train_step
 
@@ -590,14 +585,14 @@ def test_reduced_train_step_on_the_card_equals_the_cpu(dev):
     out = {}
     for device in ("cpu", dev):
         params = ParamTree.from_state_dict({k: v.clone().to(device) for k, v in start.items()})
-        k3, k4 = _routes(flash_attention_cuda), _routes(ssd_cuda)
+        k3, k4 = _routes("flash"), _routes("ssd")
         params, _, metrics = step(params, init_opt_state(params), to_device(batch, device))
         if device == dev:
             groups = cfg.n_layers // cfg.hybrid.shared_attn_every
             # forward and remat recompute, 2 microbatches
-            assert {r: n - k3[r] for r, n in _routes(flash_attention_cuda).items()} == \
+            assert {r: n - k3[r] for r, n in _routes("flash").items()} == \
                 {"wgmma": 0, "fma": 4 * groups}
-            assert {r: n - k4[r] for r, n in _routes(ssd_cuda).items()} == \
+            assert {r: n - k4[r] for r, n in _routes("ssd").items()} == \
                 {"wgmma": 0, "fma": 4 * cfg.n_layers}
         out[device] = (metrics, {k: v.detach().cpu() for k, v in params.state_dict().items()})
     (m_cpu, p_cpu), (m_dev, p_dev) = out["cpu"], out[dev]
@@ -615,14 +610,14 @@ def test_flash_kernel_at_whisper_train_shape(dev, dtype, route):
     that take a gradient: one launch on the route, the forward within the
     kernel tolerance of the plain version, the gradient the plain version's
     autograd bit for bit."""
-    from repro_torch.kernels.flash import attention_reference, flash_attention, flash_attention_cuda
+    from repro_torch.kernels.flash import attention_reference, flash_attention
 
     q, k, v = (t.requires_grad_() for t in _flash_inputs(dev, 4, 448, 12, 12, 64, dtype, seed=11))
     w = [torch.randn(4, 448, 12, 64, generator=torch.Generator(device=dev).manual_seed(12),
                      device=dev)]
-    before = _routes(flash_attention_cuda)
+    before = _routes("flash")
     (got,), grads = _grad_case(lambda *t: flash_attention(*t, causal=True), (q, k, v), w)
-    _launched(flash_attention_cuda, before, route)
+    _launched("flash", before, route)
     (want,), want_grads = _grad_case(lambda *t: attention_reference(*t, causal=True), (q, k, v), w)
     tol = dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 else dict(rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(got.float(), want.float(), **tol)
@@ -674,7 +669,6 @@ def test_reduced_whisper_trainer_on_the_card(dev, tmp_path):
     from repro_torch.ckpt import CheckpointConfig
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig
-    from repro_torch.kernels.flash import flash_attention_cuda
     from repro_torch.runtime.fault import FailureInjector
     from repro_torch.train import OptimizerConfig, Trainer, TrainerConfig
 
@@ -686,9 +680,9 @@ def test_reduced_whisper_trainer_on_the_card(dev, tmp_path):
                       ckpt_cfg=CheckpointConfig(str(tmp_path), keep=2),
                       failure_injector=FailureInjector(fail_at_steps=(3,)))
     assert trainer.device.type == "cuda"
-    before = _routes(flash_attention_cuda)
+    before = _routes("flash")
     out = trainer.run()
-    launched = {r: n - before[r] for r, n in _routes(flash_attention_cuda).items()}
+    launched = {r: n - before[r] for r, n in _routes("flash").items()}
     steps = [h["step"] for h in out["history"]]
     assert steps == [0, 1, 2, 2, 3, 4, 5]
     # each step: n_layers decoder layers x (forward + remat recompute) x 2 microbatches
@@ -698,3 +692,55 @@ def test_reduced_whisper_trainer_on_the_card(dev, tmp_path):
     assert losses[3] == pytest.approx(losses[2], rel=1e-6)
     assert trainer.ckpt.latest_step() == 6 and trainer.ckpt.steps() == [4, 6]
     assert all(p.device.type == "cuda" for p in out["params"].parameters())
+
+
+def test_launch_counts_are_one_locked_object_of_every_kernel(dev):
+    """``LAUNCHES`` counts each kernel where it launches, by route, and
+    nowhere else: one call of each entry point adds one to its kernel and
+    route; launches from several fresh threads at once all launch and all
+    count; ``reset`` sets every count to 0 and the readers return copies."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels.build import LAUNCHES, LaunchCounts
+    from repro_torch.kernels.flash import flash_attention
+    from repro_torch.kernels.matmul import matmul
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.ssd import ssd
+
+    assert isinstance(LAUNCHES, LaunchCounts)
+    assert set(LAUNCHES.totals()) == {"matmul", "rmsnorm", "flash", "ssd"}
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn(128, 64, generator=g, device=dev).to(torch.bfloat16)
+    w = torch.randn(64, 64, generator=g, device=dev).to(torch.bfloat16)
+    q, k, v = _flash_inputs(dev, 1, 64, 2, 2, 64, torch.bfloat16)
+    X, la, Bm, Cm, _ = _ssd_inputs(dev, 1, 64, 2, 64, 64, torch.bfloat16, False)
+    LAUNCHES.reset()
+    assert LAUNCHES.totals() == {"matmul": 0, "rmsnorm": 0, "flash": 0, "ssd": 0}
+    matmul(x, w)
+    rmsnorm(x, torch.ones(64, device=dev))
+    flash_attention(q, k, v, causal=True)
+    ssd(X, la, Bm, Cm, chunk=64)
+    torch.cuda.synchronize()
+    assert LAUNCHES.totals() == {"matmul": 1, "rmsnorm": 1, "flash": 1, "ssd": 1}
+    assert {name: LAUNCHES.by_route(name) for name in ("matmul", "rmsnorm", "flash", "ssd")} == {
+        "matmul": {"wgmma": 1, "fma": 0}, "rmsnorm": {"triton": 1},
+        "flash": {"wgmma": 1, "fma": 0}, "ssd": {"wgmma": 1, "fma": 0}}
+    snapshot = LAUNCHES.by_route("matmul")
+    snapshot["wgmma"] = 99  # a copy: the count does not move
+    assert LAUNCHES.total("matmul") == 1
+
+    def launch_many(_):
+        # a fresh host thread: the tensor-core wrappers encode their TMA maps
+        # with cuTensorMapEncodeTiled, which needs the thread's context bound
+        for _ in range(20):
+            matmul(x, w)
+            flash_attention(q, k, v, causal=True)
+            ssd(X, la, Bm, Cm, chunk=64)
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(launch_many, range(8)))
+    torch.cuda.synchronize()
+    for name in ("matmul", "flash", "ssd"):
+        assert LAUNCHES.by_route(name) == {"wgmma": 1 + 8 * 20, "fma": 0}, name
+    LAUNCHES.reset()
+    assert sum(LAUNCHES.totals().values()) == 0

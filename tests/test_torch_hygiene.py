@@ -54,7 +54,8 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
     assert "BAD []" in proc.stdout
 
 
-@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", EXAMPLE],
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+                         + sorted((ROOT / "examples").glob("*_torch.py")),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_sources_import_no_jax_and_no_repro(path):
     tree = ast.parse(path.read_text())

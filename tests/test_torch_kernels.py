@@ -21,6 +21,7 @@ from repro.kernels.matmul.ops import tiles_exactly as ref_tiles_exactly
 from repro.kernels.rmsnorm.kernel import rmsnorm_pallas
 from repro.kernels.ssd import ref as ref_ssd
 from repro.kernels.ssd.kernel import ssd_pallas
+from repro_torch.kernels.build import LAUNCHES
 from repro_torch.kernels.flash import attention_reference, flash_attention, flash_attention_cuda
 from repro_torch.kernels.flash import tensor_core_route as flash_tc_route
 from repro_torch.kernels.matmul import matmul, matmul_cuda, matmul_reference, matmul_route, tiles_exactly
@@ -460,10 +461,8 @@ def test_cpu_tensors_take_the_plain_versions(dtype):
     X = torch.from_numpy(rng.normal(size=(1, 70, 2, 64)).astype(np.float32)).to(tdt)
     la = torch.from_numpy(-rng.uniform(size=(1, 70, 2)).astype(np.float32))
     bc = torch.from_numpy(rng.normal(size=(1, 70, 64)).astype(np.float32)).to(tdt)
-    fns = (matmul_cuda, flash_attention_cuda, ssd_cuda)
-
     def counts():
-        return [(dict(fn.launches_by_route), fn.launches) for fn in fns]
+        return [(LAUNCHES.by_route(k), LAUNCHES.total(k)) for k in ("matmul", "flash", "ssd")]
 
     before = counts()
     assert torch.equal(matmul(x, w), matmul_reference(x, w))
@@ -489,6 +488,45 @@ def test_tensor_core_sources_are_in_the_package(name):
     assert (SHARED_HEADERS / "sm90.cuh").exists()
     assert library_path(src) != library_path(mod.SOURCE)
     assert ptxas_report(src) == "" or "registers" in ptxas_report(src)
-    counter = getattr(mod, {"matmul": "matmul_cuda", "flash": "flash_attention_cuda",
-                             "ssd": "ssd_cuda"}[name])
-    assert set(counter.launches_by_route) == {"wgmma", "fma"}
+    assert set(LAUNCHES.by_route(name)) == {"wgmma", "fma"}
+
+
+def test_launch_counts_lose_no_update_under_threads():
+    """``LaunchCounts`` is one lock around every count: 32 threads (more
+    than the cores) recording at once, with the interpreter switching
+    threads every microsecond, lose no launch; readers get copies and
+    ``reset`` zeroes every route."""
+    import sys
+    import threading
+
+    from repro_torch.kernels.build import LaunchCounts
+
+    counts = LaunchCounts({"a": ("x", "y"), "b": ("z",)})
+    per_thread = 2000
+
+    def launches(i):
+        kernel, route = ("a", "x") if i % 2 else ("b", "z")
+        for _ in range(per_thread):
+            counts.record(kernel, route)
+            counts.record("a", "y")
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=launches, args=(i,)) for i in range(32)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(old)
+    assert counts.by_route("a") == {"x": 16 * per_thread, "y": 32 * per_thread}
+    assert counts.totals() == {"a": 48 * per_thread, "b": 16 * per_thread}
+    copy = counts.by_route("b")
+    copy["z"] = 0
+    assert counts.total("b") == 16 * per_thread
+    counts.reset()
+    assert counts.totals() == {"a": 0, "b": 0} and counts.by_route("a") == {"x": 0, "y": 0}
+    with pytest.raises(KeyError):
+        counts.record("a", "z")  # a route the kernel does not have

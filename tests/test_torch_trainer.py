@@ -421,6 +421,39 @@ def test_restart_is_bit_equal_to_the_uninterrupted_run_and_matches_reference(tmp
     assert port.ckpt.latest_step() == 6 and port.ckpt.steps() == [2, 4, 6]
 
 
+def test_restart_waits_for_the_checkpoint_being_written(tmp_path):
+    """A failure while the step-2 checkpoint is still being written (its
+    writer held until 0.5 s after the failure): the restart waits for the
+    writer and resumes from step 2.  The reference's ``_run_once`` looks up
+    the newest committed step before it waits (``src/repro/train/
+    trainer.py:195``) and would restart from scratch here; the port waits
+    first (found on the card, where a reduced step outruns the writer)."""
+    import threading
+
+    port = _trainers("chatglm3-6b", steps=6)[1]
+    port = Trainer(port.cfg, port.data_cfg, port.opt_cfg, port.tcfg,
+                   ckpt_cfg=CheckpointConfig(str(tmp_path), keep=3, async_write=True),
+                   failure_injector=fault.FailureInjector(fail_at_steps=(3,)), device="cpu")
+    gate, write, check = threading.Event(), port.ckpt._write, port.injector.check
+
+    def held_write(step, *args):
+        if step == 2:
+            assert gate.wait(timeout=60)
+        write(step, *args)
+
+    def failing_check(step):
+        try:
+            check(step)
+        except fault.InjectedFailure:
+            threading.Timer(0.5, gate.set).start()
+            raise
+
+    port.ckpt._write, port.injector.check = held_write, failing_check
+    out = port.run()
+    assert [h["step"] for h in out["history"]] == [0, 1, 2, 2, 3, 4, 5]
+    assert gate.is_set() and port.ckpt.steps() == [2, 4, 6]
+
+
 def test_trainer_refuses_a_mesh():
     ref_cfg, cfg = _cfgs("chatglm3-6b")
     args = (cfg, DataConfig(global_batch=2, seq_len=16), OptimizerConfig(), TrainerConfig())

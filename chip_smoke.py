@@ -93,6 +93,19 @@ and then drives the port's main paths:
    repro_torch.launch.serve --arch zamba2-2.7b --no-reduced`` (the
    published config, its tokens/s and peak memory).
 
+11. path 2 again under a mesh: ``torch.distributed`` on NCCL with one
+   rank, ``init_device_mesh("cuda", (1, 1))`` with ``("data", "model")``,
+   ``ServeEngine.generate`` inside ``use_partitioning(mesh,
+   default_rules())``: the tokens and every step's logits bit for bit as
+   path 2's, K3 9 and K4 54 launches a prefill on the tensor-core route,
+   and the shard sites a prefill reaches the count the CPU test takes.
+   Beside it, in fresh processes: the port's roofline of path 2's prefill
+   and path 7's step on one rank, printed beside their measured times
+   (11b), and ``python -m repro_torch.launch.dryrun`` for Zamba2-2.7B and
+   OLMoE-1B-7B × train_4k on 256 ranks and Zamba2 on 512 (11c): each exits
+   0, allocates nothing on the card, and prints its bytes by collective
+   and PCCL's speedup.
+
 A parity phase then holds Zamba2's prefill with the kernels against its
 plain path in fp32 (6 layers, batch 2, 512 tokens), and teacher-forced
 decode against a longer prefill, xLSTM's the same way (one group: 7
@@ -175,6 +188,9 @@ SSD_TIMED = {"serving": "ssd", "mlstm": "ssd_mlstm"}
 # xLSTM-1.3B cut to one group (7 mLSTMs, one sLSTM); OLMoE and
 # DeepSeek-V2-Lite at full widths in fp32, cut to 2 layers
 PARITY_LAYERS, PARITY_BATCH, PARITY_PROMPT = 6, 2, 512
+# the shard sites a served Zamba2 prefill reaches at the published depth
+# (tests/test_torch_sharding.py counts them on the CPU)
+ZAMBA2_SHARD_SITES_PER_PREFILL = 155
 XLSTM_PARITY_LAYERS = 8
 DECODER_PARITY_LAYERS = 2
 PARITY_TOL = 1e-3      # same algorithms, fp32 sums in other orders
@@ -876,15 +892,17 @@ def prefill_launches(cfg) -> dict:
     return {"flash": 0 if cfg.mla else cfg.n_layers, "ssd": 0}
 
 
-def serve_path(torch, cfg, device, prompts, new_tokens, seed=SEED) -> dict:
+def serve_path(torch, cfg, device, prompts, new_tokens, seed=SEED, keep_logits=False) -> dict:
     """Serving, as a user calls it: a ServeEngine on the card with random
     weights, ``generate`` on ragged requests.  Returns what it produced,
-    for the checks made after the counted window."""
+    for the checks made after the counted window (with ``keep_logits``,
+    a copy of every step's logits on the card)."""
     import numpy as np
 
     from repro_torch import PcclSession
     from repro_torch.core import cost_model as cm
     from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+    from repro_torch.sharding import SITES
 
     t = time.perf_counter()
     engine = ServeEngine(cfg, EngineConfig(batch_size=len(prompts),
@@ -898,25 +916,31 @@ def serve_path(torch, cfg, device, prompts, new_tokens, seed=SEED) -> dict:
 
     # watch the model's two entry points: the logits each returns, and the
     # kernel launches made before decode began
-    seen = {"finite": [], "at_first_decode": None}
+    seen = {"finite": [], "at_first_decode": None, "logits": []}
     prefill, decode_step = engine.model.prefill, engine.model.decode_step
 
     def watched_prefill(*args, **kwargs):
         logits, state = prefill(*args, **kwargs)
         seen["finite"].append(torch.isfinite(logits).all())
         seen["prefill_logits_shape"] = tuple(logits.shape)
+        if keep_logits:
+            seen["logits"].append(logits.clone())
         return logits, state
 
     def watched_decode(*args, **kwargs):
         if seen["at_first_decode"] is None:
             seen["at_first_decode"] = (LAUNCHES.total("flash"), LAUNCHES.total("ssd"))
+            seen["sites_at_first_decode"] = SITES.total()
             seen["k3_routes_at_first_decode"] = LAUNCHES.by_route("flash")
             seen["k4_routes_at_first_decode"] = LAUNCHES.by_route("ssd")
         logits, state = decode_step(*args, **kwargs)
         seen["finite"].append(torch.isfinite(logits).all())
+        if keep_logits:
+            seen["logits"].append(logits.clone())
         return logits, state
 
     engine.model.prefill, engine.model.decode_step = watched_prefill, watched_decode
+    SITES.reset()
     seen["k3_routes_before"] = LAUNCHES.by_route("flash")
     seen["k4_routes_before"] = LAUNCHES.by_route("ssd")
     rng = np.random.default_rng(seed)
@@ -2489,6 +2513,173 @@ def path10_phase(torch, gen, reset_counts, read_counts):
 # ---------------------------------------------------------------------- main
 
 
+PATH11_CELLS = (("zamba2-2.7b", "train_4k", "single"), ("olmoe-1b-7b", "train_4k", "single"),
+                ("zamba2-2.7b", "train_4k", "multi"))
+PATH11_TIMEOUT = 600   # seconds a background count may take
+ROOFLINE_CODE = """
+import json
+from repro_torch.configs import get_config
+from repro_torch.launch.dryrun import one_rank_roofline
+cfg = get_config("zamba2-2.7b")
+print("ROOFLINE " + json.dumps({
+    "prefill": one_rank_roofline(cfg, "prefill", %d, %d, max_len=%d),
+    "train": one_rank_roofline(cfg, "train", %d, %d, microbatches=%d)}))
+"""
+
+
+def start_background(name: str, cmd) -> dict:
+    """``python cmd`` in a fresh process from the checkout's root, running
+    beside what the script does next (:func:`finish_background`)."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    env.pop("PCCL_VERIFY", None)
+    log(f"  started in the background: {name}: python {' '.join(cmd)[:120]}")
+    proc = subprocess.Popen([sys.executable, *cmd], cwd=SRC.parent, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return {"name": name, "cmd": cmd, "proc": proc, "t0": time.perf_counter()}
+
+
+def finish_background(job) -> list:
+    """Wait for a background process; its lines, all printed.  Fails unless
+    it exits 0."""
+    try:
+        out, err = job["proc"].communicate(timeout=PATH11_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        job["proc"].kill()
+        job["proc"].communicate()
+        raise
+    wall = time.perf_counter() - job["t0"]
+    lines = out.strip().splitlines()
+    log(f"  {job['name']}: exit {job['proc'].returncode} after {wall:.1f} s")
+    for line in lines:
+        log(f"    | {line[:400]}")
+    check(job["proc"].returncode == 0, f"{job['name']} failed: {err[-3000:]}")
+    return lines
+
+
+def path11a(torch, cfg, reference, reset_counts, read_counts, device=None) -> tuple:
+    """Path 2 again under a one-rank NCCL mesh with the default rules:
+    the same tokens and every step's logits bit for bit, K3 and K4 as
+    often and on the same route, and the shard sites a prefill reaches.
+    (On the CPU, for a rehearsal, the group is gloo's.)"""
+    import os
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.sharding import default_rules, use_partitioning
+
+    device = device or torch.device("cuda")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo", rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh(device.type, (1, 1), mesh_dim_names=("data", "model"))
+        log(f"  mesh: {mesh}")
+        reset_counts()
+        with use_partitioning(mesh, default_rules()):
+            served = serve_path(torch, cfg, device, SERVE_PROMPTS, SERVE_NEW_TOKENS,
+                                keep_logits=True)
+        counts = read_counts()
+        routes = {"flash": LAUNCHES.by_route("flash"), "ssd": LAUNCHES.by_route("ssd")}
+        log(f"  kernel launches {counts}")
+        stats = check_serve(torch, served, cfg)
+        sites = served["seen"]["sites_at_first_decode"]
+        log(f"  shard sites per prefill: {sites} (the CPU count: {ZAMBA2_SHARD_SITES_PER_PREFILL})")
+        check(sites == ZAMBA2_SHARD_SITES_PER_PREFILL,
+              f"a prefill under the mesh reached {sites} shard sites, "
+              f"not {ZAMBA2_SHARD_SITES_PER_PREFILL}")
+        tokens = [list(q.generated) for q in served["requests"]]
+        logits = [x.cpu() for x in served["seen"]["logits"]]
+        same_logits = (len(logits) == len(reference["logits"])
+                       and all(torch.equal(a, b) for a, b in zip(logits, reference["logits"])))
+        log(f"  tokens as path 2's: {tokens == reference['tokens']}; {len(logits)} steps' logits "
+            f"bit for bit as path 2's: {same_logits}")
+        check(tokens == reference["tokens"], "the tokens under the mesh differ from path 2's")
+        check(same_logits, "a step's logits under the mesh differ from path 2's")
+        del served
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    stats.update(shard_sites_per_prefill=sites, logit_steps=len(logits))
+    return counts, routes, stats
+
+
+def path11_phase(torch, zamba2, path2_run, serve_stats, train_stats, reset_counts, read_counts,
+                 device=None):
+    """Path 11: the dry run's counts (11c) and the one-rank rooflines (11b)
+    in fresh processes beside 11a, Zamba2 served under a one-rank mesh."""
+    out_dir = SRC.parent / "results" / "torch_dryrun"
+    jobs = []
+    try:
+        for arch, shape, mesh in PATH11_CELLS:
+            jobs.append(start_background(f"11c {arch} x {shape} x {mesh}", [
+                "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+                "--mesh", mesh, "--force", "--out", str(out_dir)]))
+        prompt = max(SERVE_PROMPTS)
+        code = ROOFLINE_CODE % (len(SERVE_PROMPTS), prompt, prompt + SERVE_NEW_TOKENS,
+                                TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICROBATCHES)
+        jobs.append(start_background("11b one-rank rooflines", ["-c", code]))
+
+        log("== main path 11a: serve zamba2-2.7b under a one-rank NCCL mesh "
+            "(use_partitioning, default_rules), path 2's requests")
+        t = time.perf_counter()
+        counts, routes, stats = path11a(torch, zamba2, path2_run, reset_counts, read_counts,
+                                        device)
+        log(f"  phase main path 11a: {time.perf_counter() - t:.3f} s")
+
+        log("== main path 11b: the port's one-rank roofline against the card")
+        lines = finish_background(jobs[-1])
+        roof = json.loads(next(x for x in lines if x.startswith("ROOFLINE "))[len("ROOFLINE "):])
+        measured = {"prefill": serve_stats["warm_prefill_ms"],
+                    "train": train_stats["warm_ms_per_step"]}
+        stats["roofline"] = {}
+        for kind, ms in measured.items():
+            r = roof[kind]
+            comp, mem = 1e3 * r["compute_s"], 1e3 * r["memory_s"]
+            log(f"  {kind} (path {'2 warm prefill' if kind == 'prefill' else '7 warm step'}): "
+                f"measured {ms:.1f} ms; roofline compute {comp:.2f} ms ({r['flops']:.4g} FLOPs), "
+                f"memory {mem:.2f} ms ({r['hbm_bytes']:.4g} B, an estimate); measured / roofline: "
+                f"compute {ms / comp:.2f}, memory {ms / mem:.2f}")
+            stats["roofline"][kind] = {**r, "measured_ms": ms, "measured_over_compute": ms / comp,
+                                       "measured_over_memory": ms / mem}
+
+        log("== main path 11c: python -m repro_torch.launch.dryrun, 256 and 512 ranks, "
+            "fresh processes")
+        stats["dryrun"] = {}
+        for job, (arch, shape, mesh) in zip(jobs[:-1], PATH11_CELLS):
+            lines = finish_background(job)
+            check(any(x.endswith("device memory allocated: 0 bytes") for x in lines),
+                  f"the dry run of {arch} x {shape} x {mesh} allocated device memory")
+            rec = json.loads((out_dir / f"{arch}__{shape}__{mesh}.json").read_text())
+            check(rec["status"] == "ok", f"{arch} x {shape} x {mesh}: {rec.get('error')}")
+            pricing = rec["pccl_pricing"]
+            log(f"  {arch} x {shape} x {mesh} ({rec['chips']} ranks): per rank "
+                f"{rec['per_rank']['flops']:.4g} FLOPs, {rec['per_rank']['hbm_bytes']:.4g} HBM B, "
+                f"collective B by op {json.dumps(rec['collectives']['bytes_by_op'])}, memory "
+                f"{rec['memory_per_rank']['total']:.4g} B (fits 80 GB: "
+                f"{rec['memory_per_rank']['fits']}); PCCL speedup {pricing['speedup']:.4f}")
+            stats["dryrun"][f"{arch}__{shape}__{mesh}"] = {
+                "per_rank": rec["per_rank"], "bytes_by_op": rec["collectives"]["bytes_by_op"],
+                "count_by_op": rec["collectives"]["count_by_op"],
+                "memory_per_rank": rec["memory_per_rank"], "speedup": pricing["speedup"],
+                "pccl_comm_s": pricing["pccl_comm_s"], "fixed_comm_s": pricing["fixed_comm_s"],
+                "count_s": rec["count_s"], "depth": rec["depth"],
+                "fallbacks": rec["fallbacks"]["count"]}
+    finally:
+        for job in jobs:  # every process the path started ends with it
+            if job["proc"].poll() is None:
+                job["proc"].kill()
+                job["proc"].communicate()
+    return counts, routes, stats
+
+
 def main() -> int:
     import torch
 
@@ -2586,17 +2777,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"  phase warm timings: {time.perf_counter() - t:.3f} s")
 
-    def serve_phase(number: int, cfg, what: str, extra=None, prompts=SERVE_PROMPTS):
+    def serve_phase(number: int, cfg, what: str, extra=None, prompts=SERVE_PROMPTS, keep=None):
         """Serve ``cfg`` with the counts set to 0 just before and read just
         after the counted ``generate``; then the checks, a warm
         ``generate``, the profile and ``extra(engine)``'s measurements.
-        The engine is freed on return."""
+        ``keep`` (a dict) receives the counted run's tokens and every
+        step's logits, on the host.  The engine is freed on return."""
         log(f"== main path {number}: serve {cfg.name} ({what}, d_model {cfg.d_model}, "
             f"{cfg.dtype}), prompts {prompts}, {SERVE_NEW_TOKENS} new tokens")
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         t = time.perf_counter()
-        served = serve_path(torch, cfg, torch.device("cuda"), prompts, SERVE_NEW_TOKENS)
+        served = serve_path(torch, cfg, torch.device("cuda"), prompts, SERVE_NEW_TOKENS,
+                            keep_logits=keep is not None)
         counts = read_counts()
         routes = {"flash": LAUNCHES.by_route("flash"),
                   "ssd": LAUNCHES.by_route("ssd")}
@@ -2605,6 +2798,10 @@ def main() -> int:
             check(per_prefill == 0 or counts[name] > 0, f"main path {number} never launched {name}")
         stats = check_serve(torch, served, cfg)
         stats["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        if keep is not None:
+            keep.update(tokens=[list(q.generated) for q in served["requests"]],
+                        logits=[x.cpu() for x in served["seen"]["logits"]])
+            served["seen"]["logits"].clear()
         log(f"  peak device memory: {stats['peak_gib']:.2f} GiB")
         t = time.perf_counter()
         engine = served["engine"]
@@ -2628,7 +2825,9 @@ def main() -> int:
         return counts, routes, stats
 
     zamba2 = model_config("zamba2-2.7b", True)
-    path2, routes2, serve_stats = serve_phase(2, zamba2, f"{zamba2.n_layers} Mamba-2 layers")
+    path2_run = {}  # path 11a's reference: path 2's tokens and logits, no mesh
+    path2, routes2, serve_stats = serve_phase(2, zamba2, f"{zamba2.n_layers} Mamba-2 layers",
+                                              keep=path2_run)
     olmoe = model_config("olmoe-1b-7b", True)
     path3, routes3, olmoe_stats = serve_phase(
         3, olmoe, f"{olmoe.n_layers} MoE layers, {olmoe.moe.n_experts} experts top-{olmoe.moe.top_k}")
@@ -2724,6 +2923,10 @@ def main() -> int:
     t = time.perf_counter()
     path10, routes10, path10_stats = path10_phase(torch, gen, reset_counts, read_counts)
     log(f"  phase main path 10 with 10b-d: {time.perf_counter() - t:.3f} s")
+    t = time.perf_counter()
+    path11, routes11, path11_stats = path11_phase(torch, zamba2, path2_run, serve_stats,
+                                                  train_stats, reset_counts, read_counts)
+    log(f"  phase main path 11 with 11b-c: {time.perf_counter() - t:.3f} s")
     log("serve: " + json.dumps({**serve_stats, **parity}))
     log("serve olmoe: " + json.dumps(olmoe_stats))
     log("serve deepseek: " + json.dumps(deepseek_stats))
@@ -2734,6 +2937,7 @@ def main() -> int:
     log("train dp: " + json.dumps(dp_stats))
     log("train whisper (Trainer): " + json.dumps(trainer_stats))
     log("verified path 1, PcclComm, PCCL_VERIFY cost, CLIs: " + json.dumps(path10_stats))
+    log("path 11 (mesh, roofline, dry run): " + json.dumps(path11_stats))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
 
     # the bf16 kernels of each path; K1, K3 and K4 on their tensor-core route
@@ -2748,12 +2952,15 @@ def main() -> int:
         "flash": ("cuda", "src/repro_torch/kernels/flash/csrc/flash_sm90.cu",
                   "src/repro/kernels/flash/kernel.py:79",
                   {"flash": path2["flash"] + path3["flash"] + path6["flash"] + path7["flash"]
-                   + path9["flash"]},
+                   + path9["flash"] + path11["flash"]},
                   {r: routes2["flash"][r] + routes3["flash"][r] + routes6["flash"][r]
-                   + routes7["flash"][r] + routes9["flash"][r] for r in routes2["flash"]}),
+                   + routes7["flash"][r] + routes9["flash"][r] + routes11["flash"][r]
+                   for r in routes2["flash"]}),
         "ssd": ("cuda", "src/repro_torch/kernels/ssd/csrc/ssd_sm90.cu",
-                "src/repro/kernels/ssd/kernel.py:80", {"ssd": path2["ssd"] + path7["ssd"]},
-                {r: routes2["ssd"][r] + routes7["ssd"][r] for r in routes2["ssd"]}),
+                "src/repro/kernels/ssd/kernel.py:80",
+                {"ssd": path2["ssd"] + path7["ssd"] + path11["ssd"]},
+                {r: routes2["ssd"][r] + routes7["ssd"][r] + routes11["ssd"][r]
+                 for r in routes2["ssd"]}),
         # K4's CUDA-core route at the mLSTM's widths: bf16 off the tensor-core route
         "ssd_mlstm": ("cuda", "src/repro_torch/kernels/ssd/csrc/ssd.cu",
                       "src/repro/kernels/ssd/kernel.py:80", {"ssd_mlstm": path5["ssd"]},
@@ -2787,13 +2994,15 @@ def main() -> int:
             # prefills and Whisper's train shape
             entry["launches_by_path"] = {"zamba2": path2["flash"], "olmoe": path3["flash"],
                                          "whisper": path6["flash"], "zamba2_train": path7["flash"],
-                                         "whisper_trainer": path9["flash"]}
+                                         "whisper_trainer": path9["flash"],
+                                         "zamba2_mesh": path11["flash"]}
             entry["at_olmoe_prefill"] = kernels["bfloat16"]["flash_olmoe"]
             entry["at_whisper_prefill"] = kernels["bfloat16"]["flash_whisper"]
             entry["at_train"] = kernels["bfloat16"]["flash_train"]
             entry["at_whisper_train"] = kernels["bfloat16"]["flash_whisper_train"]
         if name == "ssd":
-            entry["launches_by_path"] = {"zamba2": path2["ssd"], "zamba2_train": path7["ssd"]}
+            entry["launches_by_path"] = {"zamba2": path2["ssd"], "zamba2_train": path7["ssd"],
+                                         "zamba2_mesh": path11["ssd"]}
             entry["at_train"] = kernels["bfloat16"]["ssd_train"]
         record["kernels"].append(entry)
     print(smi)

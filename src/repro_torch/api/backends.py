@@ -10,9 +10,10 @@ of one protocol:
   every planned round is a gather, a permutation between ranks and a
   scatter(-add) on the stacked tensor, from tables compiled once per
   schedule.  Bit-identical to the reference's ``interp`` backend in fp32.
-* ``native`` — the port's stand-in for the reference's ``xla`` backend: a
-  plain tensor sum, scatter or gather over the stacked axis, with no PCCL
-  planning involved; the A/B baseline.
+* ``native`` — the port's stand-in for the reference's ``xla`` backend
+  (and registered under that name too): a plain tensor sum, scatter or
+  gather over the stacked axis, with no PCCL planning involved; the A/B
+  baseline.
 * ``sim``    — cost-model-only: data passes through with single-copy
   placeholder semantics while the *planned* time of every collective is
   accumulated on ``elapsed_s``.
@@ -290,11 +291,15 @@ class SimBackend:
         return x
 
 
-_BACKENDS = {"native": NativeBackend, "interp": InterpBackend, "sim": SimBackend}
+# "xla", the reference's name for its compiler-collective backend, selects
+# the port's stand-in for it
+_BACKENDS = {"native": NativeBackend, "xla": NativeBackend, "interp": InterpBackend,
+             "sim": SimBackend}
 
 
 def get_backend(name: str) -> Backend:
-    """Fresh backend instance by name (``interp`` | ``native`` | ``sim``)."""
+    """Fresh backend instance by name (``interp`` | ``native`` | ``xla``,
+    the same as ``native`` | ``sim``)."""
     try:
         return _BACKENDS[name]()
     except KeyError:

@@ -28,6 +28,8 @@ class DataConfig:
     seed: int = 0
     n_hosts: int = 1
     host_id: int = 0
+    # straggler mitigation hook: a slow host can be assigned fewer grains
+    grains_per_host: Optional[Dict[int, int]] = None
 
 
 class SyntheticLMData:

@@ -34,6 +34,7 @@ import torch
 
 from repro_torch.configs.base import MLAConfig, ModelConfig
 from repro_torch.kernels.flash import ops as flash_ops
+from repro_torch.sharding import shard
 
 from .layers import apply_rope
 from .module import ParamSpec, normal_init
@@ -64,16 +65,22 @@ def init_mla_cache(batch: int, max_len: int, mla: MLAConfig, dtype, device=None)
     )
 
 
+def _resharded(cache: KVCache, k: torch.Tensor, v: torch.Tensor) -> KVCache:
+    """The cache written in place, with ``k`` / ``v`` as :func:`shard`
+    gave them back: the same cache unless they were redistributed."""
+    return cache if (k is cache.k and v is cache.v) else KVCache(k, v, cache.length)
+
+
 # ------------------------------------------------------------------- GQA
 
 
 def init_gqa(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     d, H, K, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     return {
-        "wq": normal_init((d, H, Dh)),
-        "wk": normal_init((d, K, Dh)),
-        "wv": normal_init((d, K, Dh)),
-        "wo": normal_init((H, Dh, d), fan_in=H * Dh),
+        "wq": normal_init((d, H, Dh), ("embed", "heads", None)),
+        "wk": normal_init((d, K, Dh), ("embed", "kv_heads", None)),
+        "wv": normal_init((d, K, Dh), ("embed", "kv_heads", None)),
+        "wo": normal_init((H, Dh, d), ("heads", None, "embed"), fan_in=H * Dh),
     }
 
 
@@ -124,6 +131,14 @@ def apply_gqa(
     v = _project(x, p["wv"].to(dt))
     q = apply_rope(q, positions, style=style)
     k = apply_rope(k, positions, style=style)
+    if mode == "decode":
+        # decode queries replicate over the model axis: the KV cache is
+        # seq-sharded, and a heads-sharded q would re-shard the whole cache
+        q = shard(q, ("batch", None, None, None))
+    else:
+        q = shard(q, ("batch", "seq", "heads", None))
+    k = shard(k, ("batch", "seq", "kv_heads", None))
+    v = shard(v, ("batch", "seq", "kv_heads", None))
 
     new_cache = None
     if mode == "bidir":  # encoder self-attention
@@ -147,14 +162,16 @@ def apply_gqa(
         cache.k.index_copy_(1, idx, k.to(cache.k.dtype))
         cache.v.index_copy_(1, idx, v.to(cache.v.dtype))
         cache.length.add_(1)
-        new_cache = cache
-        ctx = _attend(q, cache.k, cache.v, causal=False, q_positions=positions,
+        ck = shard(cache.k, ("batch", "kv_seq", "kv_heads", None))
+        cv = shard(cache.v, ("batch", "kv_seq", "kv_heads", None))
+        new_cache = _resharded(cache, ck, cv)
+        ctx = _attend(q, ck, cv, causal=False, q_positions=positions,
                       kv_valid_len=cache.length)
     else:
         raise ValueError(mode)
     H, Dh = ctx.shape[2], ctx.shape[3]
     out = ctx.reshape(B, S, H * Dh) @ p["wo"].to(dt).reshape(H * Dh, -1)
-    return out, new_cache
+    return shard(out, ("batch", "seq", "act_embed")), new_cache
 
 
 def _attend_blocked(
@@ -208,12 +225,12 @@ def init_mla(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     d, H = cfg.d_model, cfg.n_heads
     qd = m.qk_nope_dim + m.qk_rope_dim
     return {
-        "wq": normal_init((d, H, qd)),
-        "w_dkv": normal_init((d, m.kv_lora)),
-        "w_kr": normal_init((d, m.qk_rope_dim)),
-        "w_uk": normal_init((m.kv_lora, H, m.qk_nope_dim)),
-        "w_uv": normal_init((m.kv_lora, H, m.v_dim)),
-        "wo": normal_init((H, m.v_dim, d), fan_in=H * m.v_dim),
+        "wq": normal_init((d, H, qd), ("embed", "heads", None)),
+        "w_dkv": normal_init((d, m.kv_lora), ("embed", "kv_lora")),
+        "w_kr": normal_init((d, m.qk_rope_dim), ("embed", None)),
+        "w_uk": normal_init((m.kv_lora, H, m.qk_nope_dim), ("kv_lora", "heads", None)),
+        "w_uv": normal_init((m.kv_lora, H, m.v_dim), ("kv_lora", "heads", None)),
+        "wo": normal_init((H, m.v_dim, d), ("heads", None, "embed"), fan_in=H * m.v_dim),
     }
 
 
@@ -273,10 +290,14 @@ def apply_mla(
         cache.k.index_copy_(1, idx, c_kv.to(cache.k.dtype))
         cache.v.index_copy_(1, idx, k_rope.to(cache.v.dtype))
         cache.length.add_(1)
-        new_cache = cache
-        ck, cr = cache.k, cache.v
-        # absorbed decode: q_c = q_nope · w_uk, scored against c_kv directly
+        ck = shard(cache.k, ("batch", "kv_seq", None))
+        cr = shard(cache.v, ("batch", "kv_seq", None))
+        new_cache = _resharded(cache, ck, cr)
+        # absorbed decode: q_c = q_nope · w_uk, scored against c_kv directly;
+        # decode queries replicate over the model axis (see apply_gqa)
         q_c = torch.einsum("bshk,lhk->bshl", q_nope, p["w_uk"].to(dt))
+        q_c = shard(q_c, ("batch", None, None, None))
+        q_rope = shard(q_rope, ("batch", None, None, None))
         s_nope = torch.einsum("bshl,btl->bhst", q_c, ck)
         s_rope = torch.einsum("bshk,btk->bhst", q_rope, cr)
         kv_pos = torch.arange(ck.shape[1], device=x.device)[None, None, None, :]
@@ -287,7 +308,7 @@ def apply_mla(
         raise ValueError(mode)
     H, Dv = ctx.shape[2], ctx.shape[3]
     out = ctx.reshape(B, S, H * Dv) @ p["wo"].to(dt).reshape(H * Dv, -1)
-    return out, new_cache
+    return shard(out, ("batch", "seq", "act_embed")), new_cache
 
 
 # --------------------------------------------------------- cross-attention
@@ -311,4 +332,5 @@ def apply_cross_attn_cached(p, cfg: ModelConfig, x: torch.Tensor, kv) -> torch.T
     B, S, H, Dh = q.shape
     pos = torch.arange(S, device=x.device)[None].expand(B, S)
     ctx = _attend(q, kv["k"], kv["v"], causal=False, q_positions=pos, kv_valid_len=None)
-    return ctx.reshape(B, S, H * Dh) @ p["wo"].to(dt).reshape(H * Dh, -1)
+    out = ctx.reshape(B, S, H * Dh) @ p["wo"].to(dt).reshape(H * Dh, -1)
+    return shard(out, ("batch", "seq", "act_embed"))

@@ -16,15 +16,17 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding import shard
+
 from .module import ParamSpec, normal_init, ones_init, zeros_init
 
 # ------------------------------------------------------------------- norms
 
 
 def init_norm(d: int, norm_type: str) -> Dict[str, ParamSpec]:
-    p = {"scale": ones_init((d,))}
+    p = {"scale": ones_init((d,), ("embed",))}
     if norm_type == "layernorm":
-        p["bias"] = zeros_init((d,))
+        p["bias"] = zeros_init((d,), ("embed",))
     return p
 
 
@@ -47,17 +49,17 @@ def apply_norm(p, x: torch.Tensor, *, eps: float, norm_type: str) -> torch.Tenso
 
 
 def init_embedding(vocab: int, d: int) -> ParamSpec:
-    return normal_init((vocab, d), scale=0.02)
+    return normal_init((vocab, d), ("vocab", "embed"), scale=0.02)
 
 
 def embed_lookup(table: torch.Tensor, ids: torch.Tensor, dtype) -> torch.Tensor:
     # gather, then cast: the same values as casting the whole table first
-    return table[ids].to(dtype)
+    return shard(table[ids].to(dtype), ("batch", "seq", "act_embed"))
 
 
 def logits_projection(table_or_w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Vocab logits in fp32, for a stable softmax-xent."""
-    return x.float() @ table_or_w.float().t()
+    """Vocab-parallel logits in fp32, for a stable softmax-xent."""
+    return shard(x.float() @ table_or_w.float().t(), ("batch", "seq", "vocab"))
 
 
 def sinusoidal_positions(n: int, d: int, device=None) -> torch.Tensor:
@@ -116,11 +118,11 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, *, style: str = "full",
 def init_mlp(d: int, f: int, mlp_type: str) -> Dict[str, ParamSpec]:
     if mlp_type == "swiglu":
         return {
-            "wi_gate": normal_init((d, f)),
-            "wi_up": normal_init((d, f)),
-            "wo": normal_init((f, d)),
+            "wi_gate": normal_init((d, f), ("embed", "mlp")),
+            "wi_up": normal_init((d, f), ("embed", "mlp")),
+            "wo": normal_init((f, d), ("mlp", "embed")),
         }
-    return {"wi": normal_init((d, f)), "wo": normal_init((f, d))}
+    return {"wi": normal_init((d, f), ("embed", "mlp")), "wo": normal_init((f, d), ("mlp", "embed"))}
 
 
 def apply_mlp(p, x: torch.Tensor, *, mlp_type: str) -> torch.Tensor:
@@ -135,4 +137,5 @@ def apply_mlp(p, x: torch.Tensor, *, mlp_type: str) -> torch.Tensor:
         h = torch.relu(x @ p["wi"].to(dt)).square()
     else:
         raise ValueError(mlp_type)
+    h = shard(h, ("batch", "seq", "mlp"))
     return h @ p["wo"].to(dt)

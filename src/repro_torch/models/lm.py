@@ -37,6 +37,7 @@ from torch.utils.checkpoint import (
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.sharding import shard
 
 from . import attention as A
 from . import moe as M
@@ -122,6 +123,12 @@ class Model:
     def init_decode_state(self, batch: int, max_len: int, device=None):
         raise NotImplementedError
 
+    def decode_state_axes(self):
+        """Logical-axis tree matching init_decode_state's structure (used by
+        the launcher to build decode-state shardings; fit-or-drop handles
+        non-divisible dims like batch=1 or kv_heads < TP degree)."""
+        raise NotImplementedError
+
     # -- conveniences ------------------------------------------------------
     def init(self, generator: torch.Generator, device=None) -> ParamTree:
         """Random parameters from ``generator`` (on ``device``; CUDA by default)."""
@@ -133,6 +140,18 @@ class Model:
 
     def cache_dtype(self):
         return self.cfg.act_dtype()
+
+
+_KV_AXES = A.KVCache(
+    k=(None, "batch", "kv_seq", "kv_heads", None),
+    v=(None, "batch", "kv_seq", "kv_heads", None),
+    length=(None,),
+)
+_MLA_KV_AXES = A.KVCache(
+    k=(None, "batch", "kv_seq", None),
+    v=(None, "batch", "kv_seq", None),
+    length=(None,),
+)
 
 
 def _with_norm(init_fn, cfg):
@@ -207,13 +226,13 @@ class DecoderLM(Model):
         p = {
             "embed": init_embedding(cfg.vocab, cfg.d_model),
             "ln_f": init_norm(cfg.d_model, cfg.norm_type),
-            "lm_head": normal_init((cfg.vocab, cfg.d_model), scale=0.02),
+            "lm_head": normal_init((cfg.vocab, cfg.d_model), ("vocab", "embed"), scale=0.02),
         }
         for i in range(self.n_front):
             p[f"front_{i}"] = _init_decoder_layer(cfg, kind="dense_wide")
         p["layers"] = stack_init(_init_decoder_layer(cfg, kind=self.kind), self.n_scan)
         if cfg.vlm:
-            p["img_proj"] = normal_init((cfg.d_model, cfg.d_model))
+            p["img_proj"] = normal_init((cfg.d_model, cfg.d_model), ("embed", "embed"))
         return p
 
     def _embed_inputs(self, params, batch: Batch) -> torch.Tensor:
@@ -223,7 +242,7 @@ class DecoderLM(Model):
         if cfg.vlm:
             img = batch["img_embeds"].to(dt) @ params["img_proj"].to(dt)
             x = torch.cat([img, x], dim=1)
-        return x
+        return shard(x, ("batch", "seq", "act_embed"))
 
     def _stack(self, params, x, positions, caches: Optional[A.KVCache], mode: str):
         """Every layer in order → (output, the layers' summed MoE aux loss,
@@ -271,6 +290,9 @@ class DecoderLM(Model):
                                cfg.resolved_head_dim, self.cache_dtype(), device)
         return A.KVCache(*(a.new_zeros((cfg.n_layers, *a.shape)) for a in one))
 
+    def decode_state_axes(self):
+        return _MLA_KV_AXES if self.cfg.mla else _KV_AXES
+
     def prefill(self, params, batch: Batch, max_len: Optional[int] = None):
         cfg = self.cfg
         x = self._embed_inputs(params, batch)
@@ -312,10 +334,10 @@ class HybridLM(Model):
         d, H, K, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
         lora = {
             name: {
-                "a": normal_init((d, r), scale=0.02),
-                "b": normal_init((r, heads, Dh), scale=0.02),
+                "a": normal_init((d, r), ("embed", None), scale=0.02),
+                "b": normal_init((r, heads, Dh), (None, ax, None), scale=0.02),
             }
-            for name, heads in [("q", H), ("k", K), ("v", K)]
+            for name, heads, ax in [("q", H, "heads"), ("k", K, "kv_heads"), ("v", K, "kv_heads")]
         }
         shared = {
             "ln1": init_norm(d, cfg.norm_type),
@@ -325,7 +347,7 @@ class HybridLM(Model):
         }
         return {
             "embed": init_embedding(cfg.vocab, d),
-            "lm_head": normal_init((cfg.vocab, d), scale=0.02),
+            "lm_head": normal_init((cfg.vocab, d), ("vocab", "embed"), scale=0.02),
             "ln_f": init_norm(d, cfg.norm_type),
             "shared": shared,
             "mamba": stack_init(_with_norm(SSM.init_mamba2, cfg), self.n_groups * self.per_group),
@@ -406,6 +428,15 @@ class HybridLM(Model):
             "attn": A.KVCache(*(a[None].repeat(G, *([1] * a.ndim)) for a in kv_one)),
         }
 
+    def decode_state_axes(self):
+        return {
+            "mamba": SSM.Mamba2State(
+                conv=(None, None, "batch", None, "ssm_inner"),
+                ssm=(None, None, "batch", "ssm_heads", None, None),
+            ),
+            "attn": _KV_AXES,
+        }
+
     def loss(self, params, batch: Batch):
         """Next-token cross-entropy; zero Mamba-2 states and no attention
         cache (the reference's train mode ignores the caches it is handed)."""
@@ -468,7 +499,7 @@ class XLSTMLM(Model):
         }
         return {
             "embed": init_embedding(cfg.vocab, cfg.d_model),
-            "lm_head": normal_init((cfg.vocab, cfg.d_model), scale=0.02),
+            "lm_head": normal_init((cfg.vocab, cfg.d_model), ("vocab", "embed"), scale=0.02),
             "ln_f": init_norm(cfg.d_model, cfg.norm_type),
             "groups": stack_init(group, self.n_groups),
         }
@@ -540,6 +571,20 @@ class XLSTMLM(Model):
             "slstm": SSM.SLSTMState(*(a[None].repeat(G, *([1] * a.ndim)) for a in s_one)),
         }
 
+    def decode_state_axes(self):
+        return {
+            "mlstm": SSM.MLSTMState(
+                C=(None, None, "batch", "ssm_heads", "ssm_inner", None),
+                n=(None, None, "batch", "ssm_heads", None, None),
+            ),
+            "slstm": SSM.SLSTMState(
+                h=(None, "batch", "ssm_heads", None),
+                c=(None, "batch", "ssm_heads", None),
+                n=(None, "batch", "ssm_heads", None),
+                m=(None, "batch", "ssm_heads", None),
+            ),
+        }
+
     def loss(self, params, batch: Batch):
         """Next-token cross-entropy from zero recurrent states."""
         cfg = self.cfg
@@ -604,7 +649,7 @@ class EncDecLM(Model):
         cfg = self.cfg
         return {
             "embed": init_embedding(cfg.vocab, cfg.d_model),
-            "lm_head": normal_init((cfg.vocab, cfg.d_model), scale=0.02),
+            "lm_head": normal_init((cfg.vocab, cfg.d_model), ("vocab", "embed"), scale=0.02),
             "ln_f": init_norm(cfg.d_model, cfg.norm_type),
             "ln_enc": init_norm(cfg.d_model, cfg.norm_type),
             "enc_layers": stack_init(_init_encoder_layer(cfg), cfg.enc_dec.n_enc_layers),
@@ -618,6 +663,7 @@ class EncDecLM(Model):
         cfg = self.cfg
         x = frames.to(cfg.act_dtype())
         x = x + sinusoidal_positions(x.shape[1], cfg.d_model, x.device).to(x.dtype)[None]
+        x = shard(x, ("batch", "seq", "act_embed"))
         body = _remat(_apply_encoder_layer, cfg) if mode == "train" else _apply_encoder_layer
         for lp in unstack(params["enc_layers"]):
             x = body(lp, cfg, x)
@@ -672,6 +718,15 @@ class EncDecLM(Model):
         cross = {name: torch.zeros(shape, dtype=self.cache_dtype(), device=device)
                  for name in ("k", "v")}
         return {"self": self._self_cache(batch, max_len, device), "cross": cross}
+
+    def decode_state_axes(self):
+        return {
+            "self": _KV_AXES,
+            "cross": {
+                "k": (None, "batch", None, "kv_heads", None),
+                "v": (None, "batch", None, "kv_heads", None),
+            },
+        }
 
     def prefill(self, params, batch: Batch, max_len: Optional[int] = None):
         cfg = self.cfg

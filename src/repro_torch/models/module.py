@@ -5,8 +5,9 @@ logical axes).  Here an init function returns a tree of :class:`ParamSpec`
 — a shape and how to fill it — and :func:`init_tree` materializes that tree
 with an explicit ``torch.Generator`` on an explicit device.  The shapes are
 known without drawing a number, which is what weight conversion checks
-against (:func:`shapes_of`).  Logical axes wait until sharding is ported: on
-one device the reference's ``shard`` is a no-op.
+against (:func:`shapes_of`).  Each spec also carries the reference's
+*logical axes*, one name (or ``None``) per dimension, which
+:mod:`repro_torch.sharding` maps onto a device mesh (:func:`axes_of`).
 
 A materialized tree is a :class:`ParamTree`, an ``nn.Module`` whose
 ``state_dict`` keys are the reference tree's paths joined by ``.``
@@ -25,6 +26,7 @@ import torch
 from torch import nn
 
 Device = Union[str, torch.device]
+Axes = Tuple[Optional[str], ...]
 
 
 @dataclass(frozen=True)
@@ -33,51 +35,62 @@ class ParamSpec:
 
     ``kind`` is ``normal`` (truncated normal on [-2, 2] times ``scale``),
     ``zeros``, ``ones`` or ``const`` (``value()`` gives the tensor).
-    ``layers`` are the stacked axes in front of ``shape``, outermost first:
-    each :func:`stack_init` adds one (xLSTM's ``groups.mlstm`` has two,
-    ``(G, Mg)``), and every entry is an independent draw.
+    ``axes`` are the logical axis names of ``shape``, one per dimension
+    (the reference's ``Box.axes``).  ``layers`` are the stacked axes in
+    front of ``shape``, outermost first: each :func:`stack_init` adds one
+    (xLSTM's ``groups.mlstm`` has two, ``(G, Mg)``), every entry is an
+    independent draw, and their logical axis is ``None``.
     """
 
     shape: Tuple[int, ...]
+    axes: Axes
     kind: str
     scale: float = 1.0
     value: Optional[Callable[[], torch.Tensor]] = None
     layers: Tuple[int, ...] = ()
 
+    def __post_init__(self) -> None:
+        if len(self.axes) != len(self.shape):
+            raise ValueError(f"axes {self.axes} rank != value rank {self.shape}")
+
     @property
     def full_shape(self) -> Tuple[int, ...]:
         return tuple(self.layers) + tuple(self.shape)
+
+    @property
+    def full_axes(self) -> Axes:
+        return (None,) * len(self.layers) + tuple(self.axes)
 
 
 # ------------------------------------------------------------- initializers
 
 
-def normal_init(shape, *, scale: Optional[float] = None,
+def normal_init(shape, axes: Axes, *, scale: Optional[float] = None,
                 fan_in: Optional[int] = None) -> ParamSpec:
     """Truncated normal with ``1/sqrt(fan_in)`` scale (fan_in = shape[0]
     unless given), as the reference's ``normal_init``."""
     if scale is None:
         fi = fan_in if fan_in is not None else shape[0]
         scale = 1.0 / math.sqrt(max(fi, 1))
-    return ParamSpec(tuple(shape), "normal", scale=float(scale))
+    return ParamSpec(tuple(shape), tuple(axes), "normal", scale=float(scale))
 
 
-def zeros_init(shape) -> ParamSpec:
-    return ParamSpec(tuple(shape), "zeros")
+def zeros_init(shape, axes: Axes) -> ParamSpec:
+    return ParamSpec(tuple(shape), tuple(axes), "zeros")
 
 
-def ones_init(shape) -> ParamSpec:
-    return ParamSpec(tuple(shape), "ones")
+def ones_init(shape, axes: Axes) -> ParamSpec:
+    return ParamSpec(tuple(shape), tuple(axes), "ones")
 
 
-def const_init(value: Callable[[], torch.Tensor]) -> ParamSpec:
+def const_init(value: Callable[[], torch.Tensor], axes: Axes) -> ParamSpec:
     """A fixed fp32 tensor; ``value`` is called when the tree is built."""
-    return ParamSpec(tuple(value().shape), "const", value=value)
+    return ParamSpec(tuple(value().shape), tuple(axes), "const", value=value)
 
 
 def stack_init(tree, n: int):
     """The tree of ``n`` independently drawn layers, stacked on a new leading
-    axis (in front of any it already has)."""
+    axis (in front of any it already has), whose logical axis is ``None``."""
     if isinstance(tree, ParamSpec):
         return replace(tree, layers=(n, *tree.layers))
     if isinstance(tree, list):
@@ -215,6 +228,19 @@ def shapes_of(tree, prefix: str = "") -> Dict[str, Tuple[int, ...]]:
             out[name] = v.full_shape
         else:
             out.update(shapes_of(v, name + "."))
+    return out
+
+
+def axes_of(tree, prefix: str = "") -> Dict[str, Axes]:
+    """Flat ``{"a.b.c": logical axes}`` of a spec tree, in ``state_dict``
+    order, the stacked layer axes first (``None``)."""
+    out: Dict[str, Axes] = {}
+    for k, v in children(tree):
+        name = f"{prefix}{k}"
+        if isinstance(v, ParamSpec):
+            out[name] = v.full_axes
+        else:
+            out.update(axes_of(v, name + "."))
     return out
 
 

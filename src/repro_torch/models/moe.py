@@ -16,13 +16,13 @@ Switch/OLMoE: ``E · Σ_e f_e · p_e`` (fraction routed × mean router prob).
 from __future__ import annotations
 
 import math
-from dataclasses import replace
 from typing import Dict, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.sharding import shard
 
 from .layers import apply_mlp, init_mlp
 from .module import normal_init
@@ -33,10 +33,10 @@ def init_moe(cfg: ModelConfig) -> Dict:
     assert moe is not None
     d, E, Fe = cfg.d_model, moe.n_experts, moe.d_expert
     p: Dict = {
-        "router": normal_init((d, E), scale=0.02),
-        "wi_gate": normal_init((E, d, Fe), fan_in=d),
-        "wi_up": normal_init((E, d, Fe), fan_in=d),
-        "wo": normal_init((E, Fe, d), fan_in=Fe),
+        "router": normal_init((d, E), ("embed", "experts"), scale=0.02),
+        "wi_gate": normal_init((E, d, Fe), ("experts", "embed", "expert_mlp"), fan_in=d),
+        "wi_up": normal_init((E, d, Fe), ("experts", "embed", "expert_mlp"), fan_in=d),
+        "wo": normal_init((E, Fe, d), ("experts", "expert_mlp", "embed"), fan_in=Fe),
     }
     if moe.n_shared:
         p["shared"] = [init_mlp(d, moe.d_expert, cfg.mlp_type) for _ in range(moe.n_shared)]
@@ -95,28 +95,47 @@ def apply_moe(p, cfg: ModelConfig, x: torch.Tensor) -> Tuple[torch.Tensor, torch
     under one capacity instead (:func:`_apply_moe_global`)."""
     if cfg.moe.dispatch == "global":
         return _apply_moe_global(p, cfg, x)
+    return _dispatch(p, cfg, x, grouped=True)
+
+
+def _dispatch(p, cfg: ModelConfig, x: torch.Tensor, *, grouped: bool):
+    """Route, dispatch, the experts' FFN and combine over ``x`` (G, N, D),
+    each of the G rows a dispatch group.  ``grouped`` places the reference's
+    grouped-dispatch constraints (the buffers data-sharded, the expert axis
+    model-sharded: the EP all-to-all); a global pool (G = 1) places only
+    its two expert-axis constraints."""
     B, S, D = x.shape
     E, K = cfg.moe.n_experts, cfg.moe.top_k
     dt = x.dtype
     r = route(p, cfg, x)
     C = r.capacity
 
-    # dispatch: per-group scatter of every copy into (B, E·C + 1, D)
-    rows = torch.arange(B, device=x.device)[:, None]
+    # dispatch: per-group scatter of every copy into (B, E·C + 1, D), along
+    # the slot axis only (the reference's vmap'd scatter): a sharded batch
+    # axis stays local
     tok_ids = torch.arange(S, device=x.device).repeat_interleave(K)     # (S·K,)
+    slot = r.slot[..., None].expand(B, S * K, D)
     buf = x.new_zeros((B, E * C + 1, D))
-    buf[rows, r.slot] = x[:, tok_ids, :]
-    expert_in = buf[:, :E * C].reshape(B, E, C, D)
+    if grouped:
+        buf = shard(buf, ("batch", None, "act_embed"))
+    buf.scatter_(1, slot, x[:, tok_ids, :])
+    if grouped:
+        buf = shard(buf, ("batch", None, "act_embed"))
+    group = "batch" if grouped else None
+    expert_in = shard(buf[:, :E * C].reshape(B, E, C, D), (group, "experts", None, "act_embed"))
 
     # expert FFN (SwiGLU), every expert padded to its capacity
     g = torch.einsum("gecd,edf->gecf", expert_in, p["wi_gate"].to(dt))
     u = torch.einsum("gecd,edf->gecf", expert_in, p["wi_up"].to(dt))
     h = F.silu(g) * u
     expert_out = torch.einsum("gecf,efd->gecd", h, p["wo"].to(dt))
+    expert_out = shard(expert_out, (group, "experts", None, "act_embed"))
 
     # combine: gather each copy's output (trash → zeros), weight by its gate
     out_flat = torch.cat([expert_out.reshape(B, E * C, D), x.new_zeros((B, 1, D))], dim=1)
-    per_copy = out_flat[rows, r.slot]                                    # (B,S·K,D)
+    if grouped:
+        out_flat = shard(out_flat, ("batch", None, "act_embed"))
+    per_copy = out_flat.gather(1, slot)                                  # (B,S·K,D)
     w = (r.gates.reshape(B, S * K) * r.keep).to(dt)[..., None]
     y = (per_copy * w).reshape(B, S, K, D).sum(dim=2)
 
@@ -132,6 +151,5 @@ def _apply_moe_global(p, cfg: ModelConfig, x: torch.Tensor) -> Tuple[torch.Tenso
     routing, capacity, slot order and aux loss are the reference's
     ``_apply_moe_global`` term for term."""
     B, S, D = x.shape
-    grouped = replace(cfg, moe=replace(cfg.moe, dispatch="grouped"))
-    y, aux = apply_moe(p, grouped, x.reshape(1, B * S, D))
+    y, aux = _dispatch(p, cfg, x.reshape(1, B * S, D), grouped=False)
     return y.reshape(B, S, D), aux

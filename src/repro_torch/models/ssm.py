@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd.ref import ssd_reference
+from repro_torch.sharding import shard
 
 from .module import ParamSpec, const_init, normal_init, ones_init, zeros_init
 
@@ -61,14 +62,14 @@ def init_mamba2(cfg: ModelConfig) -> Dict[str, ParamSpec]:
         return torch.log(torch.exp(torch.linspace(1e-3, 0.1, H)) - 1.0)
 
     return {
-        "in_proj": normal_init((d, proj_out)),
-        "conv_w": normal_init((s.conv_width, di + 2 * N), scale=0.5),
-        "conv_b": zeros_init((di + 2 * N,)),
-        "A_log": const_init(lambda: torch.log(torch.linspace(1.0, 16.0, H))),
-        "D": ones_init((H,)),
-        "dt_bias": const_init(dt_init),
-        "norm_scale": ones_init((di,)),
-        "out_proj": normal_init((di, d)),
+        "in_proj": normal_init((d, proj_out), ("embed", "ssm_inner")),
+        "conv_w": normal_init((s.conv_width, di + 2 * N), (None, "ssm_inner"), scale=0.5),
+        "conv_b": zeros_init((di + 2 * N,), ("ssm_inner",)),
+        "A_log": const_init(lambda: torch.log(torch.linspace(1.0, 16.0, H)), ("ssm_heads",)),
+        "D": ones_init((H,), ("ssm_heads",)),
+        "dt_bias": const_init(dt_init, ("ssm_heads",)),
+        "norm_scale": ones_init((di,), ("ssm_inner",)),
+        "out_proj": normal_init((di, d), ("ssm_inner", "embed")),
     }
 
 
@@ -114,6 +115,7 @@ def apply_mamba2(
     xin, Bc, Cc = torch.split(xBC, [di, N, N], dim=-1)
 
     xh = xin.reshape(B, S, H, P)
+    xh = shard(xh, ("batch", "seq", "ssm_heads", None))
     dt = softplus(dtr.float() + p["dt_bias"])                             # (B,S,H)
     a = -torch.exp(p["A_log"].float())                                    # (H,)
     la = (dt * a).float()
@@ -138,7 +140,7 @@ def apply_mamba2(
     g = (y * F.silu(z)).float()
     var = g.square().mean(-1, keepdim=True)
     g = (g * torch.rsqrt(var + cfg.norm_eps) * p["norm_scale"]).to(dt_)
-    return g @ p["out_proj"].to(dt_), new_state
+    return shard(g @ p["out_proj"].to(dt_), ("batch", "seq", "act_embed")), new_state
 
 
 def init_mamba2_state(cfg: ModelConfig, batch: int, dtype, device=None) -> Mamba2State:
@@ -170,17 +172,17 @@ def init_mlstm(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     d = cfg.d_model
     di, H, P, N = _mlstm_dims(cfg)
     return {
-        "up": normal_init((d, 2 * di)),
+        "up": normal_init((d, 2 * di), ("embed", "ssm_inner")),
         # block-diagonal per-head projections, as in the reference
-        "wq": normal_init((H, P, N), fan_in=P),
-        "wk": normal_init((H, P, N), fan_in=P),
-        "wv": normal_init((H, P, P), fan_in=P),
-        "w_igate": normal_init((d, H), scale=0.02),
-        "b_igate": zeros_init((H,)),
-        "w_fgate": normal_init((d, H), scale=0.02),
-        "b_fgate": const_init(lambda: torch.full((H,), 3.0)),  # open forget
-        "norm_scale": ones_init((di,)),
-        "down": normal_init((di, d)),
+        "wq": normal_init((H, P, N), ("ssm_heads", None, None), fan_in=P),
+        "wk": normal_init((H, P, N), ("ssm_heads", None, None), fan_in=P),
+        "wv": normal_init((H, P, P), ("ssm_heads", None, None), fan_in=P),
+        "w_igate": normal_init((d, H), ("embed", "ssm_heads"), scale=0.02),
+        "b_igate": zeros_init((H,), ("ssm_heads",)),
+        "w_fgate": normal_init((d, H), ("embed", "ssm_heads"), scale=0.02),
+        "b_fgate": const_init(lambda: torch.full((H,), 3.0), ("ssm_heads",)),  # open forget
+        "norm_scale": ones_init((di,), ("ssm_inner",)),
+        "down": normal_init((di, d), ("ssm_inner", "embed")),
     }
 
 
@@ -232,7 +234,7 @@ def apply_mlstm(
     var = y.float().square().mean(-1, keepdim=True)
     y = (y.float() * torch.rsqrt(var + cfg.norm_eps) * p["norm_scale"]).to(dt_)
     y = y * F.silu(z)
-    return y @ p["down"].to(dt_), new_state
+    return shard(y @ p["down"].to(dt_), ("batch", "seq", "act_embed")), new_state
 
 
 def init_mlstm_state(cfg: ModelConfig, batch: int, dtype, device=None) -> MLSTMState:
@@ -270,12 +272,12 @@ def init_slstm(cfg: ModelConfig) -> Dict[str, ParamSpec]:
         return b
 
     return {
-        "w": normal_init((d, 4, H, Dh)),
-        "r": normal_init((H, Dh, 4, Dh), fan_in=Dh),
-        "b": const_init(bias),
-        "norm_scale": ones_init((d,)),
-        "ff1": normal_init((d, 2 * f_mlp)),
-        "ff2": normal_init((f_mlp, d)),
+        "w": normal_init((d, 4, H, Dh), ("embed", None, "ssm_heads", None)),
+        "r": normal_init((H, Dh, 4, Dh), ("ssm_heads", None, None, None), fan_in=Dh),
+        "b": const_init(bias, (None, "ssm_heads", None)),
+        "norm_scale": ones_init((d,), ("embed",)),
+        "ff1": normal_init((d, 2 * f_mlp), ("embed", "mlp")),
+        "ff2": normal_init((f_mlp, d), ("mlp", "embed")),
     }
 
 
@@ -347,7 +349,8 @@ def apply_slstm(
     var = y.float().square().mean(-1, keepdim=True)
     y = (y.float() * torch.rsqrt(var + cfg.norm_eps) * p["norm_scale"]).to(dt_)
     g, u = (y @ p["ff1"].to(dt_)).chunk(2, dim=-1)
-    return (F.gelu(g, approximate="tanh") * u) @ p["ff2"].to(dt_), new_state
+    y = (F.gelu(g, approximate="tanh") * u) @ p["ff2"].to(dt_)
+    return shard(y, ("batch", "seq", "act_embed")), new_state
 
 
 def init_slstm_state(cfg: ModelConfig, batch: int, dtype, device=None) -> SLSTMState:

@@ -1,0 +1,15 @@
+from .partition import (
+    SITES,
+    Rules,
+    Sharding,
+    active_mesh,
+    active_rules,
+    default_rules,
+    param_sharding,
+    placements,
+    shard,
+    spec_for,
+    use_partitioning,
+)
+
+__all__ = [k for k in dir() if not k.startswith("_")]

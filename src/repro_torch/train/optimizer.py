@@ -22,6 +22,7 @@ from typing import Dict, Iterator, Mapping, NamedTuple, Tuple, Union
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 Tree = Dict[str, torch.Tensor]
 CHUNK = 1 << 24  # elements per in-place update step: 64 MiB of fp32
@@ -83,7 +84,10 @@ def learning_rate(cfg: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
 def _chunks(t: torch.Tensor, *, written: bool = False) -> Iterator[torch.Tensor]:
     """``t``'s elements, at most :data:`CHUNK` at a time: views, which a
     tensor the update writes must give (``view`` raises where ``reshape``
-    would copy)."""
+    would copy).  A sharded :class:`DTensor` is one chunk: flattening it
+    would gather its shards."""
+    if isinstance(t, DTensor):
+        return iter((t,))
     flat = t.view(-1) if written else t.reshape(-1)
     return iter(flat.split(CHUNK))
 

@@ -10,35 +10,44 @@
 * PCCL integration point: a :class:`repro_torch.api.PcclSession` owned by
   the trainer plans the data-parallel gradient all-reduce (paper §2.2),
   cold and then warm on the threaded fabric, and reports both costs — a
-  price on the fabric model, not a time on the card.
+  price on the fabric model, not a time on the card;
+* DP × TP step pricing: given a ``torch.distributed`` device mesh with
+  "data" and "model" axes (``mesh=``, ``rules=``), the TP activation
+  all-reduces and the DP gradient all-reduce are priced *together*, as the
+  fabric arbiter's joint plan (``concurrent_step_cost``).
 
-It runs on one device, CUDA unless the caller passes ``device="cpu"``.  A
-device mesh with sharding rules (``mesh=``, ``rules=``) and so the joint
-DP × TP step pricing wait for the port's multi-device group.
+It runs on one device, CUDA unless the caller passes ``device="cpu"``.
+Under a one-rank mesh a run installs the mesh and rules
+(:func:`repro_torch.sharding.use_partitioning`), which leaves every tensor
+where it is; the sharded step on a mesh of several ranks waits for the
+port's process-group execution (ROADMAP item 7d).
 """
 
 from __future__ import annotations
 
+import contextlib
+import math
 import time
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Union
 
 import torch
 
-from repro_torch.api import PcclSession
+from repro_torch.api import ConcurrentCollectiveRequest, PcclSession
 from repro_torch.ckpt.checkpoint import CheckpointConfig, CheckpointManager
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import cost_model as cm
 from repro_torch.data.pipeline import DataConfig, SyntheticLMData, to_device
 from repro_torch.device import resolve_device
 from repro_torch.models import build_model
-from repro_torch.models.module import param_count
+from repro_torch.models.module import axes_of, param_count, shapes_of
 from repro_torch.runtime.fault import (
     FailureInjector,
     InjectedFailure,
     StragglerConfig,
     StragglerDetector,
 )
+from repro_torch.sharding import partition
 
 from .optimizer import OptimizerConfig, init_opt_state
 from .train_step import make_train_step
@@ -73,15 +82,12 @@ class Trainer:
         failure_injector: Optional[FailureInjector] = None,
         device: Optional[Union[str, torch.device]] = None,
     ):
-        if mesh is not None or rules is not None:
-            raise NotImplementedError(
-                "Trainer(mesh=..., rules=...) needs the port's multi-device group "
-                "(sharding rules, process-group backend), not ported yet (ROADMAP Queue 1, item 7)"
-            )
         self.cfg = model_cfg
         self.data_cfg = data_cfg
         self.opt_cfg = opt_cfg
         self.tcfg = trainer_cfg
+        self.mesh = mesh
+        self.rules = rules
         self.device = resolve_device(device)
         self.model = build_model(model_cfg)
         self.data = SyntheticLMData(model_cfg, data_cfg)
@@ -93,7 +99,8 @@ class Trainer:
         # PCCL planning for the DP gradient all-reduce (paper integration):
         # one session per trainer; warm-plan (cold + threaded re-plan) gives
         # the steady-state per-step cost the job will actually pay.
-        n_dp = data_cfg.n_hosts
+        n_dp = data_cfg.n_hosts if mesh is None else _axis_size(mesh, "data")
+        n_tp = 1 if mesh is None else _axis_size(mesh, "model")
         grad_bytes = 4.0 * param_count(self.model.specs())
         self.pccl = PcclSession(cm.TPU_V5E_PHOTONIC, device=self.device)
         if n_dp >= 2:
@@ -111,9 +118,45 @@ class Trainer:
         else:
             self.grad_allreduce_algorithm = "none"
             self.grad_allreduce_cost_s = {"cold": 0.0, "steady": 0.0}
-        # the joint DP × TP pricing needs a 2-D mesh (none without one)
+        # DP×TP step pricing: on a 2-D mesh the TP activation all-reduces and
+        # the DP gradient all-reduce are in flight *together*, so the step
+        # cost is the fabric arbiter's joint plan (TP rows ∥ DP columns), not
+        # the sum of two fabric-to-itself plans.
         self.concurrent_step_cost = None
+        if n_dp >= 2 and n_tp >= 2:
+            from repro_torch.core.schedules import mesh_groups
+
+            n_mesh = n_dp * n_tp
+            tp_groups, dp_groups = mesh_groups(n_tp, n_dp)
+            # per-group buffer sizes as the mesh actually shards them: each
+            # TP group all-reduces its own DP shard of the batch activation,
+            # and each DP rank reduces its 1/n_tp TP slice of the gradients
+            act_bytes = (
+                4.0 * (data_cfg.global_batch / n_dp)
+                * data_cfg.seq_len * model_cfg.d_model
+            )
+            dp_grad_bytes = grad_bytes / n_tp
+            cp = self.pccl.plan_concurrent(
+                [
+                    ConcurrentCollectiveRequest(
+                        "all_reduce", act_bytes, groups=tp_groups, algorithm="auto"
+                    ),
+                    ConcurrentCollectiveRequest(
+                        "all_reduce", dp_grad_bytes, groups=dp_groups, algorithm="auto"
+                    ),
+                ],
+                n=n_mesh,
+            )
+            self.concurrent_step_cost = {
+                "joint": cp.cost,
+                "sequential": cp.sequential_cost,
+                "speedup": cp.speedup,
+                "serialized": cp.serialized,
+                "algorithms": cp.algorithms,
+            }
+
         self._step_fn = None
+        self._shardings = None
 
     # ------------------------------------------------------------- plumbing
     def _build(self):
@@ -122,10 +165,22 @@ class Trainer:
     def _init_state(self):
         gen = torch.Generator(device=self.device).manual_seed(self.tcfg.seed)
         params = self.model.init(gen, self.device)
+        if self.mesh is not None and self.rules is not None:
+            # a one-rank mesh: every placement leaves the whole tensor here
+            specs = self.model.specs()
+            self._shardings = partition.param_sharding(
+                axes_of(specs), self.mesh, self.rules, shapes_tree=shapes_of(specs)
+            )
         return params, init_opt_state(params)
 
     # ----------------------------------------------------------------- run
     def run(self) -> Dict[str, Any]:
+        if self.mesh is not None and math.prod(self.mesh.shape) > 1:
+            raise NotImplementedError(
+                f"Trainer.run on a mesh of {math.prod(self.mesh.shape)} ranks needs the "
+                "port's process-group execution, not ported yet (ROADMAP Queue 1, item 7d); "
+                "a one-rank mesh runs, and the DP × TP pricing is computed at construction"
+            )
         self._build()
         restarts = 0
         while True:
@@ -142,6 +197,15 @@ class Trainer:
                 continue
 
     def _run_once(self) -> Dict[str, Any]:
+        ctx = (
+            partition.use_partitioning(self.mesh, self.rules)
+            if self.mesh is not None and self.rules is not None
+            else contextlib.nullcontext()
+        )
+        with ctx:
+            return self._run_steps()
+
+    def _run_steps(self) -> Dict[str, Any]:
         params, opt_state = self._init_state()
         start_step = 0
         if self.ckpt is not None:
@@ -188,3 +252,9 @@ class Trainer:
             "pccl_exec": self.pccl.exec_stats(),
             "stragglers": self.straggler.stragglers(),
         }
+
+
+def _axis_size(mesh, name: str) -> int:
+    """Size of the mesh axis ``name`` (1 if the mesh has none)."""
+    names = tuple(mesh.mesh_dim_names or ())
+    return int(mesh.shape[names.index(name)]) if name in names else 1

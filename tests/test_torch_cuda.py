@@ -744,3 +744,60 @@ def test_launch_counts_are_one_locked_object_of_every_kernel(dev):
         assert LAUNCHES.by_route(name) == {"wgmma": 1 + 8 * 20, "fma": 0}, name
     LAUNCHES.reset()
     assert sum(LAUNCHES.totals().values()) == 0
+
+
+def test_reduced_zamba2_serves_under_a_one_rank_nccl_mesh_bit_for_bit(dev):
+    """Path 11a at a reduced size: the engine under a one-rank NCCL mesh
+    with the default rules gives the same tokens and logits as without a
+    mesh, launches K3 and K4 as often, and reaches the shard sites."""
+    import os
+    import socket
+    from dataclasses import replace
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+    from repro_torch.sharding import SITES, default_rules, use_partitioning
+
+    cfg = replace(get_config("zamba2-2.7b").reduced(), use_pallas=True, dtype="bfloat16")
+
+    def serve():
+        engine = ServeEngine(cfg, EngineConfig(batch_size=2, max_len=48), seed=0, device=dev)
+        logits = []
+        decode = engine.model.decode_step
+
+        def watched(*args, **kwargs):
+            out = decode(*args, **kwargs)
+            logits.append(out[0].clone())
+            return out
+
+        engine.model.decode_step = watched
+        rng = np.random.default_rng(0)
+        reqs = [Request(prompt=rng.integers(0, cfg.vocab, size=n).astype(np.int32),
+                        max_new_tokens=4) for n in (40, 24)]
+        LAUNCHES.reset()
+        engine.generate(reqs)
+        return [q.generated for q in reqs], logits, LAUNCHES.by_route("flash"), \
+            LAUNCHES.by_route("ssd")
+
+    plain = serve()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    dist.init_process_group("nccl", rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        SITES.reset()
+        with use_partitioning(mesh, default_rules()):
+            meshed = serve()
+        assert SITES.total() > 0
+    finally:
+        dist.destroy_process_group()
+    assert meshed[0] == plain[0]
+    assert len(meshed[1]) == len(plain[1])
+    assert all(torch.equal(a, b) for a, b in zip(meshed[1], plain[1]))
+    # the reduced widths take K4's fma route (its wgmma route needs P = N = 64)
+    assert meshed[2:] == plain[2:] and plain[2]["wgmma"] > 0 and sum(plain[3].values()) > 0

@@ -32,7 +32,11 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
     mods = list(_modules())
     assert "repro_torch.comm.fusion" in mods and "repro_torch.models.moe" in mods
     assert {"repro_torch.train.optimizer", "repro_torch.train.data_parallel",
-            "repro_torch.data.pipeline", "repro_torch.kernels.autograd"} <= set(mods)
+            "repro_torch.data.pipeline", "repro_torch.kernels.autograd",
+            "repro_torch.sharding", "repro_torch.sharding.partition",
+            "repro_torch.launch.mesh", "repro_torch.launch.specs",
+            "repro_torch.launch.roofline", "repro_torch.launch.dryrun",
+            "repro_torch.launch.perf"} <= set(mods)
     assert len(mods) > 20
     code = (
         "import importlib, importlib.util, sys\n"
@@ -104,3 +108,32 @@ def test_kernel_sources_are_in_the_package(name):
     assert f"src/repro/kernels/{name}/kernel.py::" in source.read_text()
     # the build directory is ignored by git
     assert "src/repro_torch/_build/" in (ROOT / ".gitignore").read_text()
+
+
+def test_meshes_default_to_cuda_and_raise_without_it():
+    """``make_mesh`` builds a CUDA mesh unless asked for another device type;
+    the dry run asks for CPU ranks of a fake group (in a subprocess: a
+    process group is global to the process)."""
+    code = (
+        "import torch\n"
+        "from repro_torch.launch.mesh import init_fake_world, make_mesh\n"
+        "init_fake_world(4)\n"
+        "if torch.cuda.is_available():\n"
+        "    print('TYPE', make_mesh((2, 2), ('data', 'model')).device_type)\n"
+        "else:\n"
+        "    try:\n"
+        "        make_mesh((2, 2), ('data', 'model'))\n"
+        "    except RuntimeError as e:\n"
+        "        print('RAISED', 'CUDA' in str(e))\n"
+        "try:\n"
+        "    make_mesh((4, 2), ('data', 'model'), device_type='cpu')\n"
+        "except RuntimeError as e:\n"
+        "    print('SMALL', 'dryrun' in str(e))\n"
+        "print('CPU', make_mesh((2, 2), ('data', 'model'), device_type='cpu').device_type)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    want = "TYPE cuda" if torch.cuda.is_available() else "RAISED True"
+    assert want in proc.stdout and "SMALL True" in proc.stdout and "CPU cpu" in proc.stdout

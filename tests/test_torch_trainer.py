@@ -455,11 +455,18 @@ def test_restart_waits_for_the_checkpoint_being_written(tmp_path):
 
 
 def test_trainer_refuses_a_mesh():
+    """A mesh of several ranks is priced at construction and refused by
+    ``run()``: the sharded step waits for ROADMAP item 7d.  (The pricing
+    and the one-rank run: ``tests/test_torch_sharding.py``.)"""
+    from types import SimpleNamespace
+
     ref_cfg, cfg = _cfgs("chatglm3-6b")
     args = (cfg, DataConfig(global_batch=2, seq_len=16), OptimizerConfig(), TrainerConfig())
-    for kw in (dict(mesh=object()), dict(rules=object())):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            Trainer(*args, device="cpu", **kw)
+    mesh = SimpleNamespace(shape=(2, 2), mesh_dim_names=("data", "model"))
+    trainer = Trainer(*args, device="cpu", mesh=mesh, rules=object())
+    assert trainer.concurrent_step_cost is not None
+    with pytest.raises(NotImplementedError, match="item 7"):
+        trainer.run()
 
 
 def test_trainer_defaults_to_cuda():

@@ -106,6 +106,28 @@ and then drives the port's main paths:
    0, allocates nothing on the card, and prints its bytes by collective
    and PCCL's speedup.
 
+12. one process per rank: four processes on this card joined over gloo
+   on a ``FileStore`` (``repro_torch.launch.procs.spawn``).  12a: path 1's
+   four collectives at its per-rank shapes in fp32, at the algorithms the
+   planner picks there, the all-reduce it gives ``ring_ef8`` under its
+   error bound, fused mm+RS (bf16 and fp32) and fused AR+RMSNorm, each
+   through ``session.communicator(group)`` with every round one
+   ``dist.batch_isend_irecv`` and CUDA payloads staged through pinned host
+   memory: each rank's result bit for bit its row of the rank-stacked
+   engine run here (SHA-256 of the bytes), the seams equal to their
+   unfused compositions, every round on the ``gloo-staged`` route, K1 and
+   K2 counted in each process; ms per call and bytes staged printed.  Two
+   NCCL ranks on this card are refused ("Duplicate GPU detected"), which
+   is why the path runs on gloo.  12b: Whisper-small at published widths
+   and depth through the ``Trainer`` on a ``("data", "model") = (2, 2)``
+   mesh, DTensor parameters and moments, 4 × 448 tokens a step, a
+   checkpoint at step 2, a failure injected at step 2 and the restart
+   from it; losses within 1e-4 (relative) of the one-process ``Trainer``
+   on the same batches, K3 counted in each process; ms a step and peak
+   memory printed.  12c: data slice 1 fails, ``shrink_mesh`` gives ``(1,
+   2)``, ``reshard_tree`` keeps every value bit for bit and the survivors
+   take one more step.
+
 A parity phase then holds Zamba2's prefill with the kernels against its
 plain path in fp32 (6 layers, batch 2, 512 tokens), and teacher-forced
 decode against a longer prefill, xLSTM's the same way (one group: 7
@@ -2680,6 +2702,256 @@ def path11_phase(torch, zamba2, path2_run, serve_stats, train_stats, reset_count
     return counts, routes, stats
 
 
+# -------------------------------- path 12: one process per rank, gloo
+
+P12_RANKS = 4
+P12_REPS = 3            # timed calls of each collective, after the counted one
+P12_MESH = (2, 2)       # ("data", "model")
+P12_BATCH, P12_SEQ = 4, 448
+P12_STEPS, P12_CKPT_EVERY, P12_FAIL_AT = 3, 2, 2
+# relative: the sharded step against the one-process Trainer, bf16
+# activations whose tensor-parallel partial sums meet in bf16 in another
+# order (the CPU test holds fp32 at 1e-4 absolute)
+P12_LOSS_TOL = 1e-4
+P12_THREADS = 2         # intra-op threads a rank: 4 ranks beside this process on 8 cores
+P12_TIMEOUT = 420       # seconds a spawn may take before every rank is killed
+P12_COLLECTIVES = ("all_reduce", "reduce_scatter", "all_gather", "all_to_all")
+
+
+def path12_cases(tokens=TOKENS, d_model=D_MODEL, d_ff=D_FF) -> list:
+    """12a's cases: path 1's collectives at its per-rank shapes on
+    ``P12_RANKS`` processes, in fp32 (the bit gate), at the algorithms the
+    planner picks at those sizes on ``H100_DGX``; the all-reduce the planner
+    gives ``ring_ef8`` under its error bound; fused mm+RS in bf16 (K1 on
+    wgmma) and fp32 (K1 on fma) on the ring, fused AR+RMSNorm in bf16."""
+    from repro_torch.core import cost_model as cm
+
+    base = dict(n=P12_RANKS, hw="H100_DGX")
+    cases = [dict(base, path="comm", collective=c, seed=SEED + 20 + i,
+                  local=(tokens // P12_RANKS if c == "all_gather" else tokens, d_model))
+             for i, c in enumerate(P12_COLLECTIVES)]
+    cases.append(dict(base, path="comm", collective="all_reduce", local=(tokens, d_model),
+                      seed=SEED + 24, rel_error_tol=cm.compressed_ef_error_bound(P12_RANKS)))
+    k = d_ff // TP
+    cases += [dict(base, path="fused_mm_rs", local=(tokens, k), side=(k, d_model), dtype=dt,
+                   algorithm="ring", seed=SEED + 25 + j, reps=P12_REPS if dt == "bfloat16" else 0)
+              for j, dt in enumerate(("bfloat16", "float32"))]
+    cases.append(dict(base, path="fused_ar_rms", local=(tokens, d_model), side=(d_model,),
+                      dtype="bfloat16", seed=SEED + 27))
+    return cases
+
+
+def stacked_case(torch, case, device):
+    """What the rank-stacked engine gives for ``case`` on this process's
+    device: the communicator over ``"x"`` at the case's algorithm."""
+    from repro_torch import PcclSession
+    from repro_torch.comm import fusion
+    from repro_torch.core import cost_model as cm
+    from repro_torch.launch import procs
+
+    dtype = getattr(torch, case.get("dtype", "float32"))
+    x = torch.as_tensor(procs.stacked_input(case), device=device).to(dtype)
+    comm = PcclSession(getattr(cm, case["hw"]), device=device).communicator(
+        "x", case["n"], algorithm=case.get("algorithm", "auto"),
+        rel_error_tol=case.get("rel_error_tol"))
+    if case["path"] == "fused_mm_rs":
+        w = torch.as_tensor(procs.side_input(case), device=device).to(dtype)
+        return fusion.fused_matmul_reduce_scatter(comm, x, w)
+    if case["path"] == "fused_ar_rms":
+        gamma = torch.as_tensor(procs.side_input(case), device=device).to(dtype)
+        return fusion.fused_all_reduce_rmsnorm(comm, x, gamma)
+    return getattr(comm, case["collective"])(x)
+
+
+def path12a(torch, store_dir, device, cases) -> dict:
+    """Path 1's collectives, ring_ef8 and both seams on ``P12_RANKS``
+    processes over gloo, each rank's fp32 result held bit for bit against
+    its row of the rank-stacked engine on this device (SHA-256 of the
+    bytes), the seams against their unfused compositions; the route and
+    the staged bytes of every rank; K1's and K2's launches per process."""
+    from repro_torch.launch import procs
+
+    t = time.perf_counter()
+    ranks = procs.spawn(procs.collectives_program, P12_RANKS,
+                        (cases, device.type, P12_REPS, True), store_dir=store_dir,
+                        timeout_s=P12_TIMEOUT, threads=P12_THREADS)
+    log(f"  12a: {P12_RANKS} processes ran {len(cases)} cases in {time.perf_counter() - t:.1f} s")
+    staged_route = "gloo-staged" if device.type == "cuda" else "gloo"
+    # each rank's launches in the counted call of each case (not the timed
+    # calls, nor the unfused composition the seams are held against)
+    launches = [{k: {route: sum(c["launches"][k][route] for c in r["cases"])
+                     for route in r["cases"][0]["launches"][k]}
+                 for k in r["cases"][0]["launches"]} for r in ranks]
+    stats = {"cases": [], "staged_bytes": [r["staged_bytes"] for r in ranks],
+             "route_rounds": [r["route_rounds"] for r in ranks], "launches": launches}
+    for i, case in enumerate(cases):
+        outs = [r["cases"][i]["out"] for r in ranks]
+        algorithm = ranks[0]["cases"][i]["algorithm"]
+        name = case.get("collective", case["path"])
+        stacked = stacked_case(torch, case, device)
+        rows = [procs.digest_of(stacked[r]) for r in range(P12_RANKS)]
+        del stacked
+        if case["path"].startswith("fused"):
+            check(all(f == u for f, u in outs), f"12a {name} [{case.get('dtype')}]: a rank's fused "
+                  "result differs from its unfused composition")
+            outs = [f for f, _ in outs]
+        same = outs == rows
+        ms = [r["cases"][i].get("ms") for r in ranks]
+        log(f"  12a {name} [{case.get('dtype', 'float32')}] ({algorithm}), local "
+            f"{tuple(case['local'])}: every rank bit for bit as its rank-stacked row: {same}; "
+            f"ms per call by rank {[None if m is None else round(m, 3) for m in ms]}")
+        check(same, f"12a {name} ({algorithm}): a rank's result differs from the rank-stacked engine")
+        stats["cases"].append({"name": name, "dtype": case.get("dtype", "float32"),
+                               "local": list(case["local"]), "algorithm": algorithm, "ms": ms})
+    ef8 = next(st["algorithm"] for st, case in zip(stats["cases"], cases)
+               if case.get("rel_error_tol"))
+    check(ef8 == "ring_ef8", f"auto under the ring_ef8 tolerance picked {ef8}")
+    for r, rank in enumerate(ranks):
+        check(set(rank["route_rounds"]) == {staged_route},
+              f"12a rank {r} took routes {rank['route_rounds']}, not only {staged_route}")
+        check((rank["staged_bytes"] > 0) == (device.type == "cuda"),
+              f"12a rank {r} staged {rank['staged_bytes']} bytes through the host")
+    log(f"  12a routes by rank: {stats['route_rounds']}; bytes staged through the host by rank: "
+        f"{stats['staged_bytes']}")
+    if device.type == "cuda":
+        # one K1 a tile of the stream program: the bf16 seam on wgmma, the
+        # fp32 one on fma; one K2 at the all-reduce's arrival
+        want = {"wgmma": P12_RANKS, "fma": P12_RANKS}
+        for r, counts in enumerate(launches):
+            check(counts["matmul"] == want,
+                  f"12a rank {r} launched K1 {counts['matmul']}, not {want}")
+            check(counts["rmsnorm"] == {"triton": 1}, f"12a rank {r} launched K2 {counts['rmsnorm']}")
+        log(f"  12a K1 and K2 launches in each process: matmul {want}, rmsnorm "
+            f"{launches[0]['rmsnorm']}")
+    return stats
+
+
+def nccl_refusal(store_dir) -> str:
+    """NCCL with two ranks on this one card: the text of its refusal (a
+    gate that it is refused as recorded, not a route of the port)."""
+    from repro_torch.launch import procs
+
+    case = dict(n=2, seed=SEED, local=(8,), path="comm", collective="all_reduce",
+                backend="native", hw="H100_DGX")
+    try:
+        procs.spawn(procs.collectives_program, 2, ([case], "cuda"), store_dir=store_dir,
+                    backend="nccl", timeout_s=180)
+    except RuntimeError as e:
+        lines = [x for x in str(e).splitlines() if "Duplicate GPU" in x]
+        check(bool(lines), f"two NCCL ranks on one card failed otherwise: {str(e)[-600:]}")
+        return lines[0].strip()
+    check(False, "two NCCL ranks on one card ran: the path's premise no longer holds")
+
+
+def path12b(torch, store_dir, cfg, device) -> dict:
+    """Whisper-small through the Trainer on a ``P12_MESH`` mesh of
+    ``P12_RANKS`` processes, a checkpoint, an injected failure and the
+    restart (12b), then data slice 1 "fails", the mesh shrinks and the
+    state re-shards onto the survivors, which take one more step (12c);
+    beside it, the one-process Trainer on the same batches."""
+    from repro_torch.data import DataConfig
+    from repro_torch.launch import procs
+    from repro_torch.sharding import default_rules
+    from repro_torch.train import OptimizerConfig, Trainer, TrainerConfig
+
+    data = DataConfig(global_batch=P12_BATCH, seq_len=P12_SEQ)
+    tc = TrainerConfig(total_steps=P12_STEPS, ckpt_every=P12_CKPT_EVERY, log_every=100)
+    # TP over "model", DP over "data"; parameters whole over "data" (no
+    # FSDP): the gradient all-reduce over "data", TP's collectives over "model"
+    rules = default_rules(fsdp=False)
+    t = time.perf_counter()
+    ranks = procs.spawn(procs.trainer_program, P12_RANKS, (cfg, data, OptimizerConfig(), tc),
+                        dict(mesh_shape=P12_MESH, rules=rules, device=device.type,
+                             ckpt_dir=str(Path(store_dir) / "ckpt"), fail_at=(P12_FAIL_AT,),
+                             shrink=True),
+                        store_dir=store_dir, timeout_s=P12_TIMEOUT, threads=P12_THREADS)
+    log(f"  12b-c: {P12_RANKS} processes in {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    alone = Trainer(cfg, data, OptimizerConfig(), tc, device=device).run()
+    one = [h["loss"] for h in alone["history"]]
+    del alone
+    gc.collect()
+    log(f"  12b: the one-process Trainer on the same batches in {time.perf_counter() - t:.1f} s: "
+        f"losses {[round(x, 6) for x in one]}")
+    per_step = train_launches(cfg, 1)["flash"]
+    stats = {"ranks": [], "one_process_losses": one}
+    for r, rank in enumerate(ranks):
+        steps, losses = rank["steps"], rank["losses"]
+        by_step = dict(zip(steps, losses))
+        err = max(abs(by_step[s] - one[s]) / abs(one[s]) for s in range(P12_STEPS))
+        warm = rank["step_time_s"][1:]
+        ms = 1e3 * statistics.median(warm)
+        peak = rank["peak_bytes"]
+        log(f"  12b rank {r}: steps {steps}, resumed from {rank['resumed_from']}, checkpoints "
+            f"{rank['ckpt_steps']}; losses {[round(x, 6) for x in losses]}, max |Δ|/|loss| "
+            f"against one process {err:.3e} (tol {P12_LOSS_TOL}); warm ms a step {ms:.1f} (steps "
+            f"{[round(1e3 * x, 1) for x in rank['step_time_s']]}); peak "
+            f"{'n/a' if peak is None else f'{peak / 2**30:.2f} GiB'}; K3 {rank['launches']['flash']}; "
+            f"staged {rank['staged_bytes']} B in {rank['route_rounds']}")
+        check(steps == list(range(P12_STEPS)), f"12b rank {r} ran steps {steps}")
+        check(rank["resumed_from"] == [P12_CKPT_EVERY],
+              f"12b rank {r} resumed from {rank['resumed_from']}, not the step-{P12_CKPT_EVERY} "
+              "checkpoint")
+        check(err <= P12_LOSS_TOL,
+              f"12b rank {r}: loss {err:.3e} (relative) from the one-process Trainer's")
+        if device.type == "cuda":
+            check(rank["launches"]["flash"] == {"wgmma": per_step * P12_STEPS, "fma": 0},
+                  f"12b rank {r} launched K3 {rank['launches']['flash']}, not "
+                  f"{per_step * P12_STEPS} on wgmma")
+        stats["ranks"].append({"losses": losses, "steps": steps, "warm_ms_per_step": ms,
+                               "step_ms": [1e3 * x for x in rank["step_time_s"]],
+                               "peak_bytes": peak, "staged_bytes": rank["staged_bytes"],
+                               "route_rounds": rank["route_rounds"],
+                               "flash": rank["launches"]["flash"], "wall_s": rank["wall_s"],
+                               "max_rel_loss_err": err})
+    survivors = [r for r in ranks if not r["failed"]]
+    log(f"  12c: the mesh shrank to {ranks[0]['shrunk_shape']}; survivors {len(survivors)}; "
+        f"every value re-sharded bit for bit: {[r['reshard_exact'] for r in survivors]}; their "
+        f"step's loss {[r['survivor_loss'] for r in survivors]}")
+    check(all(tuple(r["shrunk_shape"]) == (P12_MESH[0] - 1, P12_MESH[1]) for r in ranks),
+          "12c: the shrunk mesh has the wrong shape")
+    check(len(survivors) == P12_RANKS - P12_MESH[1], "12c: the wrong ranks survived")
+    check(all(r["reshard_exact"] for r in survivors), "12c: a re-sharded value changed")
+    check(len({r["survivor_loss"] for r in survivors}) == 1
+          and math.isfinite(survivors[0]["survivor_loss"]), "12c: the survivors' step disagrees")
+    stats["shrink"] = {"shape": list(ranks[0]["shrunk_shape"]),
+                       "survivor_loss": survivors[0]["survivor_loss"]}
+    return stats
+
+
+def path12_phase(torch, cfg, device=None, cases=None):
+    """Path 12: 12a, the NCCL probe, 12b and 12c; returns (K1, K2 and K3
+    launches summed over the processes, the stats)."""
+    device = device or torch.device("cuda")
+    cases = cases if cases is not None else path12_cases()
+    stats = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_p12_") as store:
+        log(f"== main path 12a: path 1's collectives, ring_ef8 and both seams on {P12_RANKS} "
+            f"processes over gloo (one per rank; CUDA payloads staged through pinned host memory)")
+        t = time.perf_counter()
+        stats["12a"] = path12a(torch, str(Path(store) / "a"), device, cases)
+        log(f"  phase main path 12a: {time.perf_counter() - t:.3f} s")
+        if device.type == "cuda":
+            t = time.perf_counter()
+            stats["nccl_refusal"] = nccl_refusal(str(Path(store) / "nccl"))
+            log(f"  NCCL, two ranks on this card: {stats['nccl_refusal']} "
+                f"({time.perf_counter() - t:.1f} s)")
+        log(f"== main path 12b-c: train {cfg.name} at published widths and depth through the "
+            f"Trainer on a ('data', 'model') = {P12_MESH} mesh of {P12_RANKS} processes, a failure "
+            f"at step {P12_FAIL_AT}, the restart; then data slice 1 fails, shrink_mesh, "
+            "reshard_tree and one step on the survivors")
+        t = time.perf_counter()
+        stats["12bc"] = path12b(torch, str(Path(store) / "b"), cfg, device)
+        log(f"  phase main path 12b-c: {time.perf_counter() - t:.3f} s")
+    launches = {
+        "matmul": {k: sum(r["matmul"][k] for r in stats["12a"]["launches"])
+                   for k in ("wgmma", "fma")},
+        "rmsnorm": sum(r["rmsnorm"]["triton"] for r in stats["12a"]["launches"]),
+        "flash": {k: sum(r["flash"][k] for r in stats["12bc"]["ranks"]) for k in ("wgmma", "fma")},
+    }
+    return launches, stats
+
+
 def main() -> int:
     import torch
 
@@ -2927,6 +3199,13 @@ def main() -> int:
     path11, routes11, path11_stats = path11_phase(torch, zamba2, path2_run, serve_stats,
                                                   train_stats, reset_counts, read_counts)
     log(f"  phase main path 11 with 11b-c: {time.perf_counter() - t:.3f} s")
+    t = time.perf_counter()
+    whisper_p12 = model_config("whisper-small", True)
+    path12, path12_stats = path12_phase(torch, whisper_p12)
+    log(f"  phase main path 12 with the NCCL probe: {time.perf_counter() - t:.3f} s; kernel "
+        f"launches summed over the processes {path12}")
+    check(path12["matmul"]["wgmma"] > 0 and path12["rmsnorm"] > 0 and path12["flash"]["wgmma"] > 0,
+          "main path 12 never launched K1, K2 or K3 in its processes")
     log("serve: " + json.dumps({**serve_stats, **parity}))
     log("serve olmoe: " + json.dumps(olmoe_stats))
     log("serve deepseek: " + json.dumps(deepseek_stats))
@@ -2938,24 +3217,27 @@ def main() -> int:
     log("train whisper (Trainer): " + json.dumps(trainer_stats))
     log("verified path 1, PcclComm, PCCL_VERIFY cost, CLIs: " + json.dumps(path10_stats))
     log("path 11 (mesh, roofline, dry run): " + json.dumps(path11_stats))
+    log("path 12 (processes over gloo, the sharded Trainer, the elastic re-mesh): "
+        + json.dumps(path12_stats))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
 
     # the bf16 kernels of each path; K1, K3 and K4 on their tensor-core route
     sources = {
         "matmul": ("cuda", "src/repro_torch/kernels/matmul/csrc/matmul_sm90.cu",
                    "src/repro/kernels/matmul/kernel.py:52",
-                   {"matmul": path1["matmul"] + path10["matmul"]},
-                   {r: routes1[r] + routes10[r] for r in routes1}),
+                   {"matmul": path1["matmul"] + path10["matmul"]
+                    + sum(path12["matmul"].values())},
+                   {r: routes1[r] + routes10[r] + path12["matmul"][r] for r in routes1}),
         "rmsnorm": ("triton", "src/repro_torch/kernels/rmsnorm/kernel.py",
                     "src/repro/kernels/rmsnorm/kernel.py:37",
-                    {"rmsnorm": path1["rmsnorm"] + path10["rmsnorm"]}, None),
+                    {"rmsnorm": path1["rmsnorm"] + path10["rmsnorm"] + path12["rmsnorm"]}, None),
         "flash": ("cuda", "src/repro_torch/kernels/flash/csrc/flash_sm90.cu",
                   "src/repro/kernels/flash/kernel.py:79",
                   {"flash": path2["flash"] + path3["flash"] + path6["flash"] + path7["flash"]
-                   + path9["flash"] + path11["flash"]},
+                   + path9["flash"] + path11["flash"] + sum(path12["flash"].values())},
                   {r: routes2["flash"][r] + routes3["flash"][r] + routes6["flash"][r]
                    + routes7["flash"][r] + routes9["flash"][r] + routes11["flash"][r]
-                   for r in routes2["flash"]}),
+                   + path12["flash"][r] for r in routes2["flash"]}),
         "ssd": ("cuda", "src/repro_torch/kernels/ssd/csrc/ssd_sm90.cu",
                 "src/repro/kernels/ssd/kernel.py:80",
                 {"ssd": path2["ssd"] + path7["ssd"] + path11["ssd"]},
@@ -2985,8 +3267,11 @@ def main() -> int:
         if "pass_ms" in k:
             entry["pass_ms"] = k["pass_ms"]
         if name in ("matmul", "rmsnorm"):
-            # launches on path 1 and on path 10 (path 1 again under PCCL_VERIFY=1)
-            entry["launches_by_path"] = {"collectives": path1[name], "verified": path10[name]}
+            # launches on path 1, on path 10 (path 1 again under PCCL_VERIFY=1)
+            # and on path 12a, summed over its processes
+            p12 = path12[name] if name == "rmsnorm" else sum(path12[name].values())
+            entry["launches_by_path"] = {"collectives": path1[name], "verified": path10[name],
+                                         "processes": p12}
         if name == "flash":
             # launches on path 2 (Zamba2), path 3 (OLMoE), path 6 (Whisper),
             # path 7 (training Zamba2) and path 9 (training Whisper through the
@@ -2995,7 +3280,8 @@ def main() -> int:
             entry["launches_by_path"] = {"zamba2": path2["flash"], "olmoe": path3["flash"],
                                          "whisper": path6["flash"], "zamba2_train": path7["flash"],
                                          "whisper_trainer": path9["flash"],
-                                         "zamba2_mesh": path11["flash"]}
+                                         "zamba2_mesh": path11["flash"],
+                                         "whisper_processes": sum(path12["flash"].values())}
             entry["at_olmoe_prefill"] = kernels["bfloat16"]["flash_olmoe"]
             entry["at_whisper_prefill"] = kernels["bfloat16"]["flash_whisper"]
             entry["at_train"] = kernels["bfloat16"]["flash_train"]

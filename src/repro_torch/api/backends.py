@@ -17,6 +17,14 @@ of one protocol:
 * ``sim``    — cost-model-only: data passes through with single-copy
   placeholder semantics while the *planned* time of every collective is
   accumulated on ``elapsed_s``.
+
+On a communicator bound to a ``torch.distributed`` process group
+(``comm.process_group``) every backend takes this process's local operand
+and returns its local result, as the reference's do inside ``shard_map``:
+``interp`` runs each planned round as one ``dist.batch_isend_irecv``
+(:func:`repro_torch.comm.exec_engine.execute_compiled`), ``native`` calls
+the group's own collective (the counterpart of ``lax.psum`` and its kin
+in ``shard_map``; a split communicator's on one subgroup per group).
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ import math
 from typing import TYPE_CHECKING, List, Protocol, Tuple, runtime_checkable
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.comm.errors import ScheduleExecutionError
 
@@ -49,6 +58,14 @@ class Backend(Protocol):
     def all_to_all(self, comm: "Communicator", x): ...
 
 
+def _check_local(comm: "Communicator", collective: str, x: torch.Tensor) -> None:
+    """On a process group the operand is this rank's local tensor, on the
+    communicator's device, with a leading dimension."""
+    comm.check_operand(x)
+    if x.ndim < 1:
+        raise ScheduleExecutionError(f"{collective}: a 0-dim operand has no leading dim")
+
+
 def _check_stacked(comm: "Communicator", collective: str, x: torch.Tensor) -> None:
     """The operand must be the global ``(axis_size, *local)`` tensor on the
     communicator's device."""
@@ -60,11 +77,26 @@ def _check_stacked(comm: "Communicator", collective: str, x: torch.Tensor) -> No
         )
 
 
-def _check_divisible(x: torch.Tensor, n: int) -> None:
+def _check(comm: "Communicator", collective: str, x: torch.Tensor) -> None:
+    """:func:`_check_local` on a process group, :func:`_check_stacked` otherwise."""
+    if comm.process_group is not None:
+        _check_local(comm, collective, x)
+    else:
+        _check_stacked(comm, collective, x)
+
+
+def _local_shape(comm, x: torch.Tensor) -> Tuple[int, ...]:
+    """One rank's operand shape: ``x``'s own on a process group, a row's
+    otherwise."""
+    return tuple(x.shape) if comm.process_group is not None else tuple(x.shape[1:])
+
+
+def _check_divisible(comm, x: torch.Tensor, n: int) -> None:
     """Same local leading-dim precondition (and error) as the interpreter."""
-    if x.shape[1] % n:
+    lead = _local_shape(comm, x)[0]
+    if lead % n:
         raise ScheduleExecutionError(
-            f"leading dim {x.shape[1]} not divisible by {n} ranks"
+            f"leading dim {lead} not divisible by {n} ranks"
         )
 
 
@@ -98,13 +130,23 @@ class InterpBackend:
         return self._collective(comm, "all_to_all", x)
 
     def _collective(self, comm, collective, x):
-        _check_stacked(comm, collective, x)
+        _check(comm, collective, x)
         sched = comm.axis_schedule(
             collective,
-            _eager_nbytes(comm, collective, tuple(x.shape[1:]), x.element_size()),
+            _eager_nbytes(comm, collective, _local_shape(comm, x), x.element_size()),
         )
         if collective != "all_reduce":
             return self._run(comm, collective, x, sched)
+        if comm.process_group is not None:
+            # the reference's trace-path rule on the local buffer
+            flat = x.reshape(-1)
+            pad = (-flat.shape[0]) % comm.n
+            if pad:
+                flat = torch.cat([flat, flat.new_zeros((pad,))])
+            out = self._run(comm, "all_reduce", flat, sched)
+            if pad:
+                out = out[: out.shape[0] - pad]
+            return out.reshape(x.shape)
         # all_reduce runs on each rank's flat buffer, zero-padded to a
         # multiple of n (the reference's trace-path rule)
         S = x.shape[0]
@@ -121,13 +163,16 @@ class InterpBackend:
     def _run(self, comm, collective, x, sched: "Schedule"):
         from repro_torch.comm import primitives as P
 
+        group = comm.process_group
         if comm.groups is None:
             if collective == "all_reduce" and sched.algorithm == "ring_ef8":
                 # planner-selected wire compression: int8 payloads per hop
                 from repro_torch.comm.fusion import all_reduce_quantized
 
-                return all_reduce_quantized(x, sched)
-            return getattr(P, collective)(x, sched)
+                return all_reduce_quantized(x, sched, group)
+            return getattr(P, collective)(x, sched, group)
+        if group is not None:
+            return _grouped_local(comm, collective, x, sched)
         return _grouped_collective(comm, collective, x, sched)
 
 
@@ -151,7 +196,7 @@ def _grouped_collective(comm: "Communicator", collective: str, x, sched):
     me_local = comm.local_index_device_table()
     rest = tuple(x.shape[2:])
     if collective in ("reduce_scatter", "all_reduce", "all_to_all"):
-        _check_divisible(x, m)
+        _check_divisible(comm, x, m)
     if collective == "reduce_scatter":
         chunks = x.reshape((S, m, x.shape[1] // m) + rest).clone()
         chunks = execute_schedule(chunks, sched)
@@ -186,6 +231,55 @@ def _grouped_collective(comm: "Communicator", collective: str, x, sched):
     raise ScheduleExecutionError(f"unknown collective {collective!r}")
 
 
+def _grouped_local(comm: "Communicator", collective: str, x, sched):
+    """:func:`_grouped_collective` as one process of the axis runs it: the
+    reference's in-``shard_map`` body, with this rank's group-local index
+    and the composed full-axis schedule over the axis's process group."""
+    from repro_torch.comm.exec_engine import (
+        compile_all_to_all,
+        compile_schedule,
+        execute_all_to_all_compact,
+        group_rank,
+    )
+    from repro_torch.comm.primitives import execute_schedule, split_local
+
+    group = comm.process_group
+    m = comm.n
+    me_local = int(comm.local_index_table()[group_rank(group)])
+    if collective in ("reduce_scatter", "all_reduce", "all_to_all"):
+        _check_divisible(comm, x, m)
+    if collective == "reduce_scatter":
+        chunks = execute_schedule(split_local(x, m).clone(), sched, group)
+        return chunks[me_local]
+    if collective == "all_reduce":
+        chunks = split_local(x, m).clone()
+        if sched.algorithm == "ring_ef8":
+            from repro_torch.comm.fusion import execute_compiled_quantized
+
+            chunks = execute_compiled_quantized(chunks, compile_schedule(sched), group)
+        else:
+            chunks = execute_schedule(chunks, sched, group)
+        return chunks.reshape(x.shape)
+    if collective == "all_gather":
+        chunks = x.new_zeros((m,) + tuple(x.shape))
+        chunks[me_local] = x
+        chunks = execute_schedule(chunks, sched, group)
+        return chunks.reshape((m * x.shape[0],) + tuple(x.shape[1:]))
+    if collective == "all_to_all":
+        blocks = split_local(x, m).clone()
+        local_of = tuple(int(v) for v in comm.local_index_table())
+        compact = compile_all_to_all(sched, m, local_of)
+        if compact is not None:
+            return execute_all_to_all_compact(blocks, compact, group).reshape(x.shape)
+        # dense fallback: O(m²·blk) origin×target state
+        rest = tuple(blocks.shape[1:])
+        state = blocks.new_zeros((m, m) + rest)
+        state[me_local] = blocks
+        flat = execute_schedule(state.reshape((m * m,) + rest), sched, group)
+        return flat.reshape((m, m) + rest)[:, me_local].reshape(x.shape)
+    raise ScheduleExecutionError(f"unknown collective {collective!r}")
+
+
 class NativeBackend:
     """Plain tensor collectives over the stacked axis (the A/B baseline).
 
@@ -204,7 +298,11 @@ class NativeBackend:
         return [tuple(g) for g in comm.groups]
 
     def all_reduce(self, comm, x):
-        _check_stacked(comm, "all_reduce", x)
+        _check(comm, "all_reduce", x)
+        if comm.process_group is not None:
+            out = x.clone()
+            dist.all_reduce(out, group=comm.native_group())
+            return out
         out = torch.empty_like(x)
         for g in self._groups(comm):
             idx = torch.tensor(g, device=x.device)
@@ -212,8 +310,12 @@ class NativeBackend:
         return out
 
     def reduce_scatter(self, comm, x):
-        _check_stacked(comm, "reduce_scatter", x)
-        _check_divisible(x, comm.n)
+        _check(comm, "reduce_scatter", x)
+        _check_divisible(comm, x, comm.n)
+        if comm.process_group is not None:
+            out = x.new_empty((x.shape[0] // comm.n,) + tuple(x.shape[1:]))
+            dist.reduce_scatter_tensor(out, x.contiguous(), group=comm.native_group())
+            return out
         blk = x.shape[1] // comm.n
         out = x.new_empty((x.shape[0], blk) + tuple(x.shape[2:]))
         for g in self._groups(comm):
@@ -223,7 +325,11 @@ class NativeBackend:
         return out
 
     def all_gather(self, comm, x):
-        _check_stacked(comm, "all_gather", x)
+        _check(comm, "all_gather", x)
+        if comm.process_group is not None:
+            out = x.new_empty((comm.n * x.shape[0],) + tuple(x.shape[1:]))
+            dist.all_gather_into_tensor(out, x.contiguous(), group=comm.native_group())
+            return out
         out = x.new_empty((x.shape[0], comm.n * x.shape[1]) + tuple(x.shape[2:]))
         for g in self._groups(comm):
             idx = torch.tensor(g, device=x.device)
@@ -231,8 +337,12 @@ class NativeBackend:
         return out
 
     def all_to_all(self, comm, x):
-        _check_stacked(comm, "all_to_all", x)
-        _check_divisible(x, comm.n)
+        _check(comm, "all_to_all", x)
+        _check_divisible(comm, x, comm.n)
+        if comm.process_group is not None:
+            out = torch.empty_like(x)
+            dist.all_to_all_single(out, x.contiguous(), group=comm.native_group())
+            return out
         m = comm.n
         blocks = x.reshape((x.shape[0], m, x.shape[1] // m) + tuple(x.shape[2:]))
         out = torch.empty_like(blocks)
@@ -263,30 +373,34 @@ class SimBackend:
         self.events: List[Tuple[str, float, float]] = []  # (coll, nbytes, cost)
 
     def _charge(self, comm, collective, x) -> None:
-        nbytes = _eager_nbytes(comm, collective, tuple(x.shape[1:]), x.element_size())
+        nbytes = _eager_nbytes(comm, collective, _local_shape(comm, x), x.element_size())
         cost = comm.estimate(collective, nbytes)
         self.elapsed_s += cost
         self.events.append((collective, float(nbytes), cost))
 
     def all_reduce(self, comm, x):
-        _check_stacked(comm, "all_reduce", x)
+        _check(comm, "all_reduce", x)
         self._charge(comm, "all_reduce", x)
         return x
 
     def reduce_scatter(self, comm, x):
-        _check_stacked(comm, "reduce_scatter", x)
-        _check_divisible(x, comm.n)
+        _check(comm, "reduce_scatter", x)
+        _check_divisible(comm, x, comm.n)
         self._charge(comm, "reduce_scatter", x)
+        if comm.process_group is not None:
+            return x[: x.shape[0] // comm.n]
         return x[:, : x.shape[1] // comm.n]
 
     def all_gather(self, comm, x):
-        _check_stacked(comm, "all_gather", x)
+        _check(comm, "all_gather", x)
         self._charge(comm, "all_gather", x)
+        if comm.process_group is not None:
+            return x.repeat((comm.n,) + (1,) * (x.ndim - 1))
         return x.repeat((1, comm.n) + (1,) * (x.ndim - 2))
 
     def all_to_all(self, comm, x):
-        _check_stacked(comm, "all_to_all", x)
-        _check_divisible(x, comm.n)
+        _check(comm, "all_to_all", x)
+        _check_divisible(comm, x, comm.n)
         self._charge(comm, "all_to_all", x)
         return x
 

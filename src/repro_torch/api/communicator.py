@@ -5,7 +5,10 @@ and owns *no* planning state of its own: every schedule comes from the
 session's plan cache, so all communicators of a session share plans and
 fabric-state threading.  It inherits the session's device and raises on an
 operand that lies elsewhere.  Its collectives take the rank-stacked
-``(axis_size, *local)`` tensor (see :mod:`repro_torch.api.backends`).
+``(axis_size, *local)`` tensor (see :mod:`repro_torch.api.backends`) —
+or, when its axis is a ``torch.distributed`` process group
+(:attr:`Communicator.process_group`), this process's local operand, as
+inside the reference's ``shard_map``.
 
 Process groups (``split``)
 --------------------------
@@ -25,6 +28,7 @@ from typing import TYPE_CHECKING, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.comm.errors import ScheduleExecutionError
 from repro_torch.comm.exec_engine import _LruCache
@@ -47,7 +51,7 @@ class Communicator:
     def __init__(
         self,
         session: "PcclSession",
-        axis_name: str,
+        axis_name: Union[str, dist.ProcessGroup],
         n: int,
         *,
         backend: Union[str, Backend] = "interp",
@@ -58,6 +62,10 @@ class Communicator:
     ) -> None:
         self.session = session
         self.axis_name = axis_name
+        # one process per rank: the group is the axis, operands are local
+        self.process_group: Optional[dist.ProcessGroup] = (
+            axis_name if isinstance(axis_name, dist.ProcessGroup) else None
+        )
         self.n = n                      # ranks per group (plans use this)
         self.algorithm = algorithm
         # declared error tolerance: lets auto arbitration consider lossy
@@ -71,6 +79,7 @@ class Communicator:
         self.device: torch.device = session.device
         self._local_table: Optional[np.ndarray] = None
         self._local_table_dev: Optional[torch.Tensor] = None
+        self._native_subgroup: Optional[dist.ProcessGroup] = None
         # composed full-axis schedules, keyed (fingerprint, buffer_bytes):
         # subgroup_schedule rebuilds every transfer, so the hot path must
         # not pay it (or the fingerprint hash) per call
@@ -82,6 +91,11 @@ class Communicator:
             flat = sorted(r for g in groups for r in g)
             if flat != list(range(self.axis_size)):
                 raise ValueError("groups must partition the axis exactly once")
+        if self.process_group is not None and self.process_group.size() != self.axis_size:
+            raise ValueError(
+                f"process group of {self.process_group.size()} ranks for an axis of "
+                f"{self.axis_size}"
+            )
 
     # ------------------------------------------------------------- planning
     def _schedule(self, collective: str, nbytes: float) -> Schedule:
@@ -163,7 +177,9 @@ class Communicator:
         )
 
     # ----------------------------------------------------------- primitives
-    # Every operand is rank-stacked: (axis_size, *local), row r = rank r.
+    # Every operand is rank-stacked: (axis_size, *local), row r = rank r —
+    # or, on a process group, this rank's local operand (the leading axis
+    # dropped from each shape below).
     def all_reduce(self, x):
         """x: (S, L, …) per-rank addends → (S, L, …) group sums."""
         return self.backend.all_reduce(self, x)
@@ -244,6 +260,18 @@ class Communicator:
         if self.groups is None:
             return ("full", self.axis_size)
         return ("split", self.groups)
+
+    def native_group(self) -> dist.ProcessGroup:
+        """The process group this rank's ``native`` collectives run on: the
+        axis's, or on a split communicator this rank's subgroup, made once
+        by every rank of the axis together (in the same order)."""
+        if self.groups is None:
+            return self.process_group
+        if self._native_subgroup is None:
+            pg = self.process_group
+            glob = [[dist.get_global_rank(pg, r) for r in g] for g in self.groups]
+            self._native_subgroup, _ = dist.new_subgroups_by_enumeration(glob)
+        return self._native_subgroup
 
     def local_index_table(self) -> np.ndarray:
         """rank → group-local index, built once and cached on the

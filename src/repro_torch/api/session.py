@@ -930,7 +930,7 @@ class PcclSession:
     # ------------------------------------------------------- communicators
     def communicator(
         self,
-        axis_name: str,
+        axis_name,
         n: Optional[int] = None,
         *,
         backend: str = "interp",
@@ -939,15 +939,24 @@ class PcclSession:
     ) -> "Communicator":
         """Executable collectives over mesh axis ``axis_name``.
 
-        ``backend`` is one of ``interp`` (the compiled schedule engine),
-        ``native`` (plain tensor collectives, the A/B baseline) or ``sim``
-        (cost-model-only).  The communicator runs on the session's device.
-        ``rel_error_tol`` (see :meth:`plan`) lets ``auto`` arbitration
-        consider lossy wire-compressed algorithms for this communicator's
-        collectives.
+        ``axis_name`` is a name (the collectives then take rank-stacked
+        operands) or a ``torch.distributed`` process group, which plays
+        the role the reference's axis name plays inside ``shard_map``: one
+        process per rank, each passing its local operand; ``n`` then
+        defaults to the group's size.  ``backend`` is one of ``interp``
+        (the compiled schedule engine), ``native`` (plain tensor
+        collectives, or the group's own on a process group; the A/B
+        baseline) or ``sim`` (cost-model-only).  The communicator runs on
+        the session's device.  ``rel_error_tol`` (see :meth:`plan`) lets
+        ``auto`` arbitration consider lossy wire-compressed algorithms for
+        this communicator's collectives.
         """
+        from torch.distributed import ProcessGroup
+
         from .communicator import Communicator
 
+        if n is None and isinstance(axis_name, ProcessGroup):
+            n = axis_name.size()
         return Communicator(
             self, axis_name, self._resolve_n(n), backend=backend,
             algorithm=algorithm, rel_error_tol=rel_error_tol,

@@ -25,6 +25,13 @@ The host copy is explicit: the reference gets one from ``np.asarray`` of
 an immutable array, while a CPU tensor's ``.cpu()`` is the same storage,
 which AdamW then updates in place under the writer's feet.  Each leaf is
 copied to the host with a blocking copy before the writer starts.
+
+On a mesh of several processes (``group``), a tree's DTensor leaves are
+gathered whole by every rank, rank 0 of the group alone writes, in the
+same layout, and :meth:`CheckpointManager.wait` ends with a barrier, so
+no rank looks for the newest step before the writer has committed it;
+:meth:`CheckpointManager.restore` reads the whole arrays on every rank and
+keeps each rank's part of a DTensor leaf.
 """
 
 from __future__ import annotations
@@ -39,6 +46,8 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.models.module import ParamTree
 
@@ -83,12 +92,20 @@ def _host_copy(name: str, t: torch.Tensor) -> np.ndarray:
     """A numpy array of ``t``'s values that no later in-place update reaches."""
     if t.dtype not in NUMPY_DTYPES:
         raise ValueError(f"checkpoint leaf {name!r} is {t.dtype}, which numpy cannot hold")
+    if isinstance(t, DTensor):
+        t = t.full_tensor()  # a collective: every rank of the mesh gathers
     return t.detach().to("cpu", copy=True).numpy()
 
 
 class CheckpointManager:
-    def __init__(self, cfg: CheckpointConfig):
+    """Saves and restores trees under ``cfg.directory``.  ``group`` is the
+    process group of a mesh of several ranks, every one of which calls each
+    method in the same order; rank 0 of it writes."""
+
+    def __init__(self, cfg: CheckpointConfig, group: Optional[dist.ProcessGroup] = None):
         self.cfg = cfg
+        self.group = group
+        self.writes = group is None or dist.get_rank(group) == 0
         self.dir = pathlib.Path(cfg.directory)
         self.dir.mkdir(parents=True, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
@@ -100,6 +117,8 @@ class CheckpointManager:
         named = flatten(tree)
         names = [n for n, _ in named]
         host_leaves = [_host_copy(n, t) for n, t in named]  # device→host before async
+        if not self.writes:
+            return
         if self.cfg.async_write:
             self._thread = threading.Thread(
                 target=self._write, args=(step, host_leaves, names, extra), daemon=True,
@@ -149,6 +168,8 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self.group is not None:
+            dist.barrier(group=self.group)  # the writer's step is committed for all
         if self._error is not None:
             e, self._error = self._error, None
             raise e
@@ -197,7 +218,14 @@ class CheckpointManager:
                 raise ValueError(f"leaf {i} ({name}): ckpt shape {arr.shape} != {tuple(tmpl.shape)}")
         with torch.no_grad():
             for i, (_, tmpl) in enumerate(named):
-                tmpl.copy_(torch.from_numpy(loaded.pop(i)))
+                whole = torch.from_numpy(loaded.pop(i))
+                if isinstance(tmpl, DTensor):
+                    whole = whole.to(tmpl.device)
+                    mine = distribute_tensor(whole, tmpl.device_mesh, tmpl.placements,
+                                             src_data_rank=None)
+                    tmpl.to_local().copy_(mine.to_local())
+                else:
+                    tmpl.copy_(whole)
         return template, step, manifest.get("extra", {})
 
     # ------------------------------------------------------------------- gc

@@ -25,10 +25,39 @@ rank every receiver sees the same adds in the same order as the reference,
 so fp32 results are bit-identical to it.  A :class:`RoundGroup` is a Python
 loop over its rounds; the per-round index tensors are uploaded to the
 device once per ``(CompiledSchedule, device)`` and cached.
+
+**One process per rank.**  Given a ``torch.distributed`` process group,
+:func:`execute_compiled` runs the same tables on the rank's *local*
+``(n_chunks, …)`` buffer, as the reference's does inside ``shard_map``:
+each round gathers ``send_ids[i, me]``, sends it to the rank the round's
+permutation names and receives from the rank that sends to ``me``, in one
+``dist.batch_isend_irecv``, then adds or stores into ``recv_ids[i, me]``
+in the rank-stacked order.  The tables stay row-indexed by the group's
+rank (a split communicator's groups are composed into full-group rounds,
+never one process group per subgroup).  An identity pair ``(me, me)`` is
+a local copy.  Every rank sends and receives exactly once a round:
+:func:`round_tables` refuses a round unless all ``n`` ranks send, and ``n``
+senders of a permutation have ``n`` distinct receivers, so no rank is ever
+left to the zeros ``ppermute`` gives a rank nobody sends to.
+
+The wire is the group's backend's, and :func:`transport_route` names it:
+``nccl`` takes device tensors as they are; ``gloo`` takes a CPU tensor as
+it is (route ``gloo``) and a CUDA payload through a pinned host buffer
+reused across the collective's rounds (route ``gloo-staged``: its
+point-to-point calls carry host memory only).  Any other backend, or an
+operand the backend cannot carry, raises.  :func:`exec_stats` counts the
+rounds by route and the bytes staged through the host.
+
+DTensor's own collectives (the sharded ``Trainer``'s) take the same
+``gloo-staged`` route on CUDA tensors inside
+:func:`staged_functional_collectives`, which routes the functional
+collectives' CUDA kernels through host copies; each call counts as one
+round.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 from collections import OrderedDict
@@ -37,6 +66,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.schedules import Round, Schedule
 
@@ -56,6 +86,7 @@ __all__ = [
     "note_fallback_dispatch",
     "note_fused_dispatch",
     "round_tables",
+    "transport_route",
 ]
 
 
@@ -401,14 +432,18 @@ def apply_round(buf: torch.Tensor, rows: torch.Tensor, rnd: DeviceRound,
     buf[rows, rnd.recv_ids] = got
 
 
-def execute_compiled(chunks: torch.Tensor, compiled: CompiledSchedule) -> torch.Tensor:
-    """Run a compiled schedule on a rank-stacked ``(n, n_chunks, …)`` buffer.
+def execute_compiled(chunks: torch.Tensor, compiled: CompiledSchedule,
+                     group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
+    """Run a compiled schedule on a rank-stacked ``(n, n_chunks, …)`` buffer,
+    or, given ``group``, on this process's local ``(n_chunks, …)`` buffer.
 
     Updates ``chunks`` in place (callers hand in a buffer they own, so no
     second copy of the state is made) and returns it.  Bit-identical to the
     per-round reference interpreter: same gathers, same permutation per
     round, same add/store order per receiver.
     """
+    if group is not None:
+        return _execute_local(chunks, compiled, group)
     if chunks.shape[0] != compiled.n:
         raise ScheduleExecutionError(
             f"buffer has {chunks.shape[0]} ranks, schedule spans {compiled.n}"
@@ -420,16 +455,224 @@ def execute_compiled(chunks: torch.Tensor, compiled: CompiledSchedule) -> torch.
 
 
 def execute_all_to_all_compact(
-    blocks: torch.Tensor, compiled: CompiledSchedule
+    blocks: torch.Tensor, compiled: CompiledSchedule,
+    group: Optional[dist.ProcessGroup] = None,
 ) -> torch.Tensor:
     """Slot-compiled all-to-all: run the rounds, then gather origin-major.
 
-    ``blocks`` is the rank-stacked ``(n, m, blk, …)`` dest-major buffer,
-    updated in place; the return is ``(n, m, blk, …)`` origin-major.
+    ``blocks`` is the rank-stacked ``(n, m, blk, …)`` dest-major buffer, or
+    with ``group`` the local ``(m, blk, …)`` one, updated in place; the
+    return has the same shape, origin-major.  A process gathers with its
+    own row of ``final_slots``.
     """
-    out = execute_compiled(blocks, compiled)
+    out = execute_compiled(blocks, compiled, group)
+    if group is not None:
+        me = group_rank(group)
+        return out[rank_tables(compiled, blocks.device, me).final_slots]
     tables = device_tables(compiled, blocks.device)
     return out[tables.rows, tables.final_slots]
+
+
+# ------------------------------------------------- one process per rank
+
+
+def group_rank(group: dist.ProcessGroup) -> int:
+    """This process's rank in ``group``: the row of every table it reads."""
+    return dist.get_rank(group)
+
+
+def transport_route(group: dist.ProcessGroup, x: torch.Tensor) -> str:
+    """The wire ``group``'s rounds take for tensors like ``x``: ``nccl``
+    (device tensors as they are), ``gloo`` (a CPU tensor as it is) or
+    ``gloo-staged`` (a CUDA tensor through pinned host memory).  Raises for
+    any other backend and for an operand the backend cannot carry."""
+    backend = str(dist.get_backend(group))
+    kind = x.device.type
+    if backend == "nccl" and kind == "cuda":
+        return "nccl"
+    if backend == "gloo" and kind == "cpu":
+        return "gloo"
+    if backend == "gloo" and kind == "cuda":
+        return "gloo-staged"
+    raise ScheduleExecutionError(
+        f"process group backend {backend!r} carries no {kind} tensor here: "
+        "nccl takes CUDA tensors, gloo CPU tensors and CUDA tensors staged "
+        "through host memory"
+    )
+
+
+@dataclass(frozen=True)
+class RankRound:
+    """One round as one rank runs it: whom it sends to and receives from
+    (ranks of the group) and its own send and receive slots."""
+
+    reduce: bool
+    dst: int
+    src: int
+    send: torch.Tensor  # (k,) int64
+    recv: torch.Tensor  # (k,) int64
+
+
+@dataclass(frozen=True)
+class RankTables:
+    rounds: Tuple[RankRound, ...]
+    final_slots: Optional[torch.Tensor]  # (m,) int64 — compact a2a
+
+
+def partners(perm, me: int) -> Tuple[int, int]:
+    """``(the rank me sends to, the rank that sends to me)`` in a round's
+    permutation of ``(src, dst)`` pairs."""
+    return (next(d for s, d in perm if s == me), next(s for s, d in perm if d == me))
+
+
+def _upload_rank(compiled: CompiledSchedule, device: torch.device, me: int) -> RankTables:
+    def dev(a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a, dtype=np.int64), device=device)
+
+    rounds = []
+    for grp in compiled.groups:
+        dst, src = partners(grp.perm, me)
+        for i in range(grp.rounds):
+            rounds.append(RankRound(grp.reduce, dst, src, dev(grp.send_ids[i, me]),
+                                    dev(grp.recv_ids[i, me])))
+    final = None if compiled.final_slots is None else dev(compiled.final_slots[me])
+    return RankTables(tuple(rounds), final)
+
+
+def rank_tables(compiled: CompiledSchedule, device: torch.device, me: int) -> RankTables:
+    """Rank ``me``'s row of ``compiled``'s tables on ``device``, uploaded
+    once and cached beside the rank-stacked ones."""
+    key = (id(compiled), str(device), me)
+    hit = _DEVICE_TABLES.get(key)
+    if hit is not None and hit[0] is compiled:
+        return hit[1]
+    tables = _upload_rank(compiled, device, me)
+    _DEVICE_TABLES.put(key, (compiled, tables))
+    return tables
+
+
+class Wire:
+    """One collective's point-to-point traffic over a process group.
+
+    :meth:`exchange` sends a tensor to one rank of the group and receives a
+    tensor of the same shape and dtype from another, in one
+    ``dist.batch_isend_irecv``, on the route :func:`transport_route` names
+    for ``like``.  The ``gloo-staged`` route copies the payload into a
+    pinned host buffer and the received rows back to the device; both
+    buffers are allocated at the first round's size and reused by every
+    round that fits them.  :meth:`close` adds the rounds and staged bytes
+    to :func:`exec_stats`.
+    """
+
+    def __init__(self, group: dist.ProcessGroup, like: torch.Tensor) -> None:
+        self.group = group
+        self.route = transport_route(group, like)
+        self.me = group_rank(group)
+        self._peers = [dist.get_global_rank(group, r) for r in range(group.size())]
+        self.rounds = 0
+        self.staged_bytes = 0
+        self._host: Dict[torch.dtype, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def _staging(self, t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        bufs = self._host.get(t.dtype)
+        if bufs is None or bufs[0].numel() < t.numel():
+            bufs = tuple(torch.empty(t.numel(), dtype=t.dtype, pin_memory=True)
+                         for _ in range(2))
+            self._host[t.dtype] = bufs
+        send, recv = (b[: t.numel()].view(t.shape) for b in bufs)
+        return send, recv
+
+    def exchange(self, out: torch.Tensor, dst: int, src: int) -> torch.Tensor:
+        """``out`` to rank ``dst``; returns what rank ``src`` sent (``out``
+        itself for the identity pair, which moves nothing)."""
+        self.rounds += 1
+        if dst == self.me:
+            return out
+        out = out.contiguous()
+        if self.route == "gloo-staged":
+            send, recv = self._staging(out)
+            send.copy_(out)
+            self.staged_bytes += 2 * out.numel() * out.element_size()
+        else:
+            send, recv = out, torch.empty_like(out)
+        works = dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, send, self._peers[dst], self.group),
+            dist.P2POp(dist.irecv, recv, self._peers[src], self.group),
+        ])
+        for w in works:
+            w.wait()
+        if self.route == "gloo-staged":
+            return recv.to(out.device)
+        return recv
+
+    def close(self) -> None:
+        note_rounds(self.route, self.rounds, self.staged_bytes)
+
+
+# the functional collectives DTensor issues, (op namespace, op name)
+_FUNCTIONAL_OPS = (
+    ("_c10d_functional", "all_reduce"),
+    ("_c10d_functional", "all_gather_into_tensor"),
+    ("_c10d_functional", "reduce_scatter_tensor"),
+    ("_c10d_functional", "all_to_all_single"),
+    ("_c10d_functional", "broadcast"),
+    ("_dtensor", "shard_dim_alltoall"),
+)
+
+
+@contextlib.contextmanager
+def staged_functional_collectives():
+    """Within the block, the functional collectives DTensor issues take CUDA
+    tensors over a gloo group through host memory (route ``gloo-staged``):
+    the operand is copied to the host, the op's CPU kernel runs and is
+    waited on, and the result is copied back.  The block owns the CUDA
+    kernels it installs and removes them on exit.  Use it only where the
+    group's backend is gloo: a CPU kernel of an NCCL group has no wire."""
+    libs = {ns: torch.library.Library(ns, "IMPL") for ns, _ in _FUNCTIONAL_OPS}
+
+    def through_host(ns: str, name: str):
+        op = getattr(getattr(torch.ops, ns), name)
+        wait = torch.ops._c10d_functional.wait_tensor
+
+        def impl(x, *args):
+            host = x.detach().to("cpu")
+            out = wait(op(host, *args))
+            note_rounds("gloo-staged", 1, host.numel() * host.element_size()
+                        + out.numel() * out.element_size())
+            return out.to(x.device)
+
+        return impl
+
+    for ns, name in _FUNCTIONAL_OPS:
+        libs[ns].impl(name, through_host(ns, name), "CUDA")
+    try:
+        yield
+    finally:
+        for lib in libs.values():
+            lib._destroy()
+
+
+def _execute_local(chunks: torch.Tensor, compiled: CompiledSchedule,
+                   group: dist.ProcessGroup, encode=None, decode=None) -> torch.Tensor:
+    """The rounds on this rank's local buffer.  ``encode`` / ``decode``
+    (both or neither) model the wire, e.g. int8 quantization: the payload
+    is encoded before the send and decoded after the receive."""
+    if group.size() != compiled.n:
+        raise ScheduleExecutionError(
+            f"process group has {group.size()} ranks, schedule spans {compiled.n}"
+        )
+    wire = Wire(group, chunks)
+    for rnd in rank_tables(compiled, chunks.device, wire.me).rounds:
+        payload = chunks[rnd.send]
+        if encode is None:
+            got = wire.exchange(payload, rnd.dst, rnd.src)
+        else:
+            got = decode(wire.exchange(encode(payload), rnd.dst, rnd.src))
+        if rnd.reduce:
+            got = chunks[rnd.recv] + got
+        chunks[rnd.recv] = got
+    wire.close()
+    return chunks
 
 
 # ------------------------------------------------------- caches & counters
@@ -488,6 +731,9 @@ _FUSED_DISPATCHES = 0
 _FALLBACK_DISPATCHES = 0
 _CHUNKS_STREAMED = 0
 _BYTES_HIDDEN = 0
+# one process per rank: rounds by route, bytes staged through host memory
+_ROUTE_ROUNDS: Dict[str, int] = {}
+_STAGED_BYTES = 0
 
 
 def note_fused_dispatch(chunks_streamed: int, bytes_hidden: int) -> None:
@@ -506,6 +752,14 @@ def note_fallback_dispatch() -> None:
         _FALLBACK_DISPATCHES += 1
 
 
+def note_rounds(route: str, rounds: int, staged_bytes: int) -> None:
+    """Record one collective's rounds on ``route`` and its staged bytes."""
+    global _STAGED_BYTES
+    with _OVERLAP_LOCK:
+        _ROUTE_ROUNDS[route] = _ROUTE_ROUNDS.get(route, 0) + int(rounds)
+        _STAGED_BYTES += int(staged_bytes)
+
+
 @dataclass(frozen=True)
 class ExecStats:
     """Process-wide execution-engine counters (see ``exec_stats()``)."""
@@ -520,6 +774,8 @@ class ExecStats:
     fallback_dispatches: int = 0
     chunks_streamed: int = 0
     bytes_hidden: int = 0
+    route_rounds: Tuple[Tuple[str, int], ...] = ()
+    staged_bytes: int = 0
 
 
 def exec_stats() -> ExecStats:
@@ -531,10 +787,14 @@ def exec_stats() -> ExecStats:
     * ``fused_*``/``fallback_*``/``chunks_streamed``/``bytes_hidden`` —
       counters from ``repro_torch.comm.fusion`` (see
       :func:`note_fused_dispatch`).
+    * ``route_rounds``/``staged_bytes`` — rounds this process ran over a
+      process group, by :func:`transport_route`, and the bytes the
+      ``gloo-staged`` route copied between device and host (both ways).
     """
     with _OVERLAP_LOCK:
         fused, fallback = _FUSED_DISPATCHES, _FALLBACK_DISPATCHES
         streamed, hidden = _CHUNKS_STREAMED, _BYTES_HIDDEN
+        routes, staged = tuple(sorted(_ROUTE_ROUNDS.items())), _STAGED_BYTES
     return ExecStats(
         compiled_hits=_COMPILED.hits,
         compiled_misses=_COMPILED.misses,
@@ -546,15 +806,19 @@ def exec_stats() -> ExecStats:
         fallback_dispatches=fallback,
         chunks_streamed=streamed,
         bytes_hidden=hidden,
+        route_rounds=routes,
+        staged_bytes=staged,
     )
 
 
 def clear_exec_caches() -> None:
     """Drop compiled and uploaded tables and zero all counters (tests)."""
     global _FUSED_DISPATCHES, _FALLBACK_DISPATCHES
-    global _CHUNKS_STREAMED, _BYTES_HIDDEN
+    global _CHUNKS_STREAMED, _BYTES_HIDDEN, _STAGED_BYTES
     _COMPILED.clear()
     _DEVICE_TABLES.clear()
     with _OVERLAP_LOCK:
         _FUSED_DISPATCHES = _FALLBACK_DISPATCHES = 0
         _CHUNKS_STREAMED = _BYTES_HIDDEN = 0
+        _ROUTE_ROUNDS.clear()
+        _STAGED_BYTES = 0

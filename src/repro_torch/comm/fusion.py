@@ -28,6 +28,13 @@ communicator, chunk rows that do not divide, blocks that do not tile, or
 a schedule with no stream program take the unfused kernel-then-collective
 path; every dispatch is counted (``exec_engine.note_fused_dispatch`` /
 ``note_fallback_dispatch``).  Both paths launch the kernels on CUDA.
+
+On a communicator bound to a process group every entry point takes this
+process's local operand, as the reference's does inside ``shard_map``:
+the stream program computes one tile of K1 a step and runs its round
+over the group; K2 normalizes the all-reduce's arrival in place; the
+int8 wire quantizes a payload before its send and dequantizes it after
+the receive, with the bits of the rank-stacked transform.
 """
 
 from __future__ import annotations
@@ -183,17 +190,22 @@ def fused_matmul_reduce_scatter(
 
     comm.check_operand(x)
     comm.check_operand(w)
-    if x.ndim != 3 or x.shape[0] != comm.axis_size:
+    local = comm.process_group is not None
+    if local and x.ndim != 2:
+        raise ScheduleExecutionError(
+            f"expected this rank's (M, K) operand, got shape {tuple(x.shape)}"
+        )
+    if not local and (x.ndim != 3 or x.shape[0] != comm.axis_size):
         raise ScheduleExecutionError(
             f"expected global (axis_size={comm.axis_size}, M, K) operand, "
             f"got shape {tuple(x.shape)}"
         )
-    if w.ndim != 2 or x.shape[2] != w.shape[0]:
+    if w.ndim != 2 or x.shape[-1] != w.shape[0]:
         raise ScheduleExecutionError(
             f"weight shape {tuple(w.shape)} does not match x {tuple(x.shape)}"
         )
     n = comm.n
-    _, M, K = x.shape
+    M, K = x.shape[-2:]
     N = w.shape[1]
     blocks = (block_m, block_n, block_k)
 
@@ -208,7 +220,10 @@ def fused_matmul_reduce_scatter(
     if prog is None:
         return _unfused_matmul_reduce_scatter(comm, x, w, blocks=blocks)
 
-    out = _fused_mm_rs(prog, x, w, blocks)
+    if local:
+        out = _fused_mm_rs_local(prog, x, w, blocks, comm.process_group)
+    else:
+        out = _fused_mm_rs(prog, x, w, blocks)
     Mc = M // n
     # every round but the last runs with later tiles still pending
     exec_engine.note_fused_dispatch(
@@ -223,8 +238,9 @@ def _unfused_matmul_reduce_scatter(comm, x, w, *, blocks):
     """Sequential fallback: whole-M kernel dispatch, then the collective."""
     from repro_torch.kernels.matmul.ops import matmul
 
-    S, M, K = x.shape
-    y = matmul(x.reshape(S * M, K), w, block_k=blocks[2]).reshape(S, M, w.shape[1])
+    M, K = x.shape[-2:]
+    y = matmul(x.reshape(-1, K), w, block_k=blocks[2])
+    y = y.reshape(tuple(x.shape[:-1]) + (w.shape[1],))
     exec_engine.note_fallback_dispatch()
     return comm.reduce_scatter(y)
 
@@ -267,6 +283,31 @@ def _fused_mm_rs(prog: StreamProgram, x, w, blocks):
     return buf[ranks, ranks]
 
 
+def _fused_mm_rs_local(prog: StreamProgram, x, w, blocks, group):
+    """The stream program as one process runs it: K1 on one ``(Mc, K)``
+    tile a step, then the round that tile completes, over ``group``."""
+    from repro_torch.kernels.matmul.ops import matmul
+
+    M, K = x.shape
+    n = prog.order.shape[1]
+    Mc = M // n
+    wire = exec_engine.Wire(group, x)
+    me = wire.me
+    dst, src = exec_engine.partners(prog.perm, me)
+    order = prog.order[me].tolist()
+    xc = x.reshape(n, Mc, K)
+    buf = torch.empty((n, Mc, w.shape[1]), dtype=x.dtype, device=x.device)
+    buf[order[0]] = matmul(xc[order[0]], w, block_k=blocks[2])
+    for s in range(1, n):
+        buf[order[s]] = matmul(xc[order[s]], w, block_k=blocks[2])
+        t = s - 1
+        got = wire.exchange(buf[int(prog.send[t, me])], dst, src)
+        r = int(prog.recv[t, me])
+        buf[r] = buf[r] + got
+    wire.close()
+    return buf[me]
+
+
 # -------------------------------- consumer fusion: all-reduce → rmsnorm
 
 
@@ -292,23 +333,27 @@ def fused_all_reduce_rmsnorm(
 
     comm.check_operand(x)
     comm.check_operand(gamma)
-    if x.ndim < 2 or x.shape[0] != comm.axis_size:
+    group = comm.process_group
+    if group is None and (x.ndim < 2 or x.shape[0] != comm.axis_size):
         raise ScheduleExecutionError(
             f"expected global (axis_size={comm.axis_size}, *local) operand "
             f"with a feature axis, got shape {tuple(x.shape)}"
         )
-    if gamma.ndim != 1 or x.shape[-1] != gamma.shape[0]:
+    if gamma.ndim != 1 or x.ndim < 1 or x.shape[-1] != gamma.shape[0]:
         raise ScheduleExecutionError(
             f"gamma shape {tuple(gamma.shape)} does not match x feature axis "
             f"{tuple(x.shape)}"
         )
-    local_size = math.prod(x.shape[1:])
+    local_size = math.prod(x.shape if group is not None else x.shape[1:])
     if comm.groups is not None or local_size % comm.n:
         exec_engine.note_fallback_dispatch()
         return rmsnorm(comm.all_reduce(x), gamma, eps=eps)
 
     sched = comm.axis_schedule("all_reduce", float(local_size) * x.element_size())
-    red = prims.all_reduce(x.reshape(x.shape[0], -1), sched).reshape(x.shape)
+    if group is not None:
+        red = prims.all_reduce(x.reshape(-1), sched, group).reshape(x.shape)
+    else:
+        red = prims.all_reduce(x.reshape(x.shape[0], -1), sched).reshape(x.shape)
     # in place: the normalization writes over the all-reduce's own buffer
     out = rmsnorm(red, gamma, eps=eps, out=red)
     # consumer-side fusion: no producer tiles streamed
@@ -319,7 +364,8 @@ def fused_all_reduce_rmsnorm(
 # -------------------------------------- wire-compressed (int8) execution
 
 
-def execute_compiled_quantized(chunks: torch.Tensor, compiled: CompiledSchedule) -> torch.Tensor:
+def execute_compiled_quantized(chunks: torch.Tensor, compiled: CompiledSchedule,
+                               group=None) -> torch.Tensor:
     """:func:`~repro_torch.comm.exec_engine.execute_compiled` with int8 wire.
 
     Identical gather/permute/scatter structure, but every hop's payload is
@@ -329,9 +375,22 @@ def execute_compiled_quantized(chunks: torch.Tensor, compiled: CompiledSchedule)
     prices.  Lossy: per hop the round-trip error is at most ``scale / 2``;
     the accumulated bound is
     ``repro_torch.core.cost_model.compressed_ef_error_bound``.  Updates
-    ``chunks`` in place and returns it.
+    ``chunks`` in place and returns it.  With ``group``, ``chunks`` is this
+    rank's local buffer and the int8 payload and its scale cross the wire
+    as one message (:func:`~repro_torch.comm.pccl_collectives.pack_int8`).
     """
-    from .pccl_collectives import _dequantize, _quantize
+    from .pccl_collectives import _dequantize, _quantize, pack_int8, unpack_int8
+
+    if group is not None:
+        def encode(payload: torch.Tensor) -> torch.Tensor:
+            q, scale = _quantize(payload[None])  # one scale for the payload
+            return pack_int8(q[0], scale)
+
+        def decode(packed: torch.Tensor) -> torch.Tensor:
+            q, scale = unpack_int8(packed, tuple(chunks.shape[1:]))
+            return _dequantize(q, scale).to(chunks.dtype)
+
+        return exec_engine._execute_local(chunks, compiled, group, encode, decode)
 
     def wire(payload: torch.Tensor) -> torch.Tensor:
         # rows are already in receiver order; each row's scale is its
@@ -345,15 +404,18 @@ def execute_compiled_quantized(chunks: torch.Tensor, compiled: CompiledSchedule)
     return chunks
 
 
-def all_reduce_quantized(x: torch.Tensor, schedule) -> torch.Tensor:
+def all_reduce_quantized(x: torch.Tensor, schedule, group=None) -> torch.Tensor:
     """int8-on-the-wire all_reduce — the executable form of ``ring_ef8``.
 
     Same contract as :func:`repro_torch.comm.primitives.all_reduce` (``x``
-    is the rank-stacked ``(n, L, …)`` addend), with rounds run through
-    :func:`execute_compiled_quantized`.
+    is the rank-stacked ``(n, L, …)`` addend, or with ``group`` this rank's
+    ``(L, …)`` one), with rounds run through :func:`execute_compiled_quantized`.
     """
-    from .primitives import _split_chunks
+    from .primitives import _split_chunks, split_local
 
     compiled = exec_engine.compile_schedule(schedule)
-    chunks = _split_chunks(x, schedule.n).clone()
-    return execute_compiled_quantized(chunks, compiled).reshape(x.shape)
+    if group is not None:
+        chunks = split_local(x, schedule.n).clone()
+    else:
+        chunks = _split_chunks(x, schedule.n).clone()
+    return execute_compiled_quantized(chunks, compiled, group).reshape(x.shape)

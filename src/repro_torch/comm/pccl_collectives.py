@@ -28,6 +28,9 @@ Every operand is the global ``(n, …)`` tensor, row ``r`` being rank
 ``r``'s buffer.  The quantization scale belongs to one rank's payload (the
 reference takes one max over the hop a rank sends), so :func:`_quantize`
 reduces over every dim but the rank axis, never over the stacked tensor.
+Given a process group (the reference's ``axis_name``), the compressed
+all-reduce takes this rank's local buffer instead and each hop's int8
+payload and fp32 scale cross the wire as one message (:func:`pack_int8`).
 """
 
 from __future__ import annotations
@@ -133,11 +136,64 @@ def _dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.to(torch.float32) * scale
 
 
-def compressed_all_reduce(x: torch.Tensor, n: int) -> torch.Tensor:
+def pack_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """One int8 message: ``q``'s bytes, then the fp32 scale's four bytes."""
+    return torch.cat([q.reshape(-1), scale.reshape(1).to(torch.float32).view(torch.int8)])
+
+
+def unpack_int8(packed: torch.Tensor, shape) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`pack_int8`'s inverse: ``(q of shape, the fp32 scale)``, bit for bit."""
+    q = packed[:-4].reshape(shape)
+    return q, packed[-4:].clone().view(torch.float32).reshape(())
+
+
+def _compressed_all_reduce_local(x: torch.Tensor, n: int, group) -> torch.Tensor:
+    """The ring over ``group``: this rank's flat buffer, one message a hop
+    to its successor and one from its predecessor."""
+    from .exec_engine import Wire
+
+    wire = Wire(group, x)
+    me = wire.me
+    dst, src = (me + 1) % n, (me - 1) % n
+    chunk = x.shape[0] // n
+    acc = x.reshape(n, chunk).clone()
+
+    def hop(q, s):
+        got = wire.exchange(pack_int8(q, s), dst, src)
+        return unpack_int8(got, (chunk,))
+
+    send_idx = (me - 1) % n
+    for _ in range(n - 1):
+        q, s = _quantize(acc[send_idx][None])
+        q, s = hop(q[0], s)
+        recv_idx = (send_idx - 1) % n
+        acc[recv_idx] = acc[recv_idx] + _dequantize(q, s).to(acc.dtype)
+        send_idx = recv_idx
+    send_idx = me
+    q, s = _quantize(acc[send_idx][None])
+    q = q[0]
+    for _ in range(n - 1):
+        q, s = hop(q, s)
+        recv_idx = (send_idx - 1) % n
+        acc[recv_idx] = _dequantize(q, s).to(acc.dtype)
+        send_idx = recv_idx
+    wire.close()
+    return acc.reshape(x.shape)
+
+
+def compressed_all_reduce(x: torch.Tensor, n: int, group=None) -> torch.Tensor:
     """Ring all-reduce over int8 payloads with local accumulation.
 
-    x: rank-stacked ``(n, size)`` flat buffers, ``size`` divisible by n.
+    x: rank-stacked ``(n, size)`` flat buffers, ``size`` divisible by n;
+    with ``group``, this rank's flat ``(size,)`` buffer.
     """
+    if group is not None:
+        if x.ndim != 1 or x.shape[0] % n or group.size() != n:
+            raise ScheduleExecutionError(
+                f"expected this rank's flat buffer divisible by {n} on a group of "
+                f"{n}, got {tuple(x.shape)} on {group.size()}"
+            )
+        return _compressed_all_reduce_local(x, n, group)
     if x.shape[0] != n:
         raise ScheduleExecutionError(
             f"expected a rank-stacked ({n}, size) operand, got {tuple(x.shape)}"
@@ -181,13 +237,15 @@ class ErrorFeedbackState:
 
 
 def compressed_all_reduce_ef(
-    x: torch.Tensor, ef: ErrorFeedbackState, n: int
+    x: torch.Tensor, ef: ErrorFeedbackState, n: int, group=None
 ) -> Tuple[torch.Tensor, ErrorFeedbackState]:
     """Error-feedback wrapper: reduce (x + residual), keep the new residual."""
     target = x + ef.residual
-    reduced = compressed_all_reduce(target, n)
+    reduced = compressed_all_reduce(target, n, group)
     # residual = what we *meant* to send minus what the wire format conveyed.
     # Approximate the conveyed value by re-quantizing locally (unbiased proxy).
-    q, s = _quantize(target)
+    q, s = _quantize(target[None] if group is not None else target)
+    if group is not None:
+        q, s = q[0], s[0]
     conveyed = _dequantize(q, s)
     return reduced, ErrorFeedbackState(target - conveyed)

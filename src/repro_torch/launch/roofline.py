@@ -42,13 +42,13 @@ from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
-from torch.distributed.tensor.placement_types import _MaskPartial
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten, tree_map
 from torch.utils.flop_counter import flop_registry
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core import cost_model as cm
+from repro_torch.sharding.partition import _settled
 
 PEAK_FLOPS = 989e12                  # bf16 FLOP/s per H100 SXM (dense)
 HBM_BW = 3.35e12                     # bytes/s per H100 SXM
@@ -241,16 +241,6 @@ def _local_bytes(t) -> int:
     if isinstance(t, DTensor):
         t = t._local_tensor
     return t.numel() * t.element_size() if isinstance(t, torch.Tensor) else 0
-
-
-def _settled(x):
-    """``x`` with its masked partial sums (a gather or an embedding lookup
-    on a vocab-sharded dimension) reduced at once: DTensor keeps the mask
-    of the op's shape, which a view of the output no longer has."""
-    if isinstance(x, DTensor) and any(isinstance(p, _MaskPartial) for p in x.placements):
-        place = [Replicate() if isinstance(p, _MaskPartial) else p for p in x.placements]
-        return x.redistribute(x.device_mesh, place)
-    return x
 
 
 def _replicated(x):

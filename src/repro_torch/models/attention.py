@@ -31,6 +31,7 @@ import math
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
 
 from repro_torch.configs.base import MLAConfig, ModelConfig
 from repro_torch.kernels.flash import ops as flash_ops
@@ -107,6 +108,42 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
     return out.reshape(B, S, H, D)
 
 
+def _on_shards(attend, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, **kw) -> torch.Tensor:
+    """``attend(q, k, v, **kw)``, on each rank's shards when ``q`` is a DTensor.
+
+    Attention is independent per batch row and per KV-head group, so with
+    ``q``, ``k`` and ``v`` split alike along the batch (dim 0) and, where
+    the KV heads divide, the heads (dim 2), and whole along the sequences,
+    each rank attends its own shards and the result is placed as ``q``.
+    DTensor's own propagation through the einsums flattens sharded
+    dimensions, which some torch releases refuse, and K3 launches only on
+    a rank's local tensors.  ``q_positions`` is cut to the rank's rows."""
+    if not isinstance(q, DTensor):
+        return attend(q, k, v, **kw)
+    mesh = q.device_mesh
+    heads = math.prod(mesh.size(i) for i, p in enumerate(q.placements)
+                      if isinstance(p, Shard) and p.dim == 2)
+    place = [p if isinstance(p, Shard) and (p.dim == 0 or (p.dim == 2 and k.shape[2] % heads == 0))
+             else Replicate() for p in q.placements]
+
+    def local(t, pl):
+        if isinstance(t, DTensor):
+            return t.redistribute(mesh, pl).to_local()
+        return distribute_tensor(t, mesh, pl, src_data_rank=None).to_local()
+
+    q_l, k_l, v_l = (local(t, place) for t in (q, k, v))
+    if kw.get("q_positions") is not None:
+        rows = [p if isinstance(p, Shard) and p.dim == 0 else Replicate() for p in place]
+        kw["q_positions"] = local(kw["q_positions"], rows)
+    if isinstance(kw.get("kv_valid_len"), DTensor):
+        kw["kv_valid_len"] = kw["kv_valid_len"].full_tensor()
+    out = attend(q_l, k_l, v_l, **kw).contiguous()  # the strides given below
+    B, S, H = q.shape[:3]
+    shape = (B, S, H, v.shape[3])
+    return DTensor.from_local(out, mesh, place, run_check=False, shape=torch.Size(shape),
+                              stride=(S * H * shape[3], H * shape[3], shape[3], 1))
+
+
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum("bsd,dhk->bshk") as one contiguous matmul."""
     d, h, k = w.shape
@@ -142,7 +179,7 @@ def apply_gqa(
 
     new_cache = None
     if mode == "bidir":  # encoder self-attention
-        ctx = _attend(q, k, v, causal=False, q_positions=positions, kv_valid_len=None)
+        ctx = _on_shards(_attend, q, k, v, causal=False, q_positions=positions, kv_valid_len=None)
     elif mode in ("train", "prefill"):
         if mode == "prefill":
             assert cache is not None
@@ -151,11 +188,12 @@ def apply_gqa(
             cache.length.fill_(S)
             new_cache = cache
         if cfg.use_pallas:
-            ctx = flash_ops.flash_attention(q, k, v, causal=True)
+            ctx = _on_shards(flash_ops.flash_attention, q, k, v, causal=True)
         elif cfg.attention_impl == "blocked":
-            ctx = _attend_blocked(q, k, v, causal=True)
+            ctx = _on_shards(_attend_blocked, q, k, v, causal=True)
         else:
-            ctx = _attend(q, k, v, causal=True, q_positions=positions, kv_valid_len=None)
+            ctx = _on_shards(_attend, q, k, v, causal=True, q_positions=positions,
+                             kv_valid_len=None)
     elif mode == "decode":
         assert cache is not None and S == 1
         idx = cache.length.long().reshape(1)
@@ -165,8 +203,8 @@ def apply_gqa(
         ck = shard(cache.k, ("batch", "kv_seq", "kv_heads", None))
         cv = shard(cache.v, ("batch", "kv_seq", "kv_heads", None))
         new_cache = _resharded(cache, ck, cv)
-        ctx = _attend(q, ck, cv, causal=False, q_positions=positions,
-                      kv_valid_len=cache.length)
+        ctx = _on_shards(_attend, q, ck, cv, causal=False, q_positions=positions,
+                         kv_valid_len=cache.length)
     else:
         raise ValueError(mode)
     H, Dh = ctx.shape[2], ctx.shape[3]
@@ -331,6 +369,7 @@ def apply_cross_attn_cached(p, cfg: ModelConfig, x: torch.Tensor, kv) -> torch.T
     q = _project(x, p["wq"].to(dt))
     B, S, H, Dh = q.shape
     pos = torch.arange(S, device=x.device)[None].expand(B, S)
-    ctx = _attend(q, kv["k"], kv["v"], causal=False, q_positions=pos, kv_valid_len=None)
+    ctx = _on_shards(_attend, q, kv["k"], kv["v"], causal=False, q_positions=pos,
+                     kv_valid_len=None)
     out = ctx.reshape(B, S, H * Dh) @ p["wo"].to(dt).reshape(H * Dh, -1)
     return shard(out, ("batch", "seq", "act_embed"))

@@ -15,6 +15,7 @@ from typing import Dict
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.sharding import shard
 
@@ -52,9 +53,50 @@ def init_embedding(vocab: int, d: int) -> ParamSpec:
     return normal_init((vocab, d), ("vocab", "embed"), scale=0.02)
 
 
+def _rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]``, on DTensors by each rank from its own shards.
+
+    DTensor's rule for the backward's indexed add fails in some torch
+    releases (on a replicated table and on a vocabulary-sharded one), so
+    on a mesh every rank gathers its ids' rows from its part of the table:
+    the whole table (other splits made whole first), or, where one mesh
+    dimension splits the vocabulary, its slice of rows, with zeros for
+    ids outside it, the result then a partial sum over that dimension (the
+    masked gather DTensor does itself).  The table's gradient is a
+    partial sum over the mesh dimensions that split ``ids``."""
+    if not isinstance(table, DTensor) or not isinstance(ids, DTensor):
+        return table[ids]
+    mesh = table.device_mesh
+    vocab = [i for i, p in enumerate(table.placements)
+             if isinstance(p, Shard) and p.dim == 0 and mesh.size(i) > 1]
+    split_ids = [i for i, p in enumerate(ids.placements) if isinstance(p, Shard)]
+    if len(vocab) > 1 or set(vocab) & set(split_ids):
+        return table[ids]
+    keep = [Shard(0) if i in vocab else Replicate() for i in range(mesh.ndim)]
+    grad = [Partial() if i in split_ids else keep[i] for i in range(mesh.ndim)]
+    local_table = table.redistribute(mesh, keep).to_local(grad_placements=grad)
+    local_ids = ids.to_local()
+    out_place = list(ids.placements)
+    if vocab:
+        (v,) = vocab
+        rows = -(-table.shape[0] // mesh.size(v))  # torch.chunk's split
+        lo = mesh.get_local_rank(v) * rows
+        mine = (local_ids >= lo) & (local_ids < lo + local_table.shape[0])
+        got = local_table[(local_ids - lo).clamp(0, max(local_table.shape[0] - 1, 0))]
+        local = torch.where(mine[..., None], got, torch.zeros((), dtype=got.dtype,
+                                                              device=got.device))
+        out_place[v] = Partial()
+    else:
+        local = local_table[local_ids]
+    shape = tuple(ids.shape) + (table.shape[1],)
+    stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+    return DTensor.from_local(local, mesh, out_place, run_check=False,
+                              shape=torch.Size(shape), stride=stride)
+
+
 def embed_lookup(table: torch.Tensor, ids: torch.Tensor, dtype) -> torch.Tensor:
     # gather, then cast: the same values as casting the whole table first
-    return shard(table[ids].to(dtype), ("batch", "seq", "act_embed"))
+    return shard(_rows(table, ids).to(dtype), ("batch", "seq", "act_embed"))
 
 
 def logits_projection(table_or_w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -38,6 +38,7 @@ from torch.utils.checkpoint import (
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.sharding import shard
+from repro_torch.sharding.partition import _settled
 
 from . import attention as A
 from . import moe as M
@@ -64,7 +65,7 @@ def _positions(B: int, S: int, device=None) -> torch.Tensor:
 def _xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Mean softmax cross-entropy of fp32 ``logits`` against token ids."""
     lse = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, targets[..., None].long())[..., 0]
+    gold = _settled(logits.gather(-1, targets.long().unsqueeze(-1))).squeeze(-1)
     return (lse - gold).mean()
 
 

@@ -7,4 +7,6 @@ from .fault import (  # noqa: F401
     StragglerDetector,
     fail_link,
     replan_after_failure,
+    reshard_tree,
+    shrink_mesh,
 )

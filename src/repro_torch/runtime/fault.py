@@ -2,18 +2,28 @@
 
 A port of ``repro.runtime.fault``.  On a real fleet these hooks attach to
 the coordinator's heartbeat service; here the *policies* are implemented
-and tested against simulated signals.  The elastic half of the reference,
-``shrink_mesh`` and ``reshard_tree`` (a smaller device mesh without the
-failed slices, and the live tree re-sharded onto it), waits for the
-port's multi-device group (ROADMAP, Queue 1).
+and tested against simulated signals.  The elastic half,
+:func:`shrink_mesh` and :func:`reshard_tree`, works on a
+``torch.distributed`` :class:`DeviceMesh` of one process per rank: a
+smaller mesh without the failed slices, and the live tree re-placed onto
+it.  Both are collective over the *old* mesh: every rank, the failed ones
+included, calls them in the same order (a mesh's process groups are made
+by all ranks together, and the re-shard reads each tensor whole on the
+old mesh, which assumes the failed slice is still readable, as the
+reference's check does).
 """
 
 from __future__ import annotations
 
 import collections
+import math
 import statistics
 from dataclasses import dataclass, field
 from typing import TYPE_CHECKING, Any, Dict, List, Sequence, Tuple
+
+import torch
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 if TYPE_CHECKING:  # pragma: no cover
     from repro_torch.api.session import PcclSession
@@ -149,3 +159,58 @@ class StragglerDetector:
             alloc[h] += 1 if drift > 0 else -1
             drift += -1 if drift > 0 else 1
         return alloc
+
+
+# ------------------------------------------------------------------ elastic
+def shrink_mesh(mesh: DeviceMesh, failed_ranks: Sequence[int], axes: Tuple[str, ...],
+                shrink_axis: str) -> DeviceMesh:
+    """Rebuild a smaller mesh without the failed ranks by dropping whole
+    slices along ``shrink_axis`` (TPU practice: evict the failed host's
+    slice, keep the topology regular).  ``failed_ranks`` are global ranks;
+    ``axes`` names the new mesh's dimensions.  Every rank of ``mesh`` calls
+    it (the new mesh's groups are made by all of them, in order); a failed
+    rank gets the mesh too, with no coordinate in it."""
+    ranks = mesh.mesh
+    axis = list(mesh.mesh_dim_names).index(shrink_axis)
+    failed = set(int(r) for r in failed_ranks)
+    keep = [i for i in range(ranks.shape[axis])
+            if not failed.intersection(ranks.select(axis, i).flatten().tolist())]
+    if not keep:
+        raise RuntimeError("all slices contain failed devices")
+    new = ranks.index_select(axis, torch.tensor(keep))
+    return DeviceMesh(mesh.device_type, new, mesh_dim_names=tuple(axes))
+
+
+def _map_tree(fn, tree, placed):
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v, placed[k] if placed is not None else None)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not isinstance(tree, torch.Tensor):
+        return type(tree)(_map_tree(fn, v, placed[i] if placed is not None else None)
+                          for i, v in enumerate(tree))
+    return fn(tree, placed)
+
+
+def reshard_tree(tree: Any, old_placements: Any, new_mesh: DeviceMesh) -> Any:
+    """Re-shard a live tree onto a shrunk mesh, keeping each sharded
+    dimension's mesh axes where they still divide it and replicating it
+    otherwise (fit-or-drop).  ``old_placements`` mirrors ``tree`` with a
+    :class:`~repro_torch.sharding.partition.Sharding` (the reference's
+    ``NamedSharding``) or ``None`` (replicated) per leaf.  Each leaf is read
+    whole on the old mesh, a collective every rank of it joins."""
+    from repro_torch.sharding.partition import Sharding, placements
+
+    sizes = dict(zip(new_mesh.mesh_dim_names, new_mesh.mesh.shape))
+
+    def move(x, sh):
+        spec = sh.spec if isinstance(sh, Sharding) else ()
+        parts = []
+        for i, p in enumerate(spec):
+            ax = tuple(a for a in (p or ()) if a in sizes)
+            prod = math.prod(sizes[a] for a in ax)
+            parts.append(ax if ax and x.shape[i] % prod == 0 else None)
+        whole = (x.full_tensor() if isinstance(x, DTensor) else x).detach()
+        place = placements(tuple(parts), whole.ndim, new_mesh)
+        return distribute_tensor(whole, new_mesh, place, src_data_rank=None)
+
+    return _map_tree(move, tree, old_placements)

@@ -35,6 +35,7 @@ from typing import Any, List, Optional, Sequence, Tuple, Union
 import torch
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.placement_types import _MaskPartial
 
 MeshAxes = Union[None, str, Tuple[str, ...]]
 Spec = Tuple[Optional[Tuple[str, ...]], ...]
@@ -254,6 +255,17 @@ def shard(x: torch.Tensor, axes: Sequence[Optional[str]]) -> torch.Tensor:
         if dim % n:
             raise ValueError(f"shard: dimension {dim} of {tuple(x.shape)} does not split "
                              f"{n} ways under {spec}")
+    return x
+
+
+def _settled(x):
+    """``x`` with its masked partial sums (a gather or an embedding lookup
+    on a vocab-sharded dimension) reduced at once: DTensor keeps the mask
+    of the op's shape, which a view of the output no longer has, and a
+    later reduction of it into a shard fails.  Anything else as it is."""
+    if isinstance(x, DTensor) and any(isinstance(p, _MaskPartial) for p in x.placements):
+        place = [Replicate() if isinstance(p, _MaskPartial) else p for p in x.placements]
+        return x.redistribute(x.device_mesh, place)
     return x
 
 

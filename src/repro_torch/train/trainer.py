@@ -16,11 +16,19 @@
   all-reduces and the DP gradient all-reduce are priced *together*, as the
   fabric arbiter's joint plan (``concurrent_step_cost``).
 
-It runs on one device, CUDA unless the caller passes ``device="cpu"``.
-Under a one-rank mesh a run installs the mesh and rules
+It runs on one device per process, CUDA unless the caller passes
+``device="cpu"``.  Under a one-rank mesh a run installs the mesh and rules
 (:func:`repro_torch.sharding.use_partitioning`), which leaves every tensor
-where it is; the sharded step on a mesh of several ranks waits for the
-port's process-group execution (ROADMAP item 7d).
+where it is.  On a mesh of several ranks (one process each, a live
+``torch.distributed`` world) the step is sharded: parameters and AdamW's
+moments are DTensors placed by :func:`~repro_torch.sharding.partition.param_sharding`,
+every rank draws the same initial weights from the seed and keeps its
+part, the batch is split over ``"data"`` as the rules say, and the step
+runs under ``use_partitioning``; DTensor issues the collectives (the
+reference's "on the pjit path XLA emits the collectives").  Checkpoints
+keep the reference's layout: rank 0 writes whole tensors, every rank
+restores its part, and an injected failure, which every rank meets at
+the same step, restarts them all from the newest checkpoint.
 """
 
 from __future__ import annotations
@@ -32,9 +40,15 @@ from dataclasses import dataclass
 from typing import Any, Dict, Optional, Union
 
 import torch
+import torch.distributed as dist
+from torch import nn
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, distribute_tensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.api import ConcurrentCollectiveRequest, PcclSession
 from repro_torch.ckpt.checkpoint import CheckpointConfig, CheckpointManager
+from repro_torch.comm import exec_engine
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import cost_model as cm
 from repro_torch.data.pipeline import DataConfig, SyntheticLMData, to_device
@@ -91,7 +105,9 @@ class Trainer:
         self.device = resolve_device(device)
         self.model = build_model(model_cfg)
         self.data = SyntheticLMData(model_cfg, data_cfg)
-        self.ckpt = CheckpointManager(ckpt_cfg) if ckpt_cfg else None
+        self.sharded = mesh is not None and math.prod(mesh.shape) > 1
+        group = dist.group.WORLD if self.sharded and ckpt_cfg else None
+        self.ckpt = CheckpointManager(ckpt_cfg, group) if ckpt_cfg else None
         self.injector = failure_injector or FailureInjector()
         self.straggler = StragglerDetector(StragglerConfig(), data_cfg.n_hosts)
         self.metrics_log: list = []
@@ -157,6 +173,7 @@ class Trainer:
 
         self._step_fn = None
         self._shardings = None
+        self.resumed_from: list = []  # the checkpoint step each restart resumed from
 
     # ------------------------------------------------------------- plumbing
     def _build(self):
@@ -171,16 +188,28 @@ class Trainer:
             self._shardings = partition.param_sharding(
                 axes_of(specs), self.mesh, self.rules, shapes_tree=shapes_of(specs)
             )
+            if self.sharded:
+                _place(params, self._shardings, self.mesh)
         return params, init_opt_state(params)
+
+    def _batch(self, step: int) -> Dict[str, torch.Tensor]:
+        """The step's global batch; on a sharded mesh each rank keeps its
+        rows of it (every rank reads the same deterministic batch)."""
+        batch = to_device(self.data.global_batch(step), self.device)
+        if not self.sharded:
+            return batch
+        out = {}
+        with partition.use_partitioning(self.mesh, self.rules):
+            for k, v in batch.items():
+                spec = partition.spec_for(("batch",) + (None,) * (v.ndim - 1), tuple(v.shape))
+                place = partition.placements(spec, v.ndim, self.mesh)
+                out[k] = distribute_tensor(v, self.mesh, place, src_data_rank=None)
+        return out
 
     # ----------------------------------------------------------------- run
     def run(self) -> Dict[str, Any]:
-        if self.mesh is not None and math.prod(self.mesh.shape) > 1:
-            raise NotImplementedError(
-                f"Trainer.run on a mesh of {math.prod(self.mesh.shape)} ranks needs the "
-                "port's process-group execution, not ported yet (ROADMAP Queue 1, item 7d); "
-                "a one-rank mesh runs, and the DP × TP pricing is computed at construction"
-            )
+        if self.sharded:
+            _check_live(self.mesh, self.rules)
         self._build()
         restarts = 0
         while True:
@@ -202,8 +231,20 @@ class Trainer:
             if self.mesh is not None and self.rules is not None
             else contextlib.nullcontext()
         )
-        with ctx:
+        # plain tensors made inside the step (positions, masks, the step
+        # count) meet DTensors as replicated values
+        dense = implicit_replication() if self.sharded else contextlib.nullcontext()
+        with ctx, dense, self._wire():
             return self._run_steps()
+
+    def _wire(self):
+        """DTensor's collectives of CUDA tensors over a gloo mesh take the
+        ``gloo-staged`` route (host copies; gloo's own CUDA path is not
+        taken); NCCL and CPU tensors go as they are."""
+        if (self.sharded and self.device.type == "cuda"
+                and str(dist.get_backend(self.mesh.get_group(0))) == "gloo"):
+            return exec_engine.staged_functional_collectives()
+        return contextlib.nullcontext()
 
     def _run_steps(self) -> Dict[str, Any]:
         params, opt_state = self._init_state()
@@ -215,17 +256,18 @@ class Trainer:
             self.ckpt.wait()
             if self.ckpt.latest_step() is not None:
                 (params, opt_state), start_step, extra = self.ckpt.restore((params, opt_state))
+                self.resumed_from.append(start_step)
                 print(f"[trainer] resumed from step {start_step}")
 
         last_metrics: Dict[str, float] = {}
         for step in range(start_step, self.tcfg.total_steps):
             self.injector.check(step)  # may raise → checkpoint-restart
-            batch = to_device(self.data.global_batch(step), self.device)
+            batch = self._batch(step)
             t0 = time.perf_counter()
             params, opt_state, metrics = self._step_fn(params, opt_state, batch)
             # the loss is read after the whole step on the stream: the
             # window ends when the device is done
-            last_metrics = {k: float(v) for k, v in metrics.items()}
+            last_metrics = {k: _value(v) for k, v in metrics.items()}
             dt = time.perf_counter() - t0
             for h in range(self.data_cfg.n_hosts):
                 self.straggler.record(h, dt)  # single-process: same signal
@@ -252,6 +294,39 @@ class Trainer:
             "pccl_exec": self.pccl.exec_stats(),
             "stragglers": self.straggler.stragglers(),
         }
+
+
+def _value(t: torch.Tensor) -> float:
+    """A 0-dim metric as a float (a DTensor's whole value)."""
+    return float(t.full_tensor() if isinstance(t, DTensor) else t)
+
+
+def _check_live(mesh, rules) -> None:
+    """A sharded run needs a ``DeviceMesh`` over a world that moves data,
+    and rules to place the parameters by."""
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"Trainer.run on several ranks needs a torch DeviceMesh, got "
+                        f"{type(mesh).__name__}")
+    if rules is None:
+        raise ValueError("Trainer.run on several ranks needs sharding rules (rules=)")
+    if str(dist.get_backend(mesh.get_group(0))) == "fake":
+        raise RuntimeError(
+            "Trainer.run on a fake process group: its collectives move no data, so a "
+            "step would train on garbage; the dry run (python -m repro_torch.launch.dryrun) "
+            "counts a step on such a group")
+
+
+def _place(params, shardings, mesh) -> None:
+    """Replace every parameter of ``params`` with a DTensor holding this
+    rank's part of it, placed as ``shardings`` says (the values every rank
+    drew from the same seed, so nothing moves)."""
+    for name, p in list(params.named_parameters()):
+        owner, _, leaf = name.rpartition(".")
+        module = params.get_submodule(owner) if owner else params
+        place = partition.placements(shardings[name].spec, p.ndim, mesh)
+        module._parameters[leaf] = nn.Parameter(
+            distribute_tensor(p.detach(), mesh, place, src_data_rank=None),
+            requires_grad=False)
 
 
 def _axis_size(mesh, name: str) -> int:

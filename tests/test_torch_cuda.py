@@ -801,3 +801,127 @@ def test_reduced_zamba2_serves_under_a_one_rank_nccl_mesh_bit_for_bit(dev):
     assert all(torch.equal(a, b) for a, b in zip(meshed[1], plain[1]))
     # the reduced widths take K4's fma route (its wgmma route needs P = N = 64)
     assert meshed[2:] == plain[2:] and plain[2]["wgmma"] > 0 and sum(plain[3].values()) > 0
+
+
+def _p12_cases(n):
+    base = dict(n=n, hw="H100_DGX")
+    cases = [dict(base, path="comm", collective=c, seed=40 + i,
+                  local=(16, 64) if c == "all_gather" else (16 * n, 64))
+             for i, c in enumerate(("all_reduce", "reduce_scatter", "all_gather", "all_to_all"))]
+    cases.append(dict(base, path="comm", collective="all_reduce", algorithm="ring_ef8",
+                      local=(16 * n, 64), seed=44))
+    cases.append(dict(base, path="fused_mm_rs", local=(64 * n, 128), side=(128, 64),
+                      dtype="bfloat16", algorithm="ring", seed=45))
+    cases.append(dict(base, path="fused_ar_rms", local=(8, 64 * n), side=(64 * n,),
+                      dtype="bfloat16", seed=46))
+    return cases
+
+
+def test_process_group_collectives_take_the_staged_route(dev, tmp_path):
+    """Four processes over gloo on the one card: every collective, ring_ef8
+    and both seams, each rank's result bit for bit its row of the
+    rank-stacked engine on the card; every round on ``gloo-staged`` with
+    bytes staged through the host; one K1 a tile (wgmma) and one K2 in
+    each process's counted calls."""
+    from repro_torch import PcclSession
+    from repro_torch.comm import fusion
+    from repro_torch.core import cost_model as cm
+    from repro_torch.launch import procs
+
+    n = 4
+    cases = _p12_cases(n)
+    ranks = procs.spawn(procs.collectives_program, n, (cases, "cuda"), store_dir=str(tmp_path),
+                        timeout_s=300, threads=2)
+    for i, case in enumerate(cases):
+        dtype = getattr(torch, case.get("dtype", "float32"))
+        x = torch.as_tensor(procs.stacked_input(case), device=dev).to(dtype)
+        comm = PcclSession(cm.H100_DGX, device=dev).communicator(
+            "x", n, algorithm=case.get("algorithm", "auto"))
+        side = torch.as_tensor(procs.side_input(case), device=dev).to(dtype) \
+            if "side" in case else None
+        if case["path"] == "fused_mm_rs":
+            want = fusion.fused_matmul_reduce_scatter(comm, x, side)
+        elif case["path"] == "fused_ar_rms":
+            want = fusion.fused_all_reduce_rmsnorm(comm, x, side)
+        else:
+            want = getattr(comm, case["collective"])(x)
+        want = want.float().cpu().numpy()
+        for r, rank in enumerate(ranks):
+            out = rank["cases"][i]["out"]
+            if case["path"].startswith("fused"):
+                np.testing.assert_array_equal(out[0], out[1])  # fused == unfused
+                out = out[0]
+            np.testing.assert_array_equal(out, want[r])
+    for rank in ranks:
+        assert set(rank["route_rounds"]) == {"gloo-staged"} and rank["staged_bytes"] > 0
+        counted = [c["launches"] for c in rank["cases"]]
+        assert counted[5]["matmul"] == {"wgmma": n, "fma": 0}
+        assert counted[6]["rmsnorm"] == {"triton": 1}
+
+
+def test_a_cuda_operand_on_a_fake_group_raises(dev):
+    """No transport carries a CUDA operand over a group that moves no data:
+    the route raises rather than falling back."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.comm import ScheduleExecutionError
+    from repro_torch.comm.exec_engine import transport_route
+
+    dist.init_process_group("fake", rank=0, world_size=2, store=FakeStore())
+    try:
+        with pytest.raises(ScheduleExecutionError, match="backend 'fake'"):
+            transport_route(dist.group.WORLD, torch.ones(2, device=dev))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_gloo_carries_cuda_point_to_point_and_dtensor_gathers_only_staged(dev, tmp_path):
+    """What this torch build's gloo does with CUDA tensors, which the
+    ``gloo-staged`` routes exist for: ``batch_isend_irecv`` of CUDA
+    tensors fails, and a DTensor all-gather of a CUDA tensor kills its
+    ranks (torch 2.11: a segfault in ``wait_tensor``); staged through host
+    memory the gather is right.  Should a torch release carry either, this
+    test fails and the staging can be reconsidered."""
+    from repro_torch.launch import procs
+
+    for what in ("p2p", "dtensor_gather"):
+        with pytest.raises(RuntimeError, match="failed|exited with codes"):
+            procs.spawn(procs.gloo_cuda_program, 2, (what,), store_dir=str(tmp_path / what),
+                        timeout_s=120)
+    got = procs.spawn(procs.gloo_cuda_program, 2, ("dtensor_gather_staged",),
+                      store_dir=str(tmp_path / "staged"), timeout_s=120)
+    assert got == [[1.0] * 4 + [2.0] * 4] * 2
+
+
+def test_sharded_trainer_on_the_card_equals_one_process(dev, tmp_path):
+    """A reduced Whisper (fp32, K3 on its fma route) through the Trainer on
+    a (2, 2) mesh of four processes on the card, the default rules (FSDP
+    over "data", TP over "model"), DTensor's collectives staged through
+    host memory: every loss within 1e-4 of the one-process Trainer on the
+    card, the restart from the step-2 checkpoint, then the shrink to
+    (1, 2) with every value kept."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig
+    from repro_torch.launch import procs
+    from repro_torch.sharding import default_rules
+    from repro_torch.train import OptimizerConfig, Trainer, TrainerConfig
+
+    cfg = replace(get_config("whisper-small").reduced(), n_layers=2, use_pallas=True)
+    args = (cfg, DataConfig(global_batch=4, seq_len=16), OptimizerConfig(),
+            TrainerConfig(total_steps=4, ckpt_every=2, log_every=100))
+    ranks = procs.spawn(procs.trainer_program, 4, args,
+                        dict(mesh_shape=(2, 2), rules=default_rules(), device="cuda",
+                             ckpt_dir=str(tmp_path / "ckpt"), fail_at=(3,), shrink=True),
+                        store_dir=str(tmp_path), timeout_s=300, threads=2)
+    one = [h["loss"] for h in Trainer(*args, device=dev).run()["history"]]
+    for rank in ranks:
+        assert rank["steps"] == [0, 1, 2, 2, 3] and rank["resumed_from"] == [2]
+        by_step = dict(zip(rank["steps"], rank["losses"]))
+        np.testing.assert_allclose([by_step[s] for s in range(4)], one, rtol=0, atol=1e-4)
+        assert set(rank["route_rounds"]) == {"gloo-staged"} and rank["staged_bytes"] > 0
+        assert rank["launches"]["flash"]["fma"] > 0
+    survivors = [r for r in ranks if not r["failed"]]
+    assert len(survivors) == 2 and all(r["reshard_exact"] for r in survivors)

@@ -36,7 +36,8 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
             "repro_torch.sharding", "repro_torch.sharding.partition",
             "repro_torch.launch.mesh", "repro_torch.launch.specs",
             "repro_torch.launch.roofline", "repro_torch.launch.dryrun",
-            "repro_torch.launch.perf"} <= set(mods)
+            "repro_torch.launch.perf", "repro_torch.launch.procs",
+            "repro_torch.runtime.fault"} <= set(mods)
     assert len(mods) > 20
     code = (
         "import importlib, importlib.util, sys\n"
@@ -56,6 +57,18 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "BAD []" in proc.stdout
+
+
+def test_a_spawned_rank_loads_no_jax_and_no_repro(tmp_path):
+    """A rank that ``repro_torch.launch.procs.spawn`` starts imports the
+    package afresh (the ``spawn`` method), never the caller's modules: the
+    card's machine has no JAX."""
+    from repro_torch.launch import procs
+
+    for mods in procs.spawn(procs.loaded_modules, 2, store_dir=str(tmp_path), timeout_s=120):
+        assert "repro_torch.launch.procs" in mods
+        bad = [m for m in mods if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+        assert not bad, bad
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]

@@ -397,7 +397,9 @@ def test_trainer_runs_on_one_rank_and_refuses_several(world):
     cfg = configs.get_config("chatglm3-6b").reduced()
     args = (cfg, DataConfig(global_batch=4, seq_len=16), OptimizerConfig(),
             TrainerConfig(total_steps=2, log_every=10))
-    with pytest.raises(NotImplementedError, match="7d"):
+    # several ranks of the fake world move no data: the sharded step refuses
+    # it (it runs on a live world: tests/test_torch_elastic.py)
+    with pytest.raises(RuntimeError, match="fake process group"):
         Trainer(*args, mesh=_mesh((2, 2), ("data", "model")), rules=default_rules(),
                 device="cpu").run()
     alone = Trainer(*args, device="cpu").run()

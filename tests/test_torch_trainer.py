@@ -455,9 +455,11 @@ def test_restart_waits_for_the_checkpoint_being_written(tmp_path):
 
 
 def test_trainer_refuses_a_mesh():
-    """A mesh of several ranks is priced at construction and refused by
-    ``run()``: the sharded step waits for ROADMAP item 7d.  (The pricing
-    and the one-rank run: ``tests/test_torch_sharding.py``.)"""
+    """A mesh of several ranks is priced at construction; ``run()`` refuses
+    one that is not a torch ``DeviceMesh`` (the sharded step places
+    DTensors on it).  (The pricing and the one-rank run:
+    ``tests/test_torch_sharding.py``; the sharded step on a live world:
+    ``tests/test_torch_elastic.py``.)"""
     from types import SimpleNamespace
 
     ref_cfg, cfg = _cfgs("chatglm3-6b")
@@ -465,7 +467,7 @@ def test_trainer_refuses_a_mesh():
     mesh = SimpleNamespace(shape=(2, 2), mesh_dim_names=("data", "model"))
     trainer = Trainer(*args, device="cpu", mesh=mesh, rules=object())
     assert trainer.concurrent_step_cost is not None
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         trainer.run()
 
 

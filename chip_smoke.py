@@ -128,6 +128,19 @@ and then drives the port's main paths:
    2)``, ``reshard_tree`` keeps every value bit for bit and the survivors
    take one more step.
 
+13. the kernel lint on the card (run right after the kernel phase, held
+   to 60 s): ``repro_torch.analysis.kernel_lint.run_shipped`` over every
+   route at edge shapes and at the main paths' shapes, all clean (13a);
+   every modelled launch's grid, threads and dynamic shared memory equal
+   to what its library's ``*_geometry`` export (the launcher's own
+   function) reports, static plus dynamic shared memory within the card's
+   opt-in limit (13b); every route at ragged shapes launched into outputs
+   pre-filled with NaN between sentinel guard bands: every element written,
+   no guard touched (13c); each kernel at its main-path shapes with and
+   without ``PCCL_VERIFY=1``: the same bytes, the gate's miss and hit timed
+   on the host (13d).  Path 10 also reports the gate's misses and hits for
+   K1 and K2: every launch of path 1 under the variable passed it.
+
 A parity phase then holds Zamba2's prefill with the kernels against its
 plain path in fp32 (6 layers, batch 2, 512 tokens), and teacher-forced
 decode against a longer prefill, xLSTM's the same way (one group: 7
@@ -2366,6 +2379,13 @@ def verified_path(torch, gen, device, reset_counts, read_counts) -> dict:
     check(n_verified > 0, "PCCL_VERIFY=1 verified no schedule")
     check(device.type != "cuda" or (counts["matmul"] > 0 and counts["rmsnorm"] > 0),
           "main path 10 never launched K1 or K2")
+    gates = kernel_gate_counts()
+    log(f"  kernel lint gate (misses = analyses, hits = memo) under PCCL_VERIFY=1: {gates}")
+    for kernel in ("matmul", "rmsnorm"):
+        gated = sum(g["misses"] + g["hits"] for label, g in gates.items()
+                    if label.startswith(kernel + ":"))
+        check(gated == counts[kernel], f"{kernel}: {counts[kernel]} launches but {gated} passed "
+                                       "the kernel lint gate")
     check(bad.fingerprint() in counter.fingerprints, "the dropped-transfer schedule was not verified")
     check(after == tables, f"the refused schedule changed the caches: {tables} -> {after}")
     log(f"  dropped transfer refused: {refused[0]} {refused[1].strip()}; caches (compiled, device "
@@ -2377,7 +2397,14 @@ def verified_path(torch, gen, device, reset_counts, read_counts) -> dict:
     comm, _, _ = comms()
     return {"counts": counts, "routes": routes, "verified": n_verified,
             "distinct_verified": len(set(counter.fingerprints)), "wall_s": wall,
-            "refused": refused[0], "x": x, "comm": comm}
+            "refused": refused[0], "kernel_gate": gates, "x": x, "comm": comm}
+
+
+def kernel_gate_counts() -> dict:
+    """The ``PCCL_VERIFY`` kernel gate's misses and hits by kernel and route
+    (empty before any wrapper passed it)."""
+    lint = sys.modules.get("repro_torch.analysis.kernel_lint")
+    return lint.gate_counts() if lint is not None else {}
 
 
 def pcclcomm_path(torch, r) -> dict:
@@ -2530,6 +2557,156 @@ def path10_phase(torch, gen, reset_counts, read_counts):
     stats["fresh_processes"] = cli_phase(torch)
     log(f"  phase 10d: {time.perf_counter() - t:.3f} s")
     return counts, routes, stats
+
+
+PATH13_LIMIT_S = 60  # path 13's time limit
+GATE_HITS = 1000       # gate hits timed per kernel
+
+
+def lint_cases(main: bool = True) -> list:
+    from repro_torch.analysis.kernel_lint import main_path_cases, shipped_kernel_cases
+
+    return shipped_kernel_cases() + (main_path_cases() if main else [])
+
+
+def kernel_lint_static() -> dict:
+    """13a: the kernel lint in this process over every shipped case and
+    main-path shape: all clean."""
+    import contextlib
+    import io
+
+    from repro_torch.analysis.kernel_lint import run_shipped
+
+    t = time.perf_counter()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        failures = run_shipped(verbose=True)
+    wall = time.perf_counter() - t
+    lines = printed.getvalue().splitlines()
+    for line in lines:
+        log(f"  {line}")
+    check(failures == 0, f"the kernel lint failed {failures} case(s)")
+    check(len(lines) == len(lint_cases()) and all(": clean (" in x for x in lines),
+          "the kernel lint did not print one clean line per case")
+    log(f"  13a: {len(lines)} cases clean in {wall:.3f} s (host)")
+    return {"cases": len(lines), "wall_s": wall}
+
+
+def kernel_lint_geometry(torch) -> dict:
+    """13b: every modelled launch of every shipped case and main-path shape
+    against the library's geometry export (the launcher's own function):
+    grid, threads, dynamic smem equal; static + dynamic smem within the
+    card's opt-in limit."""
+    from repro_torch.analysis.kernel_lint import DEFAULT_SMEM_BUDGET
+    from repro_torch.analysis.launch_probe import geometry_mismatches
+
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    check(optin == DEFAULT_SMEM_BUDGET,
+          f"the card's opt-in shared memory {optin} B is not the lint's {DEFAULT_SMEM_BUDGET} B")
+    sites, most = 0, {}
+    for label, fn, args, kwargs in lint_cases():
+        modelled, device, problems = geometry_mismatches(fn, args, kwargs, optin)
+        check(not problems, f"{label}: launch model and library disagree: {problems}")
+        sites += len(modelled)
+        for site, dev in zip(modelled, device):
+            used = dev["smem"] + dev["static_smem"]
+            if used >= most.get(site.name, {}).get("smem_bytes", -1):
+                most[site.name] = {"smem_bytes": used, "static_smem": dev["static_smem"],
+                                   "threads": dev["threads"], "case": label}
+    for name, m in sorted(most.items()):
+        log(f"  13b: {name}: at most {m['smem_bytes']} B of shared memory a block "
+            f"({m['static_smem']} B static), {m['threads']} threads ({m['case']})")
+    log(f"  13b: {sites} launches, grid, threads and dynamic smem equal to the library's; "
+        f"opt-in limit {optin} B")
+    return {"launches": sites, "optin_bytes": optin, "smem_by_kernel": most}
+
+
+def kernel_lint_probe(torch) -> dict:
+    """13c: every route at ragged shapes, launched into NaN-filled outputs
+    between sentinel guard bands: every element written, no guard touched."""
+    from repro_torch.analysis.launch_probe import GUARD, materialize, probe_outputs
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    elements = buffers = 0
+    for label, fn, args, kwargs in lint_cases(main=False):
+        args, kwargs = materialize(torch, args, kwargs, torch.device("cuda"), gen)
+        for name, r in probe_outputs(torch, fn, args, kwargs).items():
+            check(r["unwritten"] == 0, f"{label}: {r['unwritten']} of {r['elements']} elements "
+                                       f"of {name} never written")
+            check(r["touched"] == 0, f"{label}: {r['touched']} guard elements of {name} written")
+            elements += r["elements"]
+            buffers += 1
+    log(f"  13c: {buffers} outputs of {len(lint_cases(main=False))} ragged cases, {elements} "
+        f"elements, all written; no element of the {GUARD}-element guard bands touched")
+    return {"outputs": buffers, "elements": elements}
+
+
+def kernel_lint_gate(torch) -> dict:
+    """13d: each kernel at its main-path shapes, one warm call without
+    ``PCCL_VERIFY`` and one with it: the same bytes.  The gate's miss is the
+    gated call's host time less the ungated call's (both only enqueue the
+    kernel; the miss adds the analysis); a hit is timed over GATE_HITS
+    calls of the gate."""
+    import os
+
+    from repro_torch.analysis import kernel_lint
+    from repro_torch.analysis.launch_probe import materialize
+    from repro_torch.kernels.build import verify_launch
+
+    check("PCCL_VERIFY" not in os.environ, "PCCL_VERIFY is set before path 13d")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    out = {}
+    for label, fn, args, kwargs in lint_cases()[len(lint_cases(main=False)):]:
+        args, kwargs = materialize(torch, args, kwargs, torch.device("cuda"), gen)
+        fn(*args, **kwargs)  # warm
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        plain = fn(*args, **kwargs)
+        plain_ms = (time.perf_counter() - t) * 1e3
+        torch.cuda.synchronize()
+        kernel_lint.clear_verified_cache()
+        os.environ["PCCL_VERIFY"] = "1"
+        try:
+            t = time.perf_counter()
+            gated = fn(*args, **kwargs)
+            gated_ms = (time.perf_counter() - t) * 1e3
+            [gate] = kernel_lint.gate_counts()
+            t = time.perf_counter()
+            for _ in range(GATE_HITS):
+                verify_launch(gate, fn, args, kwargs)
+            hit_us = (time.perf_counter() - t) * 1e6 / GATE_HITS
+            counts = kernel_lint.gate_counts()[gate]
+        finally:
+            del os.environ["PCCL_VERIFY"]
+        torch.cuda.synchronize()
+        pairs = zip(plain, gated) if isinstance(plain, tuple) else [(plain, gated)]
+        check(all(torch.equal(a, b) for a, b in pairs),
+              f"{label}: the bytes differ with PCCL_VERIFY=1")
+        check(counts == {"misses": 1, "hits": GATE_HITS}, f"{label}: gate counts {counts}")
+        out[label] = {"gate": gate, "miss_ms": gated_ms - plain_ms, "call_ms": plain_ms,
+                      "hit_us": hit_us}
+        log(f"  13d: {label} [{gate}]: same bytes with PCCL_VERIFY=1; host time of the call "
+            f"{plain_ms:.3f} ms without the gate, {gated_ms:.3f} ms with its miss; a hit "
+            f"{hit_us:.2f} us a launch")
+        del args, kwargs, plain, gated
+        torch.cuda.empty_cache()
+    kernel_lint.clear_verified_cache()
+    return out
+
+
+def path13_phase(torch, smi: str) -> dict:
+    """Path 13: the kernel lint on the card (13a-d), within PATH13_LIMIT_S."""
+    log("== path 13: the kernel lint: static over every case (13a), launch models against the "
+        "libraries' geometry (13b), NaN-filled outputs with guard bands (13c), the "
+        "PCCL_VERIFY gate's cost at the main-path shapes (13d)")
+    t = time.perf_counter()
+    stats = {"static": kernel_lint_static(), "geometry": kernel_lint_geometry(torch),
+             "probe": kernel_lint_probe(torch), "gate": kernel_lint_gate(torch)}
+    stats["wall_s"] = time.perf_counter() - t
+    log(f"  phase path 13: {stats['wall_s']:.3f} s on {smi}")
+    check(stats["wall_s"] <= PATH13_LIMIT_S,
+          f"path 13 took {stats['wall_s']:.1f} s, over its {PATH13_LIMIT_S} s")
+    return stats
 
 
 # ---------------------------------------------------------------------- main
@@ -3025,6 +3202,9 @@ def main() -> int:
         torch.cuda.empty_cache()
     log(f"  phase kernels K3, K4: {time.perf_counter() - t:.3f} s")
 
+    path13_stats = path13_phase(torch, smi)
+    torch.cuda.empty_cache()
+
     reset_counts, read_counts = LAUNCHES.reset, LAUNCHES.totals
 
     log(f"== main path 1: Mistral-Large-123B widths, TP={TP} rank-stacked, {TOKENS} tokens/rank")
@@ -3219,6 +3399,7 @@ def main() -> int:
     log("path 11 (mesh, roofline, dry run): " + json.dumps(path11_stats))
     log("path 12 (processes over gloo, the sharded Trainer, the elastic re-mesh): "
         + json.dumps(path12_stats))
+    log(f"path 13 (the kernel lint on the card, {smi}): " + json.dumps(path13_stats))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
 
     # the bf16 kernels of each path; K1, K3 and K4 on their tensor-core route

@@ -1,7 +1,6 @@
-"""Static analysis for schedules, plans and the port's own code.
+"""Static analysis for schedules, plans, kernels and the port's own code.
 
-A copy of ``repro.analysis`` but for its Pallas kernel analyzer.  Three
-passes, no device execution:
+The counterpart of ``repro.analysis``.  Four passes, no device execution:
 
 * :mod:`repro_torch.analysis.verify` — chunk-dataflow verifier: abstract
   interpretation proving a schedule's collective postcondition.
@@ -12,19 +11,25 @@ passes, no device execution:
   shared-state bug classes (unguarded cache mutation, function-attribute
   state, mutable defaults).
 
-The reference's fourth pass, the Pallas kernel analyzer (``kernel_lint``
-and ``pallas_model``), captures ``pl.pallas_call`` grids; the port's
-kernels are CUDA C++ and Triton, and their lint is ROADMAP item 15.  Its
-names raise :class:`AttributeError` here, and ``python -m
-repro_torch.analysis --kernels`` exits non-zero, each citing that item.
+* :mod:`repro_torch.analysis.kernel_lint` over
+  :mod:`repro_torch.analysis.launch_model` — the kernel lint: a
+  pure-Python model of each CUDA and Triton launch (grid, per-block
+  footprints, threads, shared memory; tile sizes read from the ``.cu``
+  sources) proves every output element written by exactly one block, no
+  access out of bounds past the kernel's masks, shared memory within
+  Hopper's budget and as launched, and the body rules (dead parameters,
+  fp32 upcasts, casts on store).  It cannot see the arithmetic, nor a
+  launcher that differs from its model: the parity tests and the card's
+  geometry and NaN-probe checks (``chip_smoke.py`` path 13) cover those.
 
 ``python -m repro_torch.analysis`` runs the schedule/plan passes over the
-built-in generator zoo; ``python -m repro_torch.analysis.lint_concurrency``
-runs the lint over ``src/repro_torch``.  Set ``PCCL_VERIFY=1`` to also
-verify every schedule at exec-engine compile time
-(``comm/exec_engine.py::compile_schedule``, on a cache miss, before any
-table is built).  The reference's per-dispatch kernel gate
-(``kernels/*/ops.py``) comes with item 15.
+built-in generator zoo, ``--kernels`` the kernel lint over every route at
+edge shapes and the main paths' shapes; ``python -m
+repro_torch.analysis.lint_concurrency`` runs the lint over
+``src/repro_torch``.  Set ``PCCL_VERIFY=1`` to also verify every schedule
+at exec-engine compile time (``comm/exec_engine.py::compile_schedule``, on
+a cache miss, before any table is built) and every kernel launch's model
+before the launch (``kernels/build.py::verify_launch``, memoized).
 """
 
 from .verify import (  # noqa: F401
@@ -47,7 +52,6 @@ from .invariants import (  # noqa: F401
     check_schedule,
 )
 _LINT_EXPORTS = ("Finding", "lint_module", "lint_paths")
-# the reference's Pallas kernel analyzer: not ported until ROADMAP item 15
 _KERNEL_EXPORTS = (
     "KernelLintError",
     "KernelReport",
@@ -62,10 +66,6 @@ _KERNEL_EXPORTS = (
 )
 _MODEL_EXPORTS = ("BlockModel", "Box", "CallSite", "CaptureError",
                   "capture_call_sites", "whole_array_box")
-KERNEL_LINT_GAP = (
-    "the Pallas kernel analyzer (repro.analysis.kernel_lint / pallas_model) is not "
-    "ported: a kernel lint for the port's CUDA C++ and Triton kernels is ROADMAP item 15"
-)
 
 
 def __getattr__(name):
@@ -75,6 +75,12 @@ def __getattr__(name):
         from . import lint_concurrency
 
         return getattr(lint_concurrency, name)
-    if name in _KERNEL_EXPORTS or name in _MODEL_EXPORTS:
-        raise AttributeError(f"{__name__}.{name}: {KERNEL_LINT_GAP}")
+    if name in _KERNEL_EXPORTS:
+        from . import kernel_lint
+
+        return getattr(kernel_lint, name)
+    if name in _MODEL_EXPORTS:
+        from . import launch_model
+
+        return getattr(launch_model, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,4 +1,4 @@
-"""The schedule/plan verifier's command line: ``python -m repro_torch.analysis [--quick]``.
+"""The static passes' command line: ``python -m repro_torch.analysis [--quick | --kernels]``.
 
 A copy of ``repro.analysis.__main__``: the same sections, cases, printed
 lines and exit code.
@@ -15,8 +15,9 @@ Runs the static passes over the built-in generator zoo and the planner:
 Prints one line per section and exits non-zero on any violation.
 ``--quick`` caps the realizability sweep at n=8 (it dominates runtime).
 
-``--kernels`` runs the reference's Pallas kernel analyzer there; the port
-has none until ROADMAP item 15, so here it prints why and exits 2.
+``--kernels`` runs the kernel lint (:mod:`repro_torch.analysis.kernel_lint`)
+over every route of the port's kernels at edge shapes and at the main
+paths' shapes: one ``clean`` line per case, exit 0 when all are.
 """
 
 from __future__ import annotations
@@ -81,11 +82,15 @@ def _section(name: str, failures: List[str], t0: float) -> bool:
 
 
 def run_kernels() -> int:
-    """The kernel-lint section: not ported (ROADMAP item 15); exits non-zero."""
-    from . import KERNEL_LINT_GAP
+    """Kernel-lint section: analyze every shipped case and main-path shape."""
+    from .kernel_lint import run_shipped
 
-    print(f"[verify] kernel lint: {KERNEL_LINT_GAP}", file=sys.stderr)
-    return 2
+    t0 = time.perf_counter()
+    failures = run_shipped(verbose=True)
+    ok = _section("kernel lint (the port's CUDA and Triton launches)",
+                  [f"{failures} failing case(s)"] if failures else [], t0)
+    print(f"[verify] {'PASS' if ok else 'FAIL'}")
+    return 0 if ok else 1
 
 
 def run(quick: bool = False) -> int:
@@ -164,7 +169,7 @@ def main(argv=None) -> int:
     ap.add_argument("--quick", action="store_true",
                     help="skip the n=16 realizability cases")
     ap.add_argument("--kernels", action="store_true",
-                    help="the Pallas kernel static analyzer: not ported (ROADMAP item 15)")
+                    help="the kernel lint over the port's CUDA and Triton launches")
     args = ap.parse_args(argv)
     if args.kernels:
         return run_kernels()

@@ -59,6 +59,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import sys
 import threading
 from collections import OrderedDict
 from dataclasses import dataclass
@@ -473,6 +474,54 @@ def execute_all_to_all_compact(
     return out[tables.rows, tables.final_slots]
 
 
+def expected_eager_result_shape(
+    collective: str, global_shape: Tuple[int, ...]
+) -> Tuple[int, ...]:
+    """Result shape of a collective on a rank-stacked ``(n, *local)`` operand.
+
+    Purely structural.  Row ``r`` of the result is rank ``r``'s local
+    output, so the leading axis is preserved and only the first local dim
+    scales: reduce-scatter splits it ``n`` ways, all-gather concatenates
+    ``n`` shards, all-reduce and all-to-all preserve it.
+    """
+    global_shape = tuple(int(d) for d in global_shape)
+    n = global_shape[0]
+    if collective in ("all_reduce", "all_to_all"):
+        return global_shape
+    if collective == "reduce_scatter":
+        if len(global_shape) < 2 or n <= 0 or global_shape[1] % n:
+            raise ScheduleExecutionError(
+                f"reduce_scatter: local leading dim of {global_shape} not "
+                f"divisible by axis size {n}"
+            )
+        return (n, global_shape[1] // n) + global_shape[2:]
+    if collective == "all_gather":
+        if len(global_shape) < 2:
+            raise ScheduleExecutionError(
+                f"all_gather: operand {global_shape} has no local dims"
+            )
+        return (n, global_shape[1] * n) + global_shape[2:]
+    raise ScheduleExecutionError(f"unknown collective {collective!r}")
+
+
+def donation_compatible(collective: str, global_shape: Tuple[int, ...]) -> bool:
+    """Could a collective write its result over its operand in place?
+
+    Only when their whole-array footprints coincide: the same
+    :class:`~repro_torch.analysis.launch_model.Box` model the kernel lint
+    uses, applied at the collective's boundary (the reference's verdicts).
+    The engine still copies its operand (``comm/primitives.py``); this is
+    the predicate an in-place path would consult.
+    """
+    from repro_torch.analysis.launch_model import whole_array_box  # lazy: no cycle
+
+    try:
+        out_shape = expected_eager_result_shape(collective, global_shape)
+    except ScheduleExecutionError:
+        return False
+    return whole_array_box(tuple(global_shape)) == whole_array_box(out_shape)
+
+
 # ------------------------------------------------- one process per rank
 
 
@@ -812,7 +861,13 @@ def exec_stats() -> ExecStats:
 
 
 def clear_exec_caches() -> None:
-    """Drop compiled and uploaded tables and zero all counters (tests)."""
+    """Drop compiled and uploaded tables and zero all counters (tests).
+
+    Also clears the ``PCCL_VERIFY=1`` per-launch kernel-lint memo
+    (``repro_torch.analysis.kernel_lint``), so tests that toggle the
+    variable see no stale verdict — but only when that module is already
+    loaded, as the reference does.
+    """
     global _FUSED_DISPATCHES, _FALLBACK_DISPATCHES
     global _CHUNKS_STREAMED, _BYTES_HIDDEN, _STAGED_BYTES
     _COMPILED.clear()
@@ -822,3 +877,6 @@ def clear_exec_caches() -> None:
         _CHUNKS_STREAMED = _BYTES_HIDDEN = 0
         _ROUTE_ROUNDS.clear()
         _STAGED_BYTES = 0
+    lint = sys.modules.get("repro_torch.analysis.kernel_lint")
+    if lint is not None:
+        lint.clear_verified_cache()

@@ -14,7 +14,9 @@ Nothing is built when a module is imported.
 
 :data:`LAUNCHES` counts each kernel's launches, by route, under a lock of
 its own: a wrapper records one where it launches its kernel and nowhere
-else.
+else.  :func:`verify_launch` is the ``PCCL_VERIFY=1`` gate every wrapper
+passes before its device check, and :func:`device_geometry` reads what a
+library's ``*_geometry`` export says a launch is given.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 SHARED_HEADERS = Path(__file__).resolve().parent / "csrc"
@@ -37,6 +39,10 @@ NVCC_FLAGS = (
 
 _LOCK = threading.Lock()
 _LOADED: Dict[Path, ctypes.CDLL] = {}
+
+
+GEOMETRY_ARGTYPES = [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+                     ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_longlong)]
 
 
 def nvcc_path() -> str:
@@ -93,6 +99,35 @@ def load(source: Path) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build(source)))
             _LOADED[source] = lib
         return lib
+
+
+def device_geometry(fn, *dims: int) -> Dict[str, Any]:
+    """What a ``*_geometry`` export of a built library says the launch for
+    ``dims`` is given: ``grid`` (x, y, z), ``threads``, ``smem`` (dynamic
+    bytes), and from ``cudaFuncGetAttributes`` the kernel's ``static_smem``
+    and ``max_threads``.  Host only, but it needs the card's runtime."""
+    grid = (ctypes.c_int * 3)()
+    threads = ctypes.c_int()
+    smem = ctypes.c_longlong()
+    attrs = (ctypes.c_longlong * 2)()
+    err = fn(*dims, grid, ctypes.byref(threads), ctypes.byref(smem), attrs)
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__}{dims}: error {err}")
+    return {"grid": tuple(grid), "threads": threads.value, "smem": smem.value,
+            "static_smem": attrs[0], "max_threads": attrs[1]}
+
+
+def verify_launch(label: str, wrapper, args: Sequence[Any],
+                  kwargs: Optional[Dict[str, Any]] = None) -> None:
+    """The ``PCCL_VERIFY=1`` gate of a kernel wrapper: with the variable
+    set, the kernel lint proves the launch model of ``wrapper(*args,
+    **kwargs)`` (memoized by shapes, dtypes and statics) and raises
+    :class:`~repro_torch.analysis.kernel_lint.KernelLintError` before
+    anything is launched.  Read as ``compile_schedule`` reads it."""
+    if os.environ.get("PCCL_VERIFY", "0") not in ("", "0"):
+        from repro_torch.analysis.kernel_lint import verify_entry_point
+
+        verify_entry_point(label, wrapper, args, kwargs)
 
 
 class LaunchCounts:

@@ -33,6 +33,10 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "../../csrc/geometry.cuh"
+
 namespace {
 
 constexpr int BQ = 64;
@@ -201,15 +205,31 @@ size_t smem_bytes(int D) {
                           (size_t)BQ * PP);
 }
 
+// The launch: one block per (b * H + h, 64-row q tile).
+geometry::Launch launch_geometry(int B, int S, int H, int D) {
+  return {dim3(B * H, (S + BQ - 1) / BQ), THREADS, (int)smem_bytes(D)};
+}
+
+// f(std::integral_constant<int, DJ>) for the accumulator width DJ of head dim
+// D <= 128 (ceil(D / 16), rounded up to an instantiated width).
+template <typename F>
+int with_dj(int D, F&& f) {
+  if (D <= 16) return f(std::integral_constant<int, 1>());
+  if (D <= 32) return f(std::integral_constant<int, 2>());
+  if (D <= 64) return f(std::integral_constant<int, 4>());
+  if (D <= 80) return f(std::integral_constant<int, 5>());
+  if (D <= 128) return f(std::integral_constant<int, 8>());
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <typename T, int DJ>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int T_, int H,
            int K, int D, int causal, float sm_scale, void* stream) {
-  const size_t smem = smem_bytes(D);
+  const geometry::Launch g = launch_geometry(B, S, H, D);
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, DJ>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(B * H, (S + BQ - 1) / BQ);
-  flash_fwd_kernel<T, DJ><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  flash_fwd_kernel<T, DJ><<<g.grid, g.threads, g.smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), S, T_, H, K, D, causal, sm_scale);
   return static_cast<int>(cudaGetLastError());
@@ -218,12 +238,19 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o, int B, int S, int T_, int H,
              int K, int D, int causal, float sm_scale, void* stream) {
-  if (D <= 16) return launch<T, 1>(q, k, v, o, B, S, T_, H, K, D, causal, sm_scale, stream);
-  if (D <= 32) return launch<T, 2>(q, k, v, o, B, S, T_, H, K, D, causal, sm_scale, stream);
-  if (D <= 64) return launch<T, 4>(q, k, v, o, B, S, T_, H, K, D, causal, sm_scale, stream);
-  if (D <= 80) return launch<T, 5>(q, k, v, o, B, S, T_, H, K, D, causal, sm_scale, stream);
-  if (D <= 128) return launch<T, 8>(q, k, v, o, B, S, T_, H, K, D, causal, sm_scale, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return with_dj(D, [&](auto dj) {
+    return launch<T, decltype(dj)::value>(q, k, v, o, B, S, T_, H, K, D, causal, sm_scale, stream);
+  });
+}
+
+template <typename T>
+int geometry_of(int B, int S, int H, int D, int* grid3, int* threads, long long* smem,
+                long long* attrs) {
+  return with_dj(D, [&](auto dj) {
+    return geometry::export_launch(launch_geometry(B, S, H, D),
+                                   flash_fwd_kernel<T, decltype(dj)::value>, grid3, threads, smem,
+                                   attrs);
+  });
 }
 
 }  // namespace
@@ -237,5 +264,15 @@ extern "C" int pccl_flash_fwd(int dtype, const void* q, const void* k, const voi
   if (dtype == 0) return dispatch<float>(q, k, v, o, B, S, T, H, K, D, causal, sm_scale, stream);
   if (dtype == 1)
     return dispatch<__nv_bfloat16>(q, k, v, o, B, S, T, H, K, D, causal, sm_scale, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// What pccl_flash_fwd launches for q (B,S,H,D) in dtype: grid, threads,
+// dynamic smem and (attrs, may be null) the kernel's static smem and thread
+// limit.
+extern "C" int pccl_flash_fwd_geometry(int dtype, int B, int S, int H, int D, int* grid3,
+                                       int* threads, long long* smem, long long* attrs) {
+  if (dtype == 0) return geometry_of<float>(B, S, H, D, grid3, threads, smem, attrs);
+  if (dtype == 1) return geometry_of<__nv_bfloat16>(B, S, H, D, grid3, threads, smem, attrs);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -41,6 +41,7 @@
 // 64-column blocks of an MN-major operand).  Ragged S and T arrive as zeros
 // from TMA, are masked in the scores, and are not stored.
 
+#include "../../csrc/geometry.cuh"
 #include "../../csrc/sm90.cuh"
 
 namespace {
@@ -207,10 +208,9 @@ __device__ __forceinline__ void wgmma_rs_tb1<128>(float* d, const uint32_t* a, u
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// NB = 64-column boxes per row of D (1 for D <= 64, else 2)
-template <int NB>
-constexpr int smem_bytes() {
-  return 1024 + NB * BOX_BYTES /* Q */ + 2 * (2 * NB * BOX_BYTES) /* 2 stages of K, V */ + 5 * 8;
+// nb = 64-column boxes per row of D (1 for D <= 64, else 2)
+constexpr int smem_bytes(int nb) {
+  return 1024 + nb * BOX_BYTES /* Q */ + 2 * (2 * nb * BOX_BYTES) /* 2 stages of K, V */ + 5 * 8;
 }
 
 template <int D>
@@ -396,10 +396,14 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constan
   }
 }
 
+// The launch: one block per (b * H + h, 128-row q tile).
+geometry::Launch launch_geometry(int B, int S, int H, int D) {
+  return {dim3(B * H, (S + BQ - 1) / BQ), THREADS, smem_bytes((D + 63) / 64)};
+}
+
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int T, int H,
            int K, int causal, float sm_scale, void* stream) {
-  constexpr int NB = (D + 63) / 64;
   CUtensorMap qmap, kmap, vmap;
   const cuuint32_t box[4] = {64, 1, BQ, 1};  // BQ == BKV
   const cuuint64_t qdims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
@@ -412,13 +416,12 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
   if (err == 0) err = make_map_bf16(&kmap, k, 4, kdims, kstrides, box);
   if (err == 0) err = make_map_bf16(&vmap, v, 4, kdims, kstrides, box);
   if (err != 0) return err;
-  constexpr int smem = smem_bytes<NB>();
+  const geometry::Launch g = launch_geometry(B, S, H, D);
   cudaError_t e = cudaFuncSetAttribute(flash_sm90_kernel<D>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const float log2e = 1.4426950408889634f;
-  dim3 grid(B * H, (S + BQ - 1) / BQ);
-  flash_sm90_kernel<D><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  flash_sm90_kernel<D><<<g.grid, g.threads, g.smem, static_cast<cudaStream_t>(stream)>>>(
       qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), S, T, H, K, causal, sm_scale * log2e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -435,6 +438,29 @@ extern "C" int pccl_flash_fwd_sm90(const void* q, const void* k, const void* v, 
 #define PCCL_FLASH_D(d) \
   case d:               \
     return launch<d>(q, k, v, o, B, S, T, H, K, causal, sm_scale, stream);
+  switch (D) {
+    PCCL_FLASH_D(16)
+    PCCL_FLASH_D(32)
+    PCCL_FLASH_D(48)
+    PCCL_FLASH_D(64)
+    PCCL_FLASH_D(80)
+    PCCL_FLASH_D(96)
+    PCCL_FLASH_D(112)
+    PCCL_FLASH_D(128)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef PCCL_FLASH_D
+}
+
+// What pccl_flash_fwd_sm90 launches for q (B,S,H,D): grid, threads, dynamic
+// smem and (attrs, may be null) the kernel's static smem and thread limit.
+extern "C" int pccl_flash_fwd_sm90_geometry(int B, int S, int H, int D, int* grid3, int* threads,
+                                            long long* smem, long long* attrs) {
+  const geometry::Launch g = launch_geometry(B, S, H, D);
+#define PCCL_FLASH_D(d) \
+  case d:               \
+    return geometry::export_launch(g, flash_sm90_kernel<d>, grid3, threads, smem, attrs);
   switch (D) {
     PCCL_FLASH_D(16)
     PCCL_FLASH_D(32)

@@ -24,10 +24,11 @@ from __future__ import annotations
 import ctypes
 import math
 from pathlib import Path
+from typing import Optional
 
 import torch
 
-from repro_torch.kernels.build import LAUNCHES
+from repro_torch.kernels.build import GEOMETRY_ARGTYPES, LAUNCHES, verify_launch
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash.cu"
 SOURCE_SM90 = Path(__file__).resolve().parent / "csrc" / "flash_sm90.cu"
@@ -82,18 +83,29 @@ def _library(route: str) -> ctypes.CDLL:
     lib = load(SOURCES[route])
     ints = [ctypes.c_int] * 7  # B, S, T, H, K, D, causal
     ptrs = [ctypes.c_void_p] * 4  # q, k, v, o
+    dims = [ctypes.c_int] * 4  # B, S, H, D
     if route == "wgmma":
         fn = lib.pccl_flash_fwd_sm90
         fn.argtypes = [*ptrs, *ints, ctypes.c_float, ctypes.c_void_p]
+        geometry = lib.pccl_flash_fwd_sm90_geometry
+        geometry.argtypes = [*dims, *GEOMETRY_ARGTYPES]
     else:
         fn = lib.pccl_flash_fwd
         fn.argtypes = [ctypes.c_int, *ptrs, *ints, ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+        geometry = lib.pccl_flash_fwd_geometry
+        geometry.argtypes = [ctypes.c_int, *dims, *GEOMETRY_ARGTYPES]
+    fn.restype = geometry.restype = ctypes.c_int
     return lib
 
 
+def flash_route(dtype: torch.dtype, D: int) -> str:
+    """The kernel :func:`flash_attention_cuda` launches: ``"wgmma"`` or ``"fma"``."""
+    return "wgmma" if tensor_core_route(dtype, D) else "fma"
+
+
 def flash_attention_cuda(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+    out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Softmax attention of q over k, v by a CUDA kernel, output in ``q.dtype``.
 
@@ -101,9 +113,12 @@ def flash_attention_cuda(
     device, with head dim D <= 128, and raises on anything else; it never
     computes on another path.  The route is :func:`tensor_core_route`'s; on
     the tensor-core route q, k and v must also start on 16 bytes (TMA),
-    else it raises.
+    else it raises.  ``out`` (optional, contiguous, like ``q``) receives
+    the result.
     """
     check_operands(q, k, v, causal=causal)
+    route = flash_route(q.dtype, q.shape[3])
+    verify_launch(f"flash:{route}", flash_attention_cuda, (q, k, v), {"causal": causal})
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(
             f"flash_attention_cuda: need q, k, v on one CUDA device, got "
@@ -117,11 +132,14 @@ def flash_attention_cuda(
         raise ValueError(f"flash_attention_cuda: head dim {D} > {MAX_HEAD_DIM}")
     if max(B * H, S, T) > _INT32_MAX:
         raise ValueError(f"flash_attention_cuda: dims {(B, S, H, T)} exceed int32")
-    route = "wgmma" if tensor_core_route(q.dtype, D) else "fma"
     if route == "wgmma" and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention_cuda: the tensor-core route needs 16-byte aligned q, k, v")
     lib = _library(route)
-    out = torch.empty_like(q)
+    if out is None:
+        out = torch.empty_like(q)
+    elif (out.shape != q.shape or out.dtype != q.dtype or out.device != q.device
+          or not out.is_contiguous() or (route == "wgmma" and out.data_ptr() % 4)):
+        raise ValueError("flash_attention_cuda: out must be a contiguous tensor like q")
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             B, S, T, H, K, D, int(causal), 1.0 / math.sqrt(D))
     with torch.cuda.device(q.device):

@@ -27,6 +27,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "../../csrc/geometry.cuh"
+
 namespace {
 
 constexpr int BM = 128;
@@ -34,7 +36,8 @@ constexpr int BN = 128;
 constexpr int BK = 8;
 constexpr int TM = 8;
 constexpr int TN = 8;
-constexpr int THREADS = (BM / TM) * (BN / TN);  // 256
+constexpr int THREADS = 256;
+static_assert(THREADS == (BM / TM) * (BN / TN), "one thread per 8x8 register tile");
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -109,10 +112,15 @@ matmul_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ 
   }
 }
 
+// The launch: one block per 128x128 output tile, (row tile, column tile).
+geometry::Launch launch_geometry(int M, int N) {
+  return {dim3((M + BM - 1) / BM, (N + BN - 1) / BN), THREADS, 0};
+}
+
 template <typename T>
 int launch(const void* x, const void* w, void* out, int M, int N, int K, void* stream) {
-  dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
-  matmul_kernel<T><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  const geometry::Launch g = launch_geometry(M, N);
+  matmul_kernel<T><<<g.grid, g.threads, g.smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(out), M, N, K);
   return static_cast<int>(cudaGetLastError());
 }
@@ -125,5 +133,16 @@ extern "C" int pccl_matmul(int dtype, const void* x, const void* w, void* out,
                            int M, int N, int K, void* stream) {
   if (dtype == 0) return launch<float>(x, w, out, M, N, K, stream);
   if (dtype == 1) return launch<__nv_bfloat16>(x, w, out, M, N, K, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// What pccl_matmul launches for (M, N) in dtype: grid, threads, dynamic
+// smem and (attrs, may be null) the kernel's static smem and thread limit.
+extern "C" int pccl_matmul_geometry(int dtype, int M, int N, int* grid3, int* threads,
+                                    long long* smem, long long* attrs) {
+  const geometry::Launch g = launch_geometry(M, N);
+  if (dtype == 0) return geometry::export_launch(g, matmul_kernel<float>, grid3, threads, smem, attrs);
+  if (dtype == 1)
+    return geometry::export_launch(g, matmul_kernel<__nv_bfloat16>, grid3, threads, smem, attrs);
   return static_cast<int>(cudaErrorInvalidValue);
 }

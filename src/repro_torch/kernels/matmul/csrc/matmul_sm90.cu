@@ -34,6 +34,7 @@
 // whole-M call.  TMA zero-fills the ragged edges of loads; stores are
 // masked at the ragged M and N edges.
 
+#include "../../csrc/geometry.cuh"
 #include "../../csrc/sm90.cuh"
 
 namespace {
@@ -195,6 +196,11 @@ matmul_sm90_kernel(const __grid_constant__ CUtensorMap xmap,
   }
 }
 
+// The launch: one block per 128x256 output tile, the tiles of the raster above.
+geometry::Launch launch_geometry(int M, int N) {
+  return {dim3(((M + BM - 1) / BM) * ((N + BN - 1) / BN)), THREADS, SMEM_BYTES};
+}
+
 }  // namespace
 
 // Plain C interface for ctypes: bf16 x (M,K) @ w (K,N) -> out (M,N), all
@@ -214,11 +220,19 @@ extern "C" int pccl_matmul_sm90(const void* x, const void* w, void* out, int M, 
   if (err != 0) return err;
   err = make_map_bf16(&wmap, w, 2, wdims, wstrides, wbox);
   if (err != 0) return err;
+  const geometry::Launch g = launch_geometry(M, N);
   cudaError_t e = cudaFuncSetAttribute(matmul_sm90_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int tiles = ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
-  matmul_sm90_kernel<<<tiles, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+  matmul_sm90_kernel<<<g.grid, g.threads, g.smem, static_cast<cudaStream_t>(stream)>>>(
       xmap, wmap, static_cast<__nv_bfloat16*>(out), M, N, K);
   return static_cast<int>(cudaGetLastError());
+}
+
+// What pccl_matmul_sm90 launches for (M, N): grid, threads, dynamic smem
+// and (attrs, may be null) the kernel's static smem and thread limit.
+extern "C" int pccl_matmul_sm90_geometry(int M, int N, int* grid3, int* threads, long long* smem,
+                                         long long* attrs) {
+  return geometry::export_launch(launch_geometry(M, N), matmul_sm90_kernel, grid3, threads, smem,
+                                 attrs);
 }

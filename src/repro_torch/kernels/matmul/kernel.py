@@ -23,10 +23,11 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
+from typing import Optional
 
 import torch
 
-from repro_torch.kernels.build import LAUNCHES
+from repro_torch.kernels.build import GEOMETRY_ARGTYPES, LAUNCHES, verify_launch
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "matmul.cu"
 SOURCE_SM90 = Path(__file__).resolve().parent / "csrc" / "matmul_sm90.cu"
@@ -79,23 +80,32 @@ def _library(route: str) -> ctypes.CDLL:
         fn = lib.pccl_matmul_sm90
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        geometry = lib.pccl_matmul_sm90_geometry
+        geometry.argtypes = [ctypes.c_int, ctypes.c_int, *GEOMETRY_ARGTYPES]  # M, N
     else:
         fn = lib.pccl_matmul
         fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+        geometry = lib.pccl_matmul_geometry
+        geometry.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, *GEOMETRY_ARGTYPES]
+    fn.restype = geometry.restype = ctypes.c_int
     return lib
 
 
-def matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def matmul_cuda(
+    x: torch.Tensor, w: torch.Tensor, *, out: Optional[torch.Tensor] = None
+) -> torch.Tensor:
     """``x @ w`` by a CUDA kernel: fp32 accumulation, output in ``x.dtype``.
 
     Takes contiguous CUDA tensors of one dtype (float32 or bfloat16) on one
     device and raises on anything else; it never computes on another path.
     The route is :func:`tensor_core_route`'s; on the tensor-core route the
-    operands must also start on 16 bytes (TMA), else it raises.
+    operands must also start on 16 bytes (TMA), else it raises.  ``out``
+    (optional, contiguous ``(M, N)`` in ``x.dtype``) receives the result.
     """
     check_operands(x, w)
+    route = matmul_route(x.shape, w.shape, x.dtype)
+    verify_launch(f"matmul:{route}", matmul_cuda, (x, w))
     if x.device.type != "cuda" or w.device != x.device:
         raise ValueError(
             f"matmul_cuda: need both operands on one CUDA device, got "
@@ -107,11 +117,15 @@ def matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     N = w.shape[1]
     if max(M, N, K) > _INT32_MAX:
         raise ValueError(f"matmul_cuda: dims {(M, K, N)} exceed int32")
-    route = matmul_route(x.shape, w.shape, x.dtype)
     if route == "wgmma" and (x.data_ptr() % 16 or w.data_ptr() % 16):
         raise ValueError("matmul_cuda: the tensor-core route needs 16-byte aligned operands")
     lib = _library(route)
-    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    if out is None:
+        out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    elif (tuple(out.shape) != (M, N) or out.dtype != x.dtype or out.device != x.device
+          or not out.is_contiguous() or (route == "wgmma" and out.data_ptr() % 4)):
+        raise ValueError(f"matmul_cuda: out must be a contiguous ({M}, {N}) {x.dtype} tensor "
+                         f"on {x.device}")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if route == "wgmma":

@@ -20,11 +20,11 @@ counts its launches under ``"rmsnorm"`` (route ``"triton"``).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.build import LAUNCHES
+from repro_torch.kernels.build import LAUNCHES, verify_launch
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -76,6 +76,15 @@ def _next_pow2(v: int) -> int:
     return 1 << (v - 1).bit_length()
 
 
+def launch_geometry(rows: int, d: int) -> Tuple[Tuple[int], int, int]:
+    """What :func:`rmsnorm_triton` launches for ``rows`` rows of ``d``:
+    the grid (one program per row), ``BLOCK`` (the row, masked to a power
+    of two) and ``num_warps``.  The kernel lint's launch model reads the
+    same function."""
+    block = _next_pow2(d)
+    return (rows,), block, max(1, min(16, block // 1024))
+
+
 def rmsnorm_triton(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -91,6 +100,7 @@ def rmsnorm_triton(
     before it writes it.
     """
     check_operands(x, w)
+    verify_launch("rmsnorm:triton", rmsnorm_triton, (x, w), {"eps": eps})
     if x.device.type != "cuda" or w.device != x.device:
         raise ValueError(
             f"rmsnorm_triton: need x and w on one CUDA device, got {x.device} "
@@ -104,13 +114,9 @@ def rmsnorm_triton(
           or not out.is_contiguous()):
         raise ValueError("rmsnorm_triton: out must be a contiguous tensor like x")
     d = x.shape[-1]
-    rows = x.numel() // d
-    block = _next_pow2(d)
+    grid, block, num_warps = launch_geometry(x.numel() // d, d)
     kernel = _jit()
     with torch.cuda.device(x.device):
-        kernel[(rows,)](
-            x, w, out, d, float(eps), BLOCK=block,
-            num_warps=max(1, min(16, block // 1024)),
-        )
+        kernel[grid](x, w, out, d, float(eps), BLOCK=block, num_warps=num_warps)
     LAUNCHES.record("rmsnorm", "triton")
     return out

@@ -319,31 +319,60 @@ size_t outputs_smem(int P, int N, int L) {
          (2 * (size_t)L + (size_t)L * w.pt + w.lt * LP + w.lt * NP + w.pt * NP);
 }
 
+// The launches of passes 1 (states) and 3 (outputs): one block per (b, h,
+// chunk) and P-tile, pass 1 with one more per chunk for the scores.
+geometry::Launch states_geometry(int B, int S, int H, int P, int N, int L) {
+  const int nc = (S + L - 1) / L;
+  const Widths w(P, N, L);
+  return {dim3(B * H * nc * (w.ptiles + 1)), THREADS, (int)states_smem(P, N, L)};
+}
+
+geometry::Launch outputs_geometry(int B, int S, int H, int P, int N, int L) {
+  const int nc = (S + L - 1) / L;
+  const Widths w(P, N, L);
+  return {dim3(B * H * nc * w.ptiles), THREADS, (int)outputs_smem(P, N, L)};
+}
+
 template <typename T>
 int launch(const void* X, const float* la, const void* Bm, const void* Cm, const float* init,
            void* Y, void* fin, float* states, float* totals, float* before, float* scores, int B,
            int S, int H, int P, int N, int L, int bc_per_head, cudaStream_t stream) {
   const int nc = (S + L - 1) / L;
-  const Widths w(P, N, L);
-  const size_t smem1 = states_smem(P, N, L), smem3 = outputs_smem(P, N, L);
+  const geometry::Launch g1 = states_geometry(B, S, H, P, N, L);
+  const geometry::Launch g3 = outputs_geometry(B, S, H, P, N, L);
   cudaError_t err = cudaFuncSetAttribute(ssd_states_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, g1.smem);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(ssd_outputs_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem3);
+                               g3.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const T* x = static_cast<const T*>(X);
   const T* bm = static_cast<const T*>(Bm);
   const T* cm = static_cast<const T*>(Cm);
-  ssd_states_kernel<T><<<B * H * nc * (w.ptiles + 1), THREADS, smem1, stream>>>(
+  ssd_states_kernel<T><<<g1.grid, g1.threads, g1.smem, stream>>>(
       x, la, bm, cm, states, totals, scores, S, H, P, N, L, nc, bc_per_head);
   int e = static_cast<int>(cudaGetLastError());
   if (e != 0) return e;
   e = launch_recurrence<float, T>(states, totals, init, before, fin, B * H, nc, P * N, stream);
   if (e != 0) return e;
-  ssd_outputs_kernel<T><<<B * H * nc * w.ptiles, THREADS, smem3, stream>>>(
+  ssd_outputs_kernel<T><<<g3.grid, g3.threads, g3.smem, stream>>>(
       x, la, cm, scores, before, static_cast<T*>(Y), S, H, P, N, L, nc, bc_per_head);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int geometry_of(int pass, int B, int S, int H, int P, int N, int L, int* grid3, int* threads,
+                long long* smem, long long* attrs) {
+  if (pass == 1)
+    return geometry::export_launch(states_geometry(B, S, H, P, N, L), ssd_states_kernel<T>, grid3,
+                                   threads, smem, attrs);
+  if (pass == 2)
+    return geometry::export_launch(recurrence_geometry(B * H, P * N),
+                                   ssd_recurrence_kernel<float, T>, grid3, threads, smem, attrs);
+  if (pass == 3)
+    return geometry::export_launch(outputs_geometry(B, S, H, P, N, L), ssd_outputs_kernel<T>,
+                                   grid3, threads, smem, attrs);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -379,5 +408,16 @@ extern "C" int pccl_ssd(int dtype, const void* X, const void* la, const void* Bm
   if (dtype == 1)
     return launch<__nv_bfloat16>(X, laf, Bm, Cm, initf, Y, fin, st, tot, rb, sc, B, S, H, P, N,
                                  L, bc_per_head, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// What pass `pass` (1 states, 2 recurrence, 3 outputs) of pccl_ssd launches
+// for dtype and X (B,S,H,P), N, chunk L: grid, threads, dynamic smem and
+// (attrs, may be null) the kernel's static smem and thread limit.
+extern "C" int pccl_ssd_geometry(int dtype, int pass, int B, int S, int H, int P, int N, int L,
+                                 int* grid3, int* threads, long long* smem, long long* attrs) {
+  if (dtype == 0) return geometry_of<float>(pass, B, S, H, P, N, L, grid3, threads, smem, attrs);
+  if (dtype == 1)
+    return geometry_of<__nv_bfloat16>(pass, B, S, H, P, N, L, grid3, threads, smem, attrs);
   return static_cast<int>(cudaErrorInvalidValue);
 }

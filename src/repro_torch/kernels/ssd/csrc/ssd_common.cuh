@@ -16,6 +16,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "../../csrc/geometry.cuh"
+
 namespace ssd {
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -119,12 +121,17 @@ ssd_recurrence_kernel(const float* __restrict__ states, const float* __restrict_
   fin[i] = from_f32<FT>(R);
 }
 
+// Pass 2's launch: one thread per element of the BH states of PN elements.
+inline geometry::Launch recurrence_geometry(int BH, int PN) {
+  const int64_t n = (int64_t)BH * PN;
+  return {dim3((unsigned)((n + RECURRENCE_THREADS - 1) / RECURRENCE_THREADS)), RECURRENCE_THREADS, 0};
+}
+
 template <typename RT, typename FT>
 int launch_recurrence(const float* states, const float* totals, const float* init, void* before,
                       void* fin, int BH, int nc, int PN, cudaStream_t stream) {
-  const int64_t n = (int64_t)BH * PN;
-  const int blocks = (int)((n + RECURRENCE_THREADS - 1) / RECURRENCE_THREADS);
-  ssd_recurrence_kernel<RT, FT><<<blocks, RECURRENCE_THREADS, 0, stream>>>(
+  const geometry::Launch g = recurrence_geometry(BH, PN);
+  ssd_recurrence_kernel<RT, FT><<<g.grid, g.threads, g.smem, stream>>>(
       states, totals, init, static_cast<RT*>(before), static_cast<FT*>(fin), BH, nc, PN);
   return static_cast<int>(cudaGetLastError());
 }

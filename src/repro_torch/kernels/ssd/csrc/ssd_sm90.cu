@@ -298,6 +298,15 @@ ssd_outputs_sm90_kernel(const __grid_constant__ CUtensorMap xmap,
   }
 }
 
+// The launches of passes 1 (states) and 3 (outputs): one block per (b, h, chunk).
+geometry::Launch states_geometry(int B, int S, int H) {
+  return {dim3(B * H * ((S + L - 1) / L)), THREADS, STATES_SMEM};
+}
+
+geometry::Launch outputs_geometry(int B, int S, int H) {
+  return {dim3(B * H * ((S + L - 1) / L)), THREADS, OUTPUTS_SMEM};
+}
+
 }  // namespace
 
 // Plain C interface for ctypes.  bf16 X and Y (B,S,H,64), B and C (B,S,64)
@@ -334,26 +343,44 @@ extern "C" int pccl_ssd_sm90(const void* X, const void* la, const void* Bm, cons
   }
   if (err == 0) err = make_map_bf16(&rmap, before, 2, rdims, rstrides, box2);
   if (err != 0) return err;
+  const geometry::Launch g1 = states_geometry(B, S, H), g3 = outputs_geometry(B, S, H);
   cudaError_t e = cudaFuncSetAttribute(ssd_states_sm90_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, STATES_SMEM);
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, g1.smem);
   if (e == cudaSuccess) {
     e = cudaFuncSetAttribute(ssd_outputs_sm90_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             OUTPUTS_SMEM);
+                             g3.smem);
   }
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int blocks = B * H * nc;
   const float* laf = static_cast<const float*>(la);
   float* st = static_cast<float*>(states);
   float* tot = static_cast<float*>(totals);
-  ssd_states_sm90_kernel<<<blocks, THREADS, STATES_SMEM, s>>>(xmap, bmap, laf, st, tot, S, H, nc,
-                                                              bc_per_head);
+  ssd_states_sm90_kernel<<<g1.grid, g1.threads, g1.smem, s>>>(xmap, bmap, laf, st, tot, S, H, nc,
+                                                               bc_per_head);
   int r = static_cast<int>(cudaGetLastError());
   if (r != 0) return r;
   r = launch_recurrence<__nv_bfloat16, __nv_bfloat16>(st, tot, static_cast<const float*>(init),
                                                       before, fin, B * H, nc, 64 * 64, s);
   if (r != 0) return r;
-  ssd_outputs_sm90_kernel<<<blocks, THREADS, OUTPUTS_SMEM, s>>>(
+  ssd_outputs_sm90_kernel<<<g3.grid, g3.threads, g3.smem, s>>>(
       xmap, bmap, cmap, rmap, laf, static_cast<__nv_bfloat16*>(Y), S, H, nc, bc_per_head);
   return static_cast<int>(cudaGetLastError());
+}
+
+// What pass `pass` (1 states, 2 recurrence, 3 outputs) of pccl_ssd_sm90
+// launches for X (B,S,H,64): grid, threads, dynamic smem and (attrs, may be
+// null) the kernel's static smem and thread limit.
+extern "C" int pccl_ssd_sm90_geometry(int pass, int B, int S, int H, int* grid3, int* threads,
+                                      long long* smem, long long* attrs) {
+  if (pass == 1)
+    return geometry::export_launch(states_geometry(B, S, H), ssd_states_sm90_kernel, grid3,
+                                   threads, smem, attrs);
+  if (pass == 2)
+    return geometry::export_launch(recurrence_geometry(B * H, 64 * 64),
+                                   ssd_recurrence_kernel<__nv_bfloat16, __nv_bfloat16>, grid3,
+                                   threads, smem, attrs);
+  if (pass == 3)
+    return geometry::export_launch(outputs_geometry(B, S, H), ssd_outputs_sm90_kernel, grid3,
+                                   threads, smem, attrs);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

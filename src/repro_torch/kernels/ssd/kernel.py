@@ -30,11 +30,11 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.build import LAUNCHES
+from repro_torch.kernels.build import GEOMETRY_ARGTYPES, LAUNCHES, verify_launch
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd.cu"
 SOURCE_SM90 = Path(__file__).resolve().parent / "csrc" / "ssd_sm90.cu"
@@ -88,6 +88,8 @@ def _library(route: str) -> ctypes.CDLL:
     if route == "wgmma":
         fn = lib.pccl_ssd_sm90
         fn.argtypes = [*ptrs, *[ctypes.c_int] * 4, ctypes.c_void_p]  # B, S, H, bc_per_head
+        geometry = lib.pccl_ssd_sm90_geometry
+        geometry.argtypes = [*[ctypes.c_int] * 4, *GEOMETRY_ARGTYPES]  # pass, B, S, H
     else:
         fn = lib.pccl_ssd
         # dtype, ptrs, scores, B, S, H, P, N, L, bc_per_head, stream
@@ -95,8 +97,30 @@ def _library(route: str) -> ctypes.CDLL:
                        ctypes.c_void_p]
         lib.pccl_ssd_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
         lib.pccl_ssd_smem_bytes.restype = ctypes.c_longlong
-    fn.restype = ctypes.c_int
+        geometry = lib.pccl_ssd_geometry
+        # dtype, pass, B, S, H, P, N, L
+        geometry.argtypes = [*[ctypes.c_int] * 8, *GEOMETRY_ARGTYPES]
+    fn.restype = geometry.restype = ctypes.c_int
     return lib
+
+
+def ssd_route(dtype: torch.dtype, P: int, N: int, chunk: int) -> str:
+    """The kernel :func:`ssd_cuda` launches: ``"wgmma"`` or ``"fma"``."""
+    return "wgmma" if tensor_core_route(dtype, P, N, chunk) else "fma"
+
+
+def buffers(X_shape, N: int, chunk: int, dtype: torch.dtype, route: str) -> Dict[str, tuple]:
+    """(shape, dtype) of every buffer one :func:`ssd_cuda` call writes, by
+    name: the outputs ``Y`` and ``fin`` and the passes' scratch (``scores``
+    on the fma route only)."""
+    B, S, H, P = X_shape
+    nc = -(-S // chunk)
+    out = {"Y": ((B, S, H, P), dtype), "fin": ((B, H, P, N), dtype),
+           "states": ((B, H, nc, P, N), torch.float32), "totals": ((B, H, nc), torch.float32),
+           "before": ((B, H, nc, P, N), dtype if route == "wgmma" else torch.float32)}
+    if route == "fma":
+        out["scores"] = ((B, H, nc, chunk, chunk), torch.float32)
+    return out
 
 
 def ssd_cuda(
@@ -107,6 +131,7 @@ def ssd_cuda(
     *,
     chunk: int = 64,
     initial_state: Optional[torch.Tensor] = None,
+    out: Optional[Dict[str, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(Y (B,S,H,P), final state (B,H,P,N)) by a CUDA kernel, both in ``X.dtype``.
 
@@ -115,9 +140,14 @@ def ssd_cuda(
     None) in float32.  The route is :func:`tensor_core_route`'s; on the
     tensor-core route X, B and C must also start on 16 bytes (TMA).  Raises
     on anything else, and when a launch fails; it never computes on another
-    path.
+    path.  ``out`` (optional) maps names of :func:`buffers` to contiguous
+    tensors of their shape and dtype, which the launch writes instead of
+    buffers of its own.
     """
     check_operands(X, la, Bm, Cm, chunk=chunk, initial_state=initial_state)
+    route = ssd_route(X.dtype, X.shape[3], Bm.shape[-1], chunk)
+    verify_launch(f"ssd:{route}", ssd_cuda, (X, la, Bm, Cm),
+                  {"chunk": chunk, "initial_state": initial_state})
     ops = [X, la, Bm, Cm] + ([initial_state] if initial_state is not None else [])
     if X.device.type != "cuda" or any(t.device != X.device for t in ops):
         raise ValueError(
@@ -139,7 +169,6 @@ def ssd_cuda(
     nc = -(-S // chunk)
     if max(B * H * nc * P, S * H * max(P, N)) > _INT32_MAX:
         raise ValueError(f"ssd_cuda: dims {(B, S, H, P, N)} exceed int32")
-    route = "wgmma" if tensor_core_route(X.dtype, P, N, chunk) else "fma"
     if route == "wgmma" and any(t.data_ptr() % 16 for t in (X, Bm, Cm)):
         raise ValueError("ssd_cuda: the tensor-core route needs 16-byte aligned X, B, C")
     lib = _library(route)
@@ -151,12 +180,20 @@ def ssd_cuda(
                 f"memory per block, over {SMEM_LIMIT}"
             )
     dev = X.device
-    Y = torch.empty_like(X)
-    fin = torch.empty((B, H, P, N), dtype=X.dtype, device=dev)
-    states = torch.empty((B, H, nc, P, N), dtype=torch.float32, device=dev)
-    totals = torch.empty((B, H, nc), dtype=torch.float32, device=dev)
-    before = torch.empty((B, H, nc, P, N), dtype=X.dtype if route == "wgmma" else torch.float32,
-                         device=dev)
+    given = dict(out or {})
+    bufs = {}
+    for name, (shape, dtype) in buffers(X.shape, N, chunk, X.dtype, route).items():
+        t = given.pop(name, None)
+        if t is None:
+            t = torch.empty(shape, dtype=dtype, device=dev)
+        elif (tuple(t.shape) != shape or t.dtype != dtype or t.device != dev
+              or not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"ssd_cuda: out[{name!r}] must be a contiguous, 16-byte aligned "
+                             f"{shape} {dtype} tensor on {dev}")
+        bufs[name] = t
+    if given:
+        raise ValueError(f"ssd_cuda: out has no buffer {sorted(given)} on the {route} route")
+    Y, fin, states, totals, before = (bufs[n] for n in ("Y", "fin", "states", "totals", "before"))
     ptrs = (X.data_ptr(), la.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
             initial_state.data_ptr() if initial_state is not None else None,
             Y.data_ptr(), fin.data_ptr(), states.data_ptr(), totals.data_ptr(), before.data_ptr())
@@ -165,9 +202,8 @@ def ssd_cuda(
         if route == "wgmma":
             err = lib.pccl_ssd_sm90(*ptrs, B, S, H, int(Bm.ndim == 4), stream)
         else:
-            scores = torch.empty((B, H, nc, chunk, chunk), dtype=torch.float32, device=dev)
-            err = lib.pccl_ssd(_DTYPES[X.dtype], *ptrs, scores.data_ptr(), B, S, H, P, N, chunk,
-                               int(Bm.ndim == 4), stream)
+            err = lib.pccl_ssd(_DTYPES[X.dtype], *ptrs, bufs["scores"].data_ptr(), B, S, H, P, N,
+                               chunk, int(Bm.ndim == 4), stream)
     if err != 0:
         raise RuntimeError(f"ssd_cuda: {route} kernel launch failed (error {err})")
     LAUNCHES.record("ssd", route)

@@ -925,3 +925,41 @@ def test_sharded_trainer_on_the_card_equals_one_process(dev, tmp_path):
         assert rank["launches"]["flash"]["fma"] > 0
     survivors = [r for r in ranks if not r["failed"]]
     assert len(survivors) == 2 and all(r["reshard_exact"] for r in survivors)
+
+
+# ------------------------------------------- the kernel lint's launch models
+
+def _lint_cases():
+    from repro_torch.analysis.kernel_lint import shipped_kernel_cases
+
+    return shipped_kernel_cases()
+
+
+@pytest.mark.parametrize("case", _lint_cases(), ids=lambda c: c[0])
+def test_launch_model_geometry_equals_the_library(dev, case):
+    """Each modelled launch's grid, threads and dynamic smem are what the
+    library's geometry export (its launcher's own function) reports, and its
+    static + dynamic smem fit the card's opt-in limit."""
+    from repro_torch.analysis.kernel_lint import DEFAULT_SMEM_BUDGET
+    from repro_torch.analysis.launch_probe import geometry_mismatches, materialize
+
+    label, fn, args, kwargs = case
+    optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    assert optin == DEFAULT_SMEM_BUDGET
+    g = torch.Generator(device=dev).manual_seed(0)
+    args, kwargs = materialize(torch, args, kwargs, dev, g)
+    sites, device, problems = geometry_mismatches(fn, args, kwargs, optin)
+    assert sites and not problems, problems
+
+
+@pytest.mark.parametrize("case", _lint_cases(), ids=lambda c: c[0])
+def test_launch_writes_every_output_element_and_no_guard(dev, case):
+    """The real kernel, launched into NaN-filled outputs between sentinel
+    guard bands, writes every element and touches no guard."""
+    from repro_torch.analysis.launch_probe import materialize, probe_outputs
+
+    label, fn, args, kwargs = case
+    g = torch.Generator(device=dev).manual_seed(1)
+    args, kwargs = materialize(torch, args, kwargs, dev, g)
+    for name, r in probe_outputs(torch, fn, args, kwargs).items():
+        assert r["unwritten"] == 0 and r["touched"] == 0, (label, name, r)

@@ -9,8 +9,8 @@ against the JAX package's, on the CPU.
 * ``examples/quickstart_torch.py`` at the reference's n = 128: the same
   plan lines.
 * ``python -m repro_torch.analysis --quick`` in a fresh process: the same
-  section lines as the reference's, timings aside; ``--kernels`` exits
-  non-zero citing ROADMAP item 15.
+  section lines as the reference's, timings aside; ``--kernels`` runs the
+  kernel lint: one ``clean`` line per case, exit 0.
 * ``python -m repro_torch.analysis.lint_concurrency``: 0 findings.
 * ``PcclComm``: its warning, its cold session, its plans equal to the
   reference's shim, its collectives bit-identical to the communicator's.
@@ -171,14 +171,23 @@ def test_analysis_cli_prints_the_reference_sections():
 
 
 def test_analysis_cli_kernels_is_not_ported():
-    rc, out, err = _run(["-m", "repro_torch.analysis", "--kernels"])
-    assert rc == 2 and "PASS" not in out
-    assert "ROADMAP item 15" in err
+    """``--kernels`` (the name dates from before the kernel lint was ported):
+    exit 0, one ``clean`` line per shipped case and main-path shape, the
+    lint's names resolve."""
     import repro_torch.analysis as analysis
+    from repro_torch.analysis import kernel_lint
 
+    rc, out, err = _run(["-m", "repro_torch.analysis", "--kernels"])
+    assert rc == 0, err
+    lines = out.splitlines()
+    cases = kernel_lint.shipped_kernel_cases() + kernel_lint.main_path_cases()
+    clean = [line for line in lines if line.startswith("[kernels] ")]
+    assert [line.split(": clean (")[0] for line in clean] == [
+        f"[kernels] {label}" for label, *_ in cases]
+    assert all(": clean (" in line for line in clean)
+    assert lines[-1] == "[verify] PASS"
     for name in ("KernelReport", "verify_entry_point", "whole_array_box", "capture_call_sites"):
-        with pytest.raises(AttributeError, match="ROADMAP item 15"):
-            getattr(analysis, name)
+        assert getattr(analysis, name).__module__.startswith("repro_torch.analysis.")
     assert analysis.lint_module.__module__ == "repro_torch.analysis.lint_concurrency"
 
 

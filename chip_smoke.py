@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py
 
-Builds the port's kernels from the sources in this checkout (K1, K3 and
-K4, two CUDA C++ routes each: the tensor-core kernels ``*_sm90.cu`` for
-bf16 and the CUDA-core kernels for fp32; one ``nvcc`` per source, all six
-started together; K2, the Triton RMSNorm, at first launch), shows what
+Builds the port's kernels from the sources in this checkout (K1 and K3
+two CUDA C++ routes each, K4 three: the tensor-core kernels ``*_sm90*.cu``
+for bf16 and the CUDA-core kernels for fp32; one ``nvcc`` per source, all
+seven started together; K2, the Triton RMSNorm, at first launch), shows what
 ``ptxas`` allotted the tensor-core kernels (registers, shared memory, no
 spills) and that their SASS holds ``HGMMA``, holds each kernel against its
 plain PyTorch version at the shapes its path gives it, checks which route
@@ -37,8 +37,8 @@ and then drives the port's main paths:
 
 5. serving xLSTM-1.3B at its published widths and depth (48 blocks: 6
    groups of 7 mLSTMs and one sLSTM, random weights from seed 0), the same
-   requests, whose prefill runs K4 on its CUDA-core route in each mLSTM
-   (P = 1024, N = 512: 42 launches) and the sLSTM as a loop over the
+   requests, whose prefill runs K4 on its tiled tensor-core route in each
+   mLSTM (P = 1024, N = 512: 42 launches) and the sLSTM as a loop over the
    steps, timed apart.
 
 6. serving Whisper-small at its published widths and depth (12 encoder
@@ -364,10 +364,14 @@ def bound(flops: float, nbytes: float, dtype: str):
 
 def expected_route(dtype_name: str, widths=(64, 64, 64)) -> str:
     """K1's, K3's and K4's route at the main-path shapes: the tensor cores
-    for bf16 (K, N and D are multiples of 16; K4 only at (P, N, chunk) =
-    ``widths`` all 64), the CUDA cores for fp32 and for K4's other widths
-    (the mLSTM's P = 1024, N = 512)."""
-    return "wgmma" if dtype_name == "bfloat16" and set(widths) == {64} else "fma"
+    for bf16 (K, N and D are multiples of 16), K4 on ``wgmma`` where its
+    (P, N, chunk) = ``widths`` are all 64 and on ``wgmma_tiled`` where the
+    chunk is 64 and P and N other multiples of 64 (the mLSTM's P = 1024, N
+    = 512); the CUDA cores for fp32 and for K4's other widths."""
+    P, N, chunk = widths
+    if dtype_name != "bfloat16" or chunk != 64 or P % 64 or N % 64:
+        return "fma"
+    return "wgmma" if P == N == 64 else "wgmma_tiled"
 
 
 def ssd_widths(cfg) -> tuple:
@@ -383,7 +387,7 @@ def ssd_widths(cfg) -> tuple:
 
 def ptxas_summary(source) -> list:
     """Registers, shared memory and spills ``ptxas -v`` reported for each
-    tensor-core kernel (``*sm90_kernel*``) of ``source``'s build."""
+    tensor-core kernel (``*sm90*_kernel*``) of ``source``'s build."""
     from repro_torch.kernels import build
 
     rows, name, props = [], None, {}
@@ -404,7 +408,7 @@ def ptxas_summary(source) -> list:
             props["registers"] = int(m.group(1))
             sm = re.search(r"(\d+) bytes smem", line)
             props["static_smem"] = int(sm.group(1)) if sm else 0
-    return [r for r in rows if "sm90_kernel" in r["entry"]]
+    return [r for r in rows if re.search(r"sm90\w*_kernel", r["entry"])]
 
 
 def sass_count(source, opcode: str) -> int:
@@ -617,17 +621,18 @@ def ssd_pass_bytes(X, la, Bm, chunk: int, route: str) -> dict:
     """Bytes each of K4's passes must move at these operands (each read
     once, each write once): states reads X, B, la and writes the fp32 chunk
     states and totals; recurrence reads those and the fp32 initial state and
-    writes the states before each chunk (bf16 on the wgmma route, fp32 on
-    fma) and the final state; outputs reads X, B, C, la and the states
-    before each chunk, and writes Y.  On the fma route the masked C Bᵀ
-    scores move from outputs to states: states also reads C and writes the
-    fp32 (B, H, nc, L, L) scores, which outputs reads in place of B."""
+    writes the states before each chunk (bf16 on the wgmma route, a bf16 hi
+    + lo pair on wgmma_tiled, fp32 on fma) and the final state; outputs
+    reads X, B, C, la and the states before each chunk, and writes Y.  On
+    the fma route the masked C Bᵀ scores move from outputs to states:
+    states also reads C and writes the fp32 (B, H, nc, L, L) scores, which
+    outputs reads in place of B."""
     B, S, H, P = X.shape
     N, e = Bm.shape[-1], X.element_size()
     nc = -(-S // chunk)
     x, bc, lab = X.numel() * e, Bm.numel() * e, la.numel() * 4
     chunk_states, totals = B * H * nc * P * N * 4, B * H * nc * 4
-    before = B * H * nc * P * N * (2 if route == "wgmma" else 4)
+    before = B * H * nc * P * N * (2 if route == "wgmma" else 4)  # fp32, or bf16 hi + lo
     scores = B * H * nc * chunk * chunk * 4 if route == "fma" else 0
     return {"states": x + bc * (2 if scores else 1) + lab + chunk_states + totals + scores,
             "recurrence": chunk_states + totals + B * H * P * N * (4 + e) + before,
@@ -1260,7 +1265,7 @@ def parity_phase(torch, device, arch="zamba2-2.7b", n_layers=PARITY_LAYERS, seed
     with torch.inference_mode():
         got, _ = kernels.prefill(params, {"tokens": tokens})
         k4 = {r: LAUNCHES.by_route("ssd")[r] - k4_before[r] for r in k4_before}
-        check(device.type != "cuda" or k4 == {"wgmma": 0, "fma": want_k4},
+        check(device.type != "cuda" or k4 == {**{r: 0 for r in k4}, "fma": want_k4},
               f"{arch} fp32 parity prefill launched K4 {k4}, not {want_k4} on the fma route")
         log(f"  {arch} fp32 parity prefill K4 launches by route: {k4}")
         want, _ = plain.prefill(params, {"tokens": tokens})
@@ -1749,7 +1754,8 @@ def train_parity_phase(torch, device, arch, n_layers, seed) -> dict:
                 for name, b in zip(("flash", "ssd"), before)}
     want = train_launches(cfg, 1)
     for name, n in want.items():
-        check(device.type != "cuda" or launched[name] == {"wgmma": 0, "fma": n},
+        check(device.type != "cuda" or launched[name] == {**{r: 0 for r in launched[name]},
+                                                          "fma": n},
               f"{arch} fp32 train parity launched {name} {launched[name]}, not {n} on the fma route")
     check(device.type != "cuda" or timer.outside["flash"] == timer.outside["ssd"] == 0,
           f"{arch}: a kernel's plain version ran outside its backward: {timer.outside}")
@@ -3170,7 +3176,7 @@ def main() -> int:
         build.load(source)
         log(f"build: nvcc {source.name} for sm_90a: {sec:.2f} s")
     log(f"build: all CUDA sources: {time.perf_counter() - t:.2f} s")
-    for source in (k1.SOURCE_SM90, k3.SOURCE_SM90, k4.SOURCE_SM90):
+    for source in (k1.SOURCE_SM90, k3.SOURCE_SM90, k4.SOURCE_SM90, k4.SOURCE_SM90_TILED):
         entries = ptxas_summary(source)
         check(len(entries) > 0, f"ptxas reported no tensor-core kernel in {source.name}")
         for e in entries:
@@ -3424,16 +3430,18 @@ def main() -> int:
                 {"ssd": path2["ssd"] + path7["ssd"] + path11["ssd"]},
                 {r: routes2["ssd"][r] + routes7["ssd"][r] + routes11["ssd"][r]
                  for r in routes2["ssd"]}),
-        # K4's CUDA-core route at the mLSTM's widths: bf16 off the tensor-core route
-        "ssd_mlstm": ("cuda", "src/repro_torch/kernels/ssd/csrc/ssd.cu",
+        # K4's tiled tensor-core route at the mLSTM's widths (P-tiles, N-slices)
+        "ssd_mlstm": ("cuda", "src/repro_torch/kernels/ssd/csrc/ssd_sm90_tiled.cu",
                       "src/repro/kernels/ssd/kernel.py:80", {"ssd_mlstm": path5["ssd"]},
                       routes5["ssd"]),
     }
     for name in sources:
         log(f"  {name}[float32]: " + json.dumps(kernels["float32"][name]))
-    check(kernels["bfloat16"]["ssd_mlstm"]["kernel_route"] == "fma"
-          and routes5["ssd"] == {"wgmma": 0, "fma": path5["ssd"]},
-          f"K4 at the mLSTM's widths took {routes5['ssd']}, not the fma route")
+    want5 = prefill_launches(xlstm)["ssd"]  # one prefill in path 5's counted generate
+    check(kernels["bfloat16"]["ssd_mlstm"]["kernel_route"] == "wgmma_tiled"
+          and kernels["float32"]["ssd_mlstm"]["kernel_route"] == "fma"
+          and routes5["ssd"] == {"wgmma": 0, "wgmma_tiled": want5, "fma": 0},
+          f"K4 at the mLSTM's widths took {routes5['ssd']}, not {want5} on the wgmma_tiled route")
     record = {"kernels": []}
     for name, (route, source, replaces, counts, by_route) in sources.items():
         k = kernels["bfloat16"][name]
@@ -3446,7 +3454,7 @@ def main() -> int:
         if by_route is not None:
             entry.update(kernel_route=k["kernel_route"], launches_by_route=by_route)
         if "pass_ms" in k:
-            entry["pass_ms"] = k["pass_ms"]
+            entry.update(pass_ms=k["pass_ms"], pass_bytes_bound_ms=k["pass_bytes_bound_ms"])
         if name in ("matmul", "rmsnorm"):
             # launches on path 1, on path 10 (path 1 again under PCCL_VERIFY=1)
             # and on path 12a, summed over its processes

@@ -1007,8 +1007,9 @@ def shipped_kernel_cases() -> List[Case]:
     """(label, wrapper, meta-tensor args, kwargs) for every route of every
     kernel, at shapes that reach its edges: ragged tiles, a raster group
     shorter than ``GROUP_M``, head dims that are not powers of two, GQA,
-    causal and not, a ragged last chunk, P-tiles and N-slices, and the
-    recurrence's flat range crossing from one (b, h) to the next."""
+    causal and not, a ragged last chunk, P-tiles and N-slices (fewer
+    N-slices than ring stages), and the recurrence's flat range crossing
+    from one (b, h) to the next."""
     import torch
 
     from repro_torch.kernels.flash.kernel import flash_attention_cuda
@@ -1049,6 +1050,15 @@ def shipped_kernel_cases() -> List[Case]:
         ("ssd wgmma per-head B/C", ssd_cuda,
          (m(1, 130, 2, 64, dtype=bf16), m(1, 130, 2), m(1, 130, 2, 64, dtype=bf16),
           m(1, 130, 2, 64, dtype=bf16)), {"chunk": 64}),
+        ("ssd wgmma_tiled P=N=128 ragged last chunk, shared B/C", ssd_cuda,
+         (m(1, 300, 2, 128, dtype=bf16), m(1, 300, 2), m(1, 300, 128, dtype=bf16),
+          m(1, 300, 128, dtype=bf16)), {"chunk": 64, "initial_state": m(1, 2, 128, 128)}),
+        ("ssd wgmma_tiled P=64 N=192 per-head B/C: fewer N-slices than ring stages", ssd_cuda,
+         (m(2, 130, 3, 64, dtype=bf16), m(2, 130, 3), m(2, 130, 3, 192, dtype=bf16),
+          m(2, 130, 3, 192, dtype=bf16)), {"chunk": 64}),
+        ("ssd wgmma_tiled mLSTM widths P=1024 N=512, per-head B/C, ragged S", ssd_cuda,
+         (m(1, 1000, 4, 1024, dtype=bf16), m(1, 1000, 4), m(1, 1000, 4, 512, dtype=bf16),
+          m(1, 1000, 4, 512, dtype=bf16)), {"chunk": 64, "initial_state": m(1, 4, 1024, 512)}),
         ("ssd fma P=16 N=8, the recurrence crossing (b, h)", ssd_cuda,
          (m(2, 100, 3, 16), m(2, 100, 3), m(2, 100, 8), m(2, 100, 8)), {"chunk": 32}),
         ("ssd fma P=24 N=10, the recurrence's rows unaligned", ssd_cuda,

@@ -166,10 +166,12 @@ class LaunchCounts:
                     counts[route] = 0
 
 
-# K1, K3 and K4 have a tensor-core and a CUDA-core route; K2 is one Triton kernel
+# K1 and K3 have a tensor-core and a CUDA-core route, K4 two tensor-core
+# routes (P = N = 64, and P-tiles with N-slices) and a CUDA-core one; K2 is
+# one Triton kernel
 LAUNCHES = LaunchCounts({
     "matmul": ("wgmma", "fma"),
     "rmsnorm": ("triton",),
     "flash": ("wgmma", "fma"),
-    "ssd": ("wgmma", "fma"),
+    "ssd": ("wgmma", "wgmma_tiled", "fma"),
 })

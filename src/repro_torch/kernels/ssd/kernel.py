@@ -1,21 +1,27 @@
-"""K4 on the card: wrapper of the two hand-written CUDA SSD scans.
+"""K4 on the card: wrapper of the three hand-written CUDA SSD scans.
 
-Replaces ``repro.kernels.ssd.kernel.ssd_pallas``.  Both routes run the scan
-as three chunk-parallel passes (chunk states, the recurrence across chunks,
-outputs; ``csrc/ssd_common.cuh``), chosen by the pure predicate
-:func:`tensor_core_route` on dtype, P, N and chunk:
+Replaces ``repro.kernels.ssd.kernel.ssd_pallas``.  Every route runs the
+scan as three chunk-parallel passes (chunk states, the recurrence across
+chunks, outputs; ``csrc/ssd_common.cuh``), chosen by the pure function
+:func:`ssd_route` of dtype, P, N and chunk:
 
 * ``"wgmma"`` — bf16 with P = N = chunk = 64 (Zamba2's widths):
   ``csrc/ssd_sm90.cu``, the chunk products by wgmma on the tensor cores, fed
   by TMA; it takes dte·B and the masked decay W as bf16 hi + lo pairs
   and rounds the state before each chunk to bf16, within the bf16
   tolerance;
+* ``"wgmma_tiled"`` — bf16 with chunk 64 and P, N other multiples of 64
+  (the mLSTM's P = 1024, N = 512): ``csrc/ssd_sm90_tiled.cu``, the same
+  products over 64-row P-tiles, with N-slices streamed by TMA through a
+  ring; dte scales X instead of B, and the state before each chunk is a
+  bf16 hi + lo pair (one bf16 rounding of it, summed over N = 512, misses
+  the bf16 tolerance);
 * ``"fma"`` — fp32, and every other shape: ``csrc/ssd.cu``, fp32 FMA on
-  the CUDA cores, a block staging 64-wide tiles of P and slices of N, so
-  it takes the mLSTM's P = 1024, N = 512 (it refuses only a chunk whose
-  tiles overflow a block's shared memory, ``SMEM_LIMIT``).
+  the CUDA cores, a block staging 64-wide tiles of P and slices of N (it
+  refuses only a chunk whose tiles overflow a block's shared memory,
+  ``SMEM_LIMIT``).
 
-Beyond the TPU kernel both take an fp32 ``initial_state`` and read shared
+Beyond the TPU kernel all take an fp32 ``initial_state`` and read shared
 ``(B,S,N)`` B/C by index.  The source notes say what bounds each pass on an
 H100 and what the design does about it.  The scratch of the passes (chunk
 states, chunk totals, states before each chunk, and on the fma route each
@@ -38,10 +44,11 @@ from repro_torch.kernels.build import GEOMETRY_ARGTYPES, LAUNCHES, verify_launch
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd.cu"
 SOURCE_SM90 = Path(__file__).resolve().parent / "csrc" / "ssd_sm90.cu"
-SOURCES = {"fma": SOURCE, "wgmma": SOURCE_SM90}
+SOURCE_SM90_TILED = Path(__file__).resolve().parent / "csrc" / "ssd_sm90_tiled.cu"
+SOURCES = {"fma": SOURCE, "wgmma": SOURCE_SM90, "wgmma_tiled": SOURCE_SM90_TILED}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
-TENSOR_CORE_WIDTH = 64  # P = N = chunk on the tensor-core route
+TENSOR_CORE_WIDTH = 64  # the chunk, and the tile of P and N, on the tensor-core routes
 _INT32_MAX = 2**31 - 1
 
 
@@ -74,10 +81,14 @@ def tensor_core_route(dtype: torch.dtype, P: int, N: int, chunk: int) -> bool:
     """True iff the scan of ``dtype`` operands with head dim ``P``, state
     size ``N`` and chunk ``chunk`` runs on the tensor cores.
 
-    bf16 with P = N = chunk = 64: one wgmma m64n64 tile per chunk product.
-    A function of these four only, not of B, S, H or the B/C layout.
+    bf16 with chunk 64 and P, N multiples of 64: wgmma m64n64 tiles, one
+    per chunk product at P = N = 64, 64-row P-tiles and 64-column N-slices
+    beyond.  A function of these four only, not of B, S, H or the B/C
+    layout.
     """
-    return dtype == torch.bfloat16 and P == N == chunk == TENSOR_CORE_WIDTH
+    w = TENSOR_CORE_WIDTH
+    return (dtype == torch.bfloat16 and chunk == w and min(P, N) > 0
+            and P % w == 0 and N % w == 0)
 
 
 def _library(route: str) -> ctypes.CDLL:
@@ -85,7 +96,12 @@ def _library(route: str) -> ctypes.CDLL:
 
     lib = load(SOURCES[route])
     ptrs = [ctypes.c_void_p] * 10  # X, la, B, C, init, Y, fin, states, totals, before
-    if route == "wgmma":
+    if route == "wgmma_tiled":
+        fn = lib.pccl_ssd_sm90_tiled
+        fn.argtypes = [*ptrs, *[ctypes.c_int] * 6, ctypes.c_void_p]  # B, S, H, P, N, bc_per_head
+        geometry = lib.pccl_ssd_sm90_tiled_geometry
+        geometry.argtypes = [*[ctypes.c_int] * 6, *GEOMETRY_ARGTYPES]  # pass, B, S, H, P, N
+    elif route == "wgmma":
         fn = lib.pccl_ssd_sm90
         fn.argtypes = [*ptrs, *[ctypes.c_int] * 4, ctypes.c_void_p]  # B, S, H, bc_per_head
         geometry = lib.pccl_ssd_sm90_geometry
@@ -105,19 +121,25 @@ def _library(route: str) -> ctypes.CDLL:
 
 
 def ssd_route(dtype: torch.dtype, P: int, N: int, chunk: int) -> str:
-    """The kernel :func:`ssd_cuda` launches: ``"wgmma"`` or ``"fma"``."""
-    return "wgmma" if tensor_core_route(dtype, P, N, chunk) else "fma"
+    """The kernel :func:`ssd_cuda` launches: ``"wgmma"`` at P = N = chunk =
+    64, ``"wgmma_tiled"`` at the other tensor-core widths, else ``"fma"``."""
+    if not tensor_core_route(dtype, P, N, chunk):
+        return "fma"
+    return "wgmma" if P == N == TENSOR_CORE_WIDTH else "wgmma_tiled"
 
 
 def buffers(X_shape, N: int, chunk: int, dtype: torch.dtype, route: str) -> Dict[str, tuple]:
     """(shape, dtype) of every buffer one :func:`ssd_cuda` call writes, by
     name: the outputs ``Y`` and ``fin`` and the passes' scratch (``scores``
-    on the fma route only)."""
+    on the fma route only; ``before``, the state before each chunk, in fp32
+    on fma, bf16 on wgmma, and a bf16 hi + lo pair on wgmma_tiled)."""
     B, S, H, P = X_shape
     nc = -(-S // chunk)
+    before = {"fma": ((B, H, nc, P, N), torch.float32), "wgmma": ((B, H, nc, P, N), dtype),
+              "wgmma_tiled": ((B, H, nc, 2, P, N), dtype)}[route]  # the last: hi, lo
     out = {"Y": ((B, S, H, P), dtype), "fin": ((B, H, P, N), dtype),
            "states": ((B, H, nc, P, N), torch.float32), "totals": ((B, H, nc), torch.float32),
-           "before": ((B, H, nc, P, N), dtype if route == "wgmma" else torch.float32)}
+           "before": before}
     if route == "fma":
         out["scores"] = ((B, H, nc, chunk, chunk), torch.float32)
     return out
@@ -137,8 +159,8 @@ def ssd_cuda(
 
     Takes contiguous CUDA tensors on one device: X, B and C of one dtype
     (float32 or bfloat16), la and ``initial_state`` (optional; zeros when
-    None) in float32.  The route is :func:`tensor_core_route`'s; on the
-    tensor-core route X, B and C must also start on 16 bytes (TMA).  Raises
+    None) in float32.  The route is :func:`ssd_route`'s; on the
+    tensor-core routes X, B and C must also start on 16 bytes (TMA).  Raises
     on anything else, and when a launch fails; it never computes on another
     path.  ``out`` (optional) maps names of :func:`buffers` to contiguous
     tensors of their shape and dtype, which the launch writes instead of
@@ -167,10 +189,10 @@ def ssd_cuda(
     B, S, H, P = X.shape
     N = Bm.shape[-1]
     nc = -(-S // chunk)
-    if max(B * H * nc * P, S * H * max(P, N)) > _INT32_MAX:
+    if max(B * H * nc * P * (2 if route == "wgmma_tiled" else 1), S * H * max(P, N)) > _INT32_MAX:
         raise ValueError(f"ssd_cuda: dims {(B, S, H, P, N)} exceed int32")
-    if route == "wgmma" and any(t.data_ptr() % 16 for t in (X, Bm, Cm)):
-        raise ValueError("ssd_cuda: the tensor-core route needs 16-byte aligned X, B, C")
+    if route != "fma" and any(t.data_ptr() % 16 for t in (X, Bm, Cm)):
+        raise ValueError("ssd_cuda: the tensor-core routes need 16-byte aligned X, B, C")
     lib = _library(route)
     if route == "fma":
         smem = lib.pccl_ssd_smem_bytes(P, N, chunk)
@@ -199,7 +221,9 @@ def ssd_cuda(
             Y.data_ptr(), fin.data_ptr(), states.data_ptr(), totals.data_ptr(), before.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if route == "wgmma":
+        if route == "wgmma_tiled":
+            err = lib.pccl_ssd_sm90_tiled(*ptrs, B, S, H, P, N, int(Bm.ndim == 4), stream)
+        elif route == "wgmma":
             err = lib.pccl_ssd_sm90(*ptrs, B, S, H, int(Bm.ndim == 4), stream)
         else:
             err = lib.pccl_ssd(_DTYPES[X.dtype], *ptrs, bufs["scores"].data_ptr(), B, S, H, P, N,

@@ -13,9 +13,10 @@ fp32 sum runs in another order), bf16 2e-2; K3 and K4 fp32 rtol and atol
 1e-4 (sums of up to T products and an online softmax in another order);
 a reduced model or train step on the card against the CPU 1e-4; everything
 else bit for bit, the gradients through K3 and K4 (their plain versions'
-autograd) included.  K1, K3 and K4 have two routes each
-(tensor-core ``wgmma`` kernels for bf16, CUDA-core ``fma`` kernels
-otherwise); the tests count the launches of each
+autograd) included.  K1 and K3 have two routes each (tensor-core
+``wgmma`` kernels for bf16, CUDA-core ``fma`` kernels otherwise), K4 three
+(``wgmma`` at P = N = 64, ``wgmma_tiled`` at other multiples of 64,
+``fma``); the tests count the launches of each
 (``repro_torch.kernels.build.LAUNCHES``).
 """
 
@@ -273,7 +274,7 @@ def test_ssd_kernel_matches_plain(dev, B, S, H, P, N, chunk, per_head, dtype):
         torch.testing.assert_close(fin.float(), finr.float(), **tol)
 
 
-@pytest.mark.parametrize("P", [32, 64, 128])
+@pytest.mark.parametrize("P,N", [(32, 64), (64, 64), (128, 64), (128, 128)])
 @pytest.mark.parametrize("per_head", [False, True])
 @pytest.mark.parametrize("B,S,H", [
     (2, 64, 4),     # one whole chunk
@@ -281,13 +282,12 @@ def test_ssd_kernel_matches_plain(dev, B, S, H, P, N, chunk, per_head, dtype):
     (1, 4096, 8),   # the serving length: 64 chunks of state passing
     (2, 40, 2),     # S < chunk
 ])
-def test_ssd_tensor_core_route(dev, P, per_head, B, S, H):
-    from repro_torch.kernels.ssd import ssd, ssd_reference, tensor_core_route
+def test_ssd_tensor_core_route(dev, P, N, per_head, B, S, H):
+    from repro_torch.kernels.ssd import ssd, ssd_reference, ssd_route
 
-    X, la, Bm, Cm, init = _ssd_inputs(dev, B, S, H, P, 64, torch.float32, per_head, seed=S + P)
+    X, la, Bm, Cm, init = _ssd_inputs(dev, B, S, H, P, N, torch.float32, per_head, seed=S + P)
     for dtype in (torch.bfloat16, torch.float32):
-        route = "wgmma" if tensor_core_route(dtype, P, 64, 64) else "fma"
-        assert route == ("wgmma" if dtype == torch.bfloat16 and P == 64 else "fma")
+        route = ssd_route(dtype, P, N, 64)
         Xd, Bd, Cd = (t.to(dtype) for t in (X, Bm, Cm))
         tol = dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 else dict(rtol=1e-4, atol=1e-4)
         for state in (None, init):
@@ -327,21 +327,66 @@ def test_flash_and_ssd_refuse_what_they_cannot_take(dev):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_kernel_at_mlstm_widths(dev, dtype):
     """K4 at the mLSTM's P = 1024, N = 512 (xLSTM-1.3B), per-head B/C (k and
-    q), an fp32 initial state and a ragged S: the fma route, 16 P-tiles and
-    8 N-slices a chunk."""
-    from repro_torch.kernels.ssd import ssd, ssd_reference
+    q), an fp32 initial state and a ragged S: bf16 on the wgmma_tiled route,
+    fp32 on the fma route, 16 P-tiles and 8 N-slices a chunk on both."""
+    from repro_torch.kernels.ssd import ssd, ssd_reference, ssd_route
 
     X, la, Bm, Cm, init = _ssd_inputs(dev, 1, 300, 2, 1024, 512, dtype, True, seed=5)
     la = la / 3  # the mLSTM's forget gates keep most of the state
     tol = dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 else dict(rtol=1e-4, atol=1e-4)
+    route = ssd_route(dtype, 1024, 512, 64)
+    assert route == ("wgmma_tiled" if dtype == torch.bfloat16 else "fma")
     for state in (None, init):
         before = _routes("ssd")
         Y, fin = ssd(X, la, Bm, Cm, chunk=64, initial_state=state)
-        _launched("ssd", before, "fma")
+        _launched("ssd", before, route)
         assert Y.dtype == fin.dtype == dtype and fin.shape == (1, 2, 1024, 512)
         Yr, finr = ssd_reference(X, la, Bm, Cm, chunk=64, initial_state=state)
         torch.testing.assert_close(Y.float(), Yr.float(), **tol)
         torch.testing.assert_close(fin.float(), finr.float(), **tol)
+
+
+def test_ssd_tiled_route_at_the_mlstm_prefill_writes_its_out_buffers(dev):
+    """K4's wgmma_tiled route at the mLSTM's prefill, X (4, 4096, 4, 1024),
+    N = 512, per-head B/C and an initial state: into caller-given ``out=``
+    buffers (scratch and outputs), the same bytes as buffers of its own,
+    and within the bf16 tolerance of the plain version."""
+    from repro_torch.kernels.ssd import ssd_cuda, ssd_reference
+    from repro_torch.kernels.ssd.kernel import buffers
+
+    X, la, Bm, Cm, init = _ssd_inputs(dev, 4, 4096, 4, 1024, 512, torch.bfloat16, True, seed=12)
+    out = {name: torch.empty(shape, dtype=dtype, device=dev)
+           for name, (shape, dtype) in buffers(X.shape, 512, 64, X.dtype, "wgmma_tiled").items()}
+    assert out["before"].shape == (4, 4, 64, 2, 1024, 512)  # hi, lo
+    before = _routes("ssd")
+    Y, fin = ssd_cuda(X, la, Bm, Cm, chunk=64, initial_state=init, out=out)
+    _launched("ssd", before, "wgmma_tiled")
+    assert Y is out["Y"] and fin is out["fin"]
+    Y2, fin2 = ssd_cuda(X, la, Bm, Cm, chunk=64, initial_state=init)
+    torch.cuda.synchronize()
+    assert torch.equal(Y, Y2) and torch.equal(fin, fin2)
+    Yr, finr = ssd_reference(X, la, Bm, Cm, chunk=64, initial_state=init)
+    torch.testing.assert_close(Y.float(), Yr.float(), rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(fin.float(), finr.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("per_head", [False, True])
+def test_ssd_tiled_route_ragged_s_at_mlstm_widths(dev, per_head):
+    """K4's wgmma_tiled route at P = 1024, N = 512 with S = 1000 (a last
+    chunk of 40 rows), shared and per-head B/C, with and without an initial
+    state: Y and the final state within the bf16 tolerance of the plain
+    version (TMA zero-fills the rows past S)."""
+    from repro_torch.kernels.ssd import ssd_cuda, ssd_reference
+
+    X, la, Bm, Cm, init = _ssd_inputs(dev, 1, 1000, 4, 1024, 512, torch.bfloat16, per_head,
+                                      seed=13)
+    for state in (None, init):
+        before = _routes("ssd")
+        Y, fin = ssd_cuda(X, la, Bm, Cm, chunk=64, initial_state=state)
+        _launched("ssd", before, "wgmma_tiled")
+        Yr, finr = ssd_reference(X, la, Bm, Cm, chunk=64, initial_state=state)
+        torch.testing.assert_close(Y.float(), Yr.float(), rtol=2e-2, atol=2e-2)
+        torch.testing.assert_close(fin.float(), finr.float(), rtol=2e-2, atol=2e-2)
 
 
 def test_zamba2_reduced_pallas_path_matches_plain_on_the_card(dev):
@@ -437,7 +482,8 @@ def test_xlstm_reduced_on_the_card_equals_the_cpu(dev):
             logits, state = model.prefill(p, {"tokens": toks[:, :40]})
             launched = {r: n - k4[r] for r, n in _routes("ssd").items()}
             if device == dev:
-                assert launched == {"wgmma": 0, "fma": model.n_groups * model.m_per_group}, launched
+                assert launched == {"wgmma": 0, "wgmma_tiled": 0,
+                                    "fma": model.n_groups * model.m_per_group}, launched
             out[device] = [logits]
             for i in (40, 41):
                 logits, state = model.decode_step(p, state, toks[:, i:i + 1])
@@ -593,7 +639,7 @@ def test_reduced_train_step_on_the_card_equals_the_cpu(dev):
             assert {r: n - k3[r] for r, n in _routes("flash").items()} == \
                 {"wgmma": 0, "fma": 4 * groups}
             assert {r: n - k4[r] for r, n in _routes("ssd").items()} == \
-                {"wgmma": 0, "fma": 4 * cfg.n_layers}
+                {"wgmma": 0, "wgmma_tiled": 0, "fma": 4 * cfg.n_layers}
         out[device] = (metrics, {k: v.detach().cpu() for k, v in params.state_dict().items()})
     (m_cpu, p_cpu), (m_dev, p_dev) = out["cpu"], out[dev]
     for key in ("loss", "grad_norm", "lr"):
@@ -724,7 +770,7 @@ def test_launch_counts_are_one_locked_object_of_every_kernel(dev):
     assert LAUNCHES.totals() == {"matmul": 1, "rmsnorm": 1, "flash": 1, "ssd": 1}
     assert {name: LAUNCHES.by_route(name) for name in ("matmul", "rmsnorm", "flash", "ssd")} == {
         "matmul": {"wgmma": 1, "fma": 0}, "rmsnorm": {"triton": 1},
-        "flash": {"wgmma": 1, "fma": 0}, "ssd": {"wgmma": 1, "fma": 0}}
+        "flash": {"wgmma": 1, "fma": 0}, "ssd": {"wgmma": 1, "wgmma_tiled": 0, "fma": 0}}
     snapshot = LAUNCHES.by_route("matmul")
     snapshot["wgmma"] = 99  # a copy: the count does not move
     assert LAUNCHES.total("matmul") == 1
@@ -741,7 +787,8 @@ def test_launch_counts_are_one_locked_object_of_every_kernel(dev):
         list(pool.map(launch_many, range(8)))
     torch.cuda.synchronize()
     for name in ("matmul", "flash", "ssd"):
-        assert LAUNCHES.by_route(name) == {"wgmma": 1 + 8 * 20, "fma": 0}, name
+        tiled = {"wgmma_tiled": 0} if name == "ssd" else {}
+        assert LAUNCHES.by_route(name) == {"wgmma": 1 + 8 * 20, "fma": 0, **tiled}, name
     LAUNCHES.reset()
     assert sum(LAUNCHES.totals().values()) == 0
 

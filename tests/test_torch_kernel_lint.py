@@ -169,6 +169,12 @@ PROBES = {
          {"chunk": 32, "initial_state": _meta(1, 5, 24, 10)}),
         ((_meta(1, 100, 2, 130, dtype=BF16), _meta(1, 100, 2), _meta(1, 100, 2, 70, dtype=BF16),
           _meta(1, 100, 2, 70, dtype=BF16)), {"chunk": 48}),
+        # wgmma_tiled: two P-tiles and two N-slices, shared B/C, ragged S; one
+        # P-tile and three N-slices (fewer than the ring's stages), per head
+        ((_meta(1, 300, 2, 128, dtype=BF16), _meta(1, 300, 2), _meta(1, 300, 128, dtype=BF16),
+          _meta(1, 300, 128, dtype=BF16)), {"chunk": 64, "initial_state": _meta(1, 2, 128, 128)}),
+        ((_meta(2, 130, 3, 64, dtype=BF16), _meta(2, 130, 3), _meta(2, 130, 3, 192, dtype=BF16),
+          _meta(2, 130, 3, 192, dtype=BF16)), {"chunk": 64}),
     ],
 }
 
@@ -275,8 +281,8 @@ MODEL_MUTANTS = [
      "return tile, tile == ptiles - 1, b, h, ch", 0),
     (k4_launch, "role", "states roles by P-tiles only", "tile = x % (ptiles + 1)",
      "tile = x % ptiles", 0),
-    (k4_launch, "grid", "recurrence grid ceil->floor", "grid=(cdiv(BH * PN, RT),)",
-     "grid=(BH * PN // RT,)", 0),
+    (k4_launch, "grid", "recurrence grid ceil->floor", "grid=(cdiv(BH * PN // V, RT),)",
+     "grid=(BH * PN // V // RT,)", 0),
     (k4_launch, "grid", "fma outputs one block too many a chunk",
      "grid=(B * H * nc * ptiles,)", "grid=(B * H * nc * (ptiles + 1),)", 0),
     (k4_launch, "grid", "fma states chunks ceil->floor", "nc = cdiv(S, L)", "nc = S // L", 0),
@@ -289,8 +295,8 @@ MODEL_MUTANTS = [
      "if not _ else []", 0),
     (k4_launch, "output", "recurrence before one chunk short", "Box((r, 0, e), (nr, nc, ne))",
      "Box((r, 0, e), (nr, nc - 1, ne))", 0),
-    (k4_launch, "output", "recurrence half the threads", "return [Box((x * RT,), (RT,))]",
-     "return [Box((x * RT,), (RT // 2,))]", 0),
+    (k4_launch, "output", "recurrence half the threads", "return [Box((x * span,), (span,))]",
+     "return [Box((x * span,), (span // 2,))]", 0),
     (k4_launch, "output", "wgmma outputs half of P",
      "(1, L, 1, P))]\n\n    def bcs", "(1, L, 1, P // 2))]\n\n    def bcs", 0),
     (k4_launch, "output", "chunk map b and c swapped", "return x // nc, h, x % nc",
@@ -302,11 +308,11 @@ MODEL_MUTANTS = [
     (k4_launch, "mask", "fma states mask on P dropped",
      "out_blocks=(Footprint(states, masked=(3,)),", "out_blocks=(Footprint(states),", 0),
     (k4_launch, "mask", "recurrence before mask dropped",
-     "out_blocks=(Footprint(rows, masked=(0,)), Footprint(flat, masked=(0,))),",
-     "out_blocks=(Footprint(rows), Footprint(flat, masked=(0,))),", 0),
+     "out_blocks=(Footprint(pairs if pair else rows, masked=(0,)), Footprint(flat, masked=(0,))),",
+     "out_blocks=(Footprint(pairs if pair else rows), Footprint(flat, masked=(0,))),", 0),
     (k4_launch, "mask", "recurrence fin mask dropped",
-     "out_blocks=(Footprint(rows, masked=(0,)), Footprint(flat, masked=(0,))),",
-     "out_blocks=(Footprint(rows, masked=(0,)), Footprint(flat)),", 0),
+     "out_blocks=(Footprint(pairs if pair else rows, masked=(0,)), Footprint(flat, masked=(0,))),",
+     "out_blocks=(Footprint(pairs if pair else rows, masked=(0,)), Footprint(flat)),", 0),
     (k4_launch, "mask", "wgmma Y mask dropped",
      'out_names=("Y",), out_blocks=(Footprint(xy, masked=(1,)),)',
      'out_names=("Y",), out_blocks=(Footprint(xy),)', 0),
@@ -320,6 +326,32 @@ MODEL_MUTANTS = [
     (k4_launch, "input", "la mask dropped", "Footprint(las, masked=(1,))", "Footprint(las)", 0),
     (k4_launch, "input", "recurrence totals first chunk only", "Box((r, 0), (nr, nc))",
      "Box((r, 0), (nr, 1))", 0),
+    (k4_launch, "grid", "wgmma_tiled states chunks ceil->floor", "nc, ptiles = cdiv(S, L), P // W",
+     "nc, ptiles = S // L, P // W", 0),
+    (k4_launch, "grid", "wgmma_tiled states P-tiles one short",
+     "grid=(B * H * nc * ptiles,),  # states_geometry",
+     "grid=(B * H * nc * (ptiles - 1),),  # states_geometry", 0),
+    (k4_launch, "grid", "wgmma_tiled outputs P-tiles one short",
+     "grid=(B * H * nc * ptiles,),  # outputs_geometry",
+     "grid=(B * H * nc * (ptiles - 1),),  # outputs_geometry", 0),
+    (k4_launch, "output", "wgmma_tiled states N-slices dropped",
+     "return [Box((b, h, ch, p0, 0), (1, 1, 1, W, N))]",
+     "return [Box((b, h, ch, p0, 0), (1, 1, 1, W, W))]", 0),
+    (k4_launch, "output", "wgmma_tiled recurrence before's lo dropped", "(nr, nc, 2, ne))",
+     "(nr, nc, 1, ne))", 0),
+    (k4_launch, "output", "wgmma_tiled outputs every P-tile at p0 = 0",
+     "return (x % ptiles) * W, b, h, ch", "return 0, b, h, ch", 1),
+    (k4_launch, "output", "wgmma_tiled totals from every P-tile", "if p0 == 0 else []",
+     "if True else []", 0),
+    (k4_launch, "mask", "wgmma_tiled Y mask dropped",
+     'out_names=("Y",), out_blocks=(Footprint(xy, masked=(1,)),)',
+     'out_names=("Y",), out_blocks=(Footprint(xy),)', 1),
+    (k4_launch, "smem", "wgmma_tiled states over budget",
+     "tiles, staging = 2 + stages,", "tiles, staging = 30 + stages,", 0),
+    (k4_launch, "smem", "wgmma_tiled outputs without the alignment slack",
+     "smem = 1024 + carved  # OUTPUTS_SMEM", "smem = carved  # OUTPUTS_SMEM", 0),
+    (k4_launch, "input", "wgmma_tiled states la mask dropped", "Footprint(las, masked=(1,))",
+     "Footprint(las)", 4),
     (k4_launch, "input", "fma outputs scores one column over",
      "        _, b, h, ch = role(x)\n        return [Box((b, h, ch, 0, 0), (1, 1, 1, L, L))]",
      "        _, b, h, ch = role(x)\n        return [Box((b, h, ch, 0, 0), (1, 1, 1, L, L + 1))]",
@@ -350,6 +382,16 @@ BODY_MUTANTS = [
      "int nc, int bc_per_head) {", "int nc, int bc_per_head, int chunk) {", 0),
     ("ssd/csrc/ssd_sm90.cu", "ssd_outputs_sm90_kernel", "Y stored without bf16 packing",
      "pack_bf16x2(acc[4 * j], acc[4 * j + 1]);", "__float_as_uint(acc[4 * j]);", 0),
+    ("ssd/csrc/ssd_sm90_tiled.cu", "ssd_outputs_sm90_tiled_kernel",
+     "wgmma_tiled Y stored without bf16 packing", "pack_bf16x2(acc[4 * q], acc[4 * q + 1]);",
+     "__float_as_uint(acc[4 * q]);", 0),
+    ("ssd/csrc/ssd_sm90_tiled.cu", "ssd_recurrence_pair_kernel",
+     "wgmma_tiled before's lo stored without bf16 packing",
+     "make_uint2(pack_bf16x2(R.x - h0.x, R.y - h0.y), pack_bf16x2(R.z - h1.x, R.w - h1.y));",
+     "make_uint2(__float_as_uint(R.x - h0.x), __float_as_uint(R.z - h1.x));", 0),
+    ("ssd/csrc/ssd_sm90_tiled.cu", "ssd_states_sm90_tiled_kernel",
+     "wgmma_tiled states dead parameter", "int N, int nc,\n                             int bc_per_head) {",
+     "int N, int nc,\n                             int bc_per_head, int chunk) {", 0),
 ]
 
 TRITON_MUTANTS = [
@@ -529,6 +571,8 @@ MODEL_CONSTANTS = {
     "flash/csrc/flash.cu": ("BQ", "BK", "THREADS"),
     "ssd/csrc/ssd.cu": ("THREADS", "TILE"),
     "ssd/csrc/ssd_sm90.cu": ("L", "THREADS"),
+    "ssd/csrc/ssd_sm90_tiled.cu": ("L", "THREADS", "STATES_STAGES", "OUTPUTS_STAGES", "OUT_ROW",
+                                   "PAIR_VEC"),
     "ssd/csrc/ssd_common.cuh": ("RECURRENCE_THREADS",),
 }
 
@@ -586,7 +630,8 @@ def test_shipped_cases_reach_every_launch_site():
     assert {name for name, _ in seen} == {
         "matmul_sm90_kernel", "matmul_kernel", "_rmsnorm_kernel", "flash_sm90_kernel",
         "flash_fwd_kernel", "ssd_states_kernel", "ssd_outputs_kernel", "ssd_states_sm90_kernel",
-        "ssd_outputs_sm90_kernel", "ssd_recurrence_kernel"}
+        "ssd_outputs_sm90_kernel", "ssd_recurrence_kernel", "ssd_states_sm90_tiled_kernel",
+        "ssd_recurrence_pair_kernel", "ssd_outputs_sm90_tiled_kernel"}
 
 
 def test_main_path_shapes_are_clean_in_time():

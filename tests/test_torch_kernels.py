@@ -27,7 +27,7 @@ from repro_torch.kernels.flash import tensor_core_route as flash_tc_route
 from repro_torch.kernels.matmul import matmul, matmul_cuda, matmul_reference, matmul_route, tiles_exactly
 from repro_torch.kernels.matmul import tensor_core_route as matmul_tc_route
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_reference, rmsnorm_triton
-from repro_torch.kernels.ssd import ssd, ssd_cuda, ssd_decode_step, ssd_reference
+from repro_torch.kernels.ssd import ssd, ssd_cuda, ssd_decode_step, ssd_reference, ssd_route
 from repro_torch.kernels.ssd import tensor_core_route as ssd_tc_route
 
 given, settings, st = hypothesis_or_stubs()
@@ -320,11 +320,17 @@ def _bf16_pair(t):
     return hi + _bf16(t - hi)
 
 
-def _ssd_tensor_core_arithmetic(X, la, Bm, Cm, init, L=64):
-    """K4's tensor-core route (``ssd_sm90.cu``) in fp32 on the CPU, rounded
-    to bf16 where the kernel rounds: X, B and C as they arrive, the state
-    before each chunk (pass 2) and Y (pass 3); dte·B (pass 1) and W (pass 3)
-    go to wgmma as bf16 hi + lo pairs."""
+def _ssd_tensor_core_arithmetic(X, la, Bm, Cm, init, L=64, route="wgmma"):
+    """K4's tensor-core routes in fp32 on the CPU, rounded to bf16 where the
+    kernel rounds: X, B and C as they arrive, the state before each chunk
+    (pass 2, on ``"wgmma"``) and Y (pass 3); W (pass 3) goes to wgmma as a
+    bf16 hi + lo pair, and so does dte·B (pass 1) on ``"wgmma"``
+    (``ssd_sm90.cu``).  On ``"wgmma_tiled"`` (``ssd_sm90_tiled.cu``) dte·X
+    is the pair instead (its blocks scale their X tile once rather than
+    every N-slice of B), and so is the state before each chunk: one bf16
+    rounding of it, summed over N = 512, misses the bf16 tolerance.  The
+    tiled route's sums over P-tiles and N-slices are the whole sums in
+    another order."""
     import torch.nn.functional as F
 
     B, S, H, P = X.shape
@@ -341,11 +347,14 @@ def _ssd_tensor_core_arithmetic(X, la, Bm, Cm, init, L=64):
     Xc, Bc, Cc = _bf16(X).reshape(B, nc, L, H, P), per_head(Bm), per_head(Cm)
     cum = torch.cumsum(la.reshape(B, nc, L, H), 2)
     total = cum[:, :, -1]
-    Bd = _bf16_pair(Bc * torch.exp(total[:, :, None] - cum)[..., None])
-    states = torch.einsum("bclhp,bclhn->bchpn", Xc, Bd)
+    dte = torch.exp(total[:, :, None] - cum)[..., None]
+    if route == "wgmma":
+        states = torch.einsum("bclhp,bclhn->bchpn", Xc, _bf16_pair(Bc * dte))
+    else:
+        states = torch.einsum("bclhp,bclhn->bchpn", _bf16_pair(Xc * dte), Bc)
     R, before = init.clone(), []
     for c in range(nc):
-        before.append(_bf16(R))
+        before.append(_bf16(R) if route == "wgmma" else _bf16_pair(R))
         R = R * torch.exp(total[:, c])[:, :, None, None] + states[:, c]
     Y = torch.einsum("bclhn,bchpn->bclhp", Cc, torch.stack(before, 1)) * torch.exp(cum)[..., None]
     tri = torch.tril(torch.ones(L, L, dtype=torch.bool))
@@ -371,6 +380,31 @@ def test_ssd_tensor_core_rounding_within_bf16_tolerance(per_head):
     want_Y, want_fin = ssd_reference(_bf16(X), la, _bf16(Bm), _bf16(Cm), chunk=64,
                                      initial_state=init)
     got_Y, got_fin = _ssd_tensor_core_arithmetic(X, la, Bm, Cm, init)
+    np.testing.assert_allclose(got_Y.numpy(), want_Y.numpy(), rtol=2e-2, atol=2e-2)
+    np.testing.assert_allclose(got_fin.numpy(), want_fin.numpy(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("B,S,H,P,N,per_head,state", [
+    (1, 300, 2, 1024, 512, True, True),   # the mLSTM's widths, the smoke's input distributions
+    (2, 4 * 64 + 17, 3, 128, 128, False, False),  # shared B/C, a ragged last chunk
+])
+def test_ssd_tiled_tensor_core_rounding_within_bf16_tolerance(B, S, H, P, N, per_head, state):
+    """K4's tiled tensor-core route carries dte·X, W and the state before
+    each chunk (summed over N = 512 at the mLSTM's widths) as bf16 hi + lo
+    pairs: its rounding points stay within the bf16 tolerance of
+    ``ssd_reference`` computed in fp32, Y and the final state."""
+    rng = np.random.default_rng(11)
+    bc = (B, S, H, N) if per_head else (B, S, N)
+    X = torch.from_numpy(rng.normal(size=(B, S, H, P)).astype(np.float32))
+    la = torch.from_numpy((-rng.uniform(size=(B, S, H)) * 0.3).astype(np.float32))
+    Bm, Cm = (torch.from_numpy((rng.normal(size=bc) * 0.3).astype(np.float32)) for _ in range(2))
+    init = torch.from_numpy((rng.normal(size=(B, H, P, N)) * 0.1).astype(np.float32))
+    if not state:
+        init = torch.zeros_like(init)
+    assert ssd_route(torch.bfloat16, P, N, 64) == "wgmma_tiled"
+    want_Y, want_fin = ssd_reference(_bf16(X), la, _bf16(Bm), _bf16(Cm), chunk=64,
+                                     initial_state=init if state else None)
+    got_Y, got_fin = _ssd_tensor_core_arithmetic(X, la, Bm, Cm, init, route="wgmma_tiled")
     np.testing.assert_allclose(got_Y.numpy(), want_Y.numpy(), rtol=2e-2, atol=2e-2)
     np.testing.assert_allclose(got_fin.numpy(), want_fin.numpy(), rtol=2e-2, atol=2e-2)
 
@@ -414,17 +448,24 @@ def test_flash_tensor_core_route_predicate(dtype, D, want):
 
 
 @pytest.mark.parametrize("dtype,P,N,chunk,want", [
-    (torch.bfloat16, 64, 64, 64, True),    # Zamba2, shared or per-head B/C alike
-    (torch.bfloat16, 32, 64, 64, False),   # one wgmma m64n64 tile per product only
-    (torch.bfloat16, 128, 64, 64, False),
-    (torch.bfloat16, 64, 32, 64, False),
-    (torch.bfloat16, 64, 64, 32, False),
-    (torch.bfloat16, 64, 64, 128, False),
-    (torch.float32, 64, 64, 64, False),    # fp32 stays on the CUDA cores
-    (torch.float32, 128, 64, 128, False),
+    (torch.bfloat16, 64, 64, 64, "wgmma"),          # Zamba2, shared or per-head B/C alike
+    (torch.bfloat16, 32, 64, 64, "fma"),            # wgmma m64n64 tiles: P, N multiples of 64
+    (torch.bfloat16, 128, 64, 64, "wgmma_tiled"),   # two P-tiles
+    (torch.bfloat16, 64, 32, 64, "fma"),
+    (torch.bfloat16, 64, 64, 32, "fma"),            # chunk 64 only
+    (torch.bfloat16, 64, 64, 128, "fma"),
+    (torch.float32, 64, 64, 64, "fma"),             # fp32 stays on the CUDA cores
+    (torch.float32, 128, 64, 128, "fma"),
+    (torch.bfloat16, 1024, 512, 64, "wgmma_tiled"),  # the mLSTM's widths
+    (torch.bfloat16, 128, 128, 64, "wgmma_tiled"),
+    (torch.bfloat16, 64, 192, 64, "wgmma_tiled"),   # one P-tile, three N-slices
+    (torch.bfloat16, 96, 64, 64, "fma"),            # P not a multiple of 64
+    (torch.bfloat16, 1024, 512, 32, "fma"),
+    (torch.float32, 1024, 512, 64, "fma"),          # the fp32 parity route
 ])
 def test_ssd_tensor_core_route_predicate(dtype, P, N, chunk, want):
-    assert ssd_tc_route(dtype, P, N, chunk) is want
+    assert ssd_tc_route(dtype, P, N, chunk) is (want != "fma")
+    assert ssd_route(dtype, P, N, chunk) == want
 
 
 @settings(max_examples=200, deadline=None)
@@ -479,16 +520,19 @@ def test_tensor_core_sources_are_in_the_package(name):
     from repro_torch.kernels.build import SHARED_HEADERS, library_path, ptxas_report
 
     mod = importlib.import_module(f"repro_torch.kernels.{name}.kernel")
-    assert set(mod.SOURCES) == {"wgmma", "fma"} and mod.SOURCES["fma"] == mod.SOURCE
-    src = mod.SOURCES["wgmma"]
-    text = src.read_text()
-    assert src.exists() and src.parent == mod.SOURCE.parent
-    assert f"src/repro/kernels/{name}/kernel.py::" in text  # names the TPU kernel it replaces
-    assert "wgmma.mma_async" in text and '#include "../../csrc/sm90.cuh"' in text
+    routes = {"wgmma", "wgmma_tiled", "fma"} if name == "ssd" else {"wgmma", "fma"}
+    assert set(mod.SOURCES) == routes and mod.SOURCES["fma"] == mod.SOURCE
+    for route in routes - {"fma"}:
+        src = mod.SOURCES[route]
+        text = src.read_text()
+        assert src.exists() and src.parent == mod.SOURCE.parent
+        assert f"src/repro/kernels/{name}/kernel.py::" in text  # names the TPU kernel it replaces
+        assert "wgmma.mma_async" in text and '#include "../../csrc/sm90.cuh"' in text
+        assert library_path(src) != library_path(mod.SOURCE)
+        assert ptxas_report(src) == "" or "registers" in ptxas_report(src)
     assert (SHARED_HEADERS / "sm90.cuh").exists()
-    assert library_path(src) != library_path(mod.SOURCE)
-    assert ptxas_report(src) == "" or "registers" in ptxas_report(src)
-    assert set(LAUNCHES.by_route(name)) == {"wgmma", "fma"}
+    assert len({library_path(s) for s in mod.SOURCES.values()}) == len(routes)
+    assert set(LAUNCHES.by_route(name)) == routes
 
 
 def test_launch_counts_lose_no_update_under_threads():

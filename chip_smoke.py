@@ -100,11 +100,14 @@ and then drives the port's main paths:
    path 2's, K3 9 and K4 54 launches a prefill on the tensor-core route,
    and the shard sites a prefill reaches the count the CPU test takes.
    Beside it, in fresh processes: the port's roofline of path 2's prefill
-   and path 7's step on one rank, printed beside their measured times
-   (11b), and ``python -m repro_torch.launch.dryrun`` for Zamba2-2.7B and
-   OLMoE-1B-7B × train_4k on 256 ranks and Zamba2 on 512 (11c): each exits
-   0, allocates nothing on the card, and prints its bytes by collective
-   and PCCL's speedup.
+   and path 7's step on one rank, printed beside their measured times, and
+   the count's memory of path 7's step beside its last step's: the bytes
+   of its arguments, and its peak less what was allocated before it
+   (11b); and ``python -m repro_torch.launch.dryrun`` for Zamba2-2.7B and
+   OLMoE-1B-7B × train_4k on 256 ranks and Zamba2 on 512 (11c), after the
+   torch release and the DTensor rules the port installed on it: each
+   exits 0, allocates nothing on the card, has no op that fell back, and
+   prints its bytes by collective, its memory per rank and PCCL's speedup.
 
 12. one process per rank: four processes on this card joined over gloo
    on a ``FileStore`` (``repro_torch.launch.procs.spawn``).  12a: path 1's
@@ -1593,6 +1596,7 @@ def train_path(torch, r) -> dict:
                if k in ("ln_f.scale", "shared.attn.wq", "lm_head")}
     per_step, metrics = [], []
     timer = TrainTimer(torch)
+    cuda = next(iter(params.parameters())).is_cuda
     t = time.perf_counter()
     for i, batch in enumerate(r["batches"]):
         before = (_routes("flash"), _routes("ssd"))
@@ -1601,6 +1605,18 @@ def train_path(torch, r) -> dict:
                 params, state, m = step(params, state, batch)
             torch.cuda.synchronize()
             cold, t = time.perf_counter() - t, time.perf_counter()
+        elif i == len(r["batches"]) - 1 and cuda:
+            # the last (warm) step's own memory: what it allocates over
+            # what is resident before it, and its arguments' bytes
+            torch.cuda.synchronize()
+            held = {"peak_before": torch.cuda.max_memory_allocated(),
+                    "allocated_before": torch.cuda.memory_allocated(),
+                    "arguments": storage_bytes(torch, params, state, batch)}
+            torch.cuda.reset_peak_memory_stats()
+            params, state, m = step(params, state, batch)
+            torch.cuda.synchronize()
+            held["peak"] = torch.cuda.max_memory_allocated()
+            r["warm_step_memory"] = held
         else:
             params, state, m = step(params, state, batch)
         per_step.append({name: {k: n - b[k] for k, n in _routes(name).items()}
@@ -1612,6 +1628,30 @@ def train_path(torch, r) -> dict:
     r.update(params=params, state=state, per_step=per_step, metrics=metrics, cold_s=cold,
              warm_s=warm, changed=changed, outside=dict(timer.outside))
     return r
+
+
+def storage_bytes(torch, *trees) -> int:
+    """Bytes of the distinct storages of the tensors of ``trees`` (modules,
+    dicts, lists and tuples of tensors): each once, whatever its views."""
+    seen = {}
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            s = x.untyped_storage()
+            seen[s.data_ptr()] = s.nbytes()
+        elif isinstance(x, torch.nn.Module):
+            for t in (*x.parameters(), *x.buffers()):
+                walk(t)
+        elif isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+
+    for tree in trees:
+        walk(tree)
+    return sum(seen.values())
 
 
 def plain_train_loss(torch, cfg, params, batch, microbatches: int) -> float:
@@ -2854,9 +2894,40 @@ def path11_phase(torch, zamba2, path2_run, serve_stats, train_stats, reset_count
                 f"compute {ms / comp:.2f}, memory {ms / mem:.2f}")
             stats["roofline"][kind] = {**r, "measured_ms": ms, "measured_over_compute": ms / comp,
                                        "measured_over_memory": ms / mem}
+        held = train_stats.get("warm_step_memory")
+        if held is not None:
+            r = roof["train"]
+            step_peak = held["peak"] - held["allocated_before"]
+            memory = {"predicted_arguments": r["argument_size_in_bytes"],
+                      "measured_arguments": held["arguments"],
+                      "predicted_temp": r["temp_size_in_bytes"], "measured_temp": step_peak}
+            memory["arguments_ratio"] = memory["predicted_arguments"] / memory["measured_arguments"]
+            memory["temp_ratio"] = memory["predicted_temp"] / step_peak
+            log(f"  train memory (path 7's warm step; the count runs the plain path, fp32 "
+                f"parameters and moments): arguments predicted {r['argument_size_in_bytes']:.6g} B, "
+                f"the step's own {held['arguments']} B (ratio {memory['arguments_ratio']:.4f}); "
+                f"temporaries predicted {r['temp_size_in_bytes']:.6g} B, measured peak less the "
+                f"bytes allocated before the step {step_peak} B (ratio {memory['temp_ratio']:.4f})")
+            stats["roofline"]["train"]["memory"] = memory
+        card = (f"{serve_stats['peak_gib'] * 2**30:.6g} B" if "peak_gib" in serve_stats
+                else "not measured")
+        log(f"  prefill memory (path 2, not held: the count runs the plain path, which writes "
+            f"the attention scores K3 never does): predicted peak {roof['prefill']['peak_bytes']:.6g} "
+            f"B, arguments {roof['prefill']['argument_size_in_bytes']:.6g} B; the card's peak "
+            f"over path 2's generate {card}")
 
         log("== main path 11c: python -m repro_torch.launch.dryrun, 256 and 512 ranks, "
             "fresh processes")
+        from repro_torch.launch.dryrun import MEMORY_FIELDS
+        from repro_torch.sharding import RULES_INSTALLED, rules
+
+        stats["torch"] = torch.__version__
+        stats["rules_installed"] = RULES_INSTALLED
+        stats["einsum_on_shards"] = not rules.flattens_splits()
+        log(f"  torch {torch.__version__}: the port's DTensor rules installed for "
+            f"{RULES_INSTALLED}; the SSD product on each rank's shards: "
+            f"{stats['einsum_on_shards']} (torch's view rule "
+            f"{'flattens' if rules.flattens_splits() else 'refuses to flatten'} two splits)")
         stats["dryrun"] = {}
         for job, (arch, shape, mesh) in zip(jobs[:-1], PATH11_CELLS):
             lines = finish_background(job)
@@ -2865,18 +2936,24 @@ def path11_phase(torch, zamba2, path2_run, serve_stats, train_stats, reset_count
             rec = json.loads((out_dir / f"{arch}__{shape}__{mesh}.json").read_text())
             check(rec["status"] == "ok", f"{arch} x {shape} x {mesh}: {rec.get('error')}")
             pricing = rec["pccl_pricing"]
+            mem = rec["memory_per_rank"]
             log(f"  {arch} x {shape} x {mesh} ({rec['chips']} ranks): per rank "
                 f"{rec['per_rank']['flops']:.4g} FLOPs, {rec['per_rank']['hbm_bytes']:.4g} HBM B, "
-                f"collective B by op {json.dumps(rec['collectives']['bytes_by_op'])}, memory "
-                f"{rec['memory_per_rank']['total']:.4g} B (fits 80 GB: "
-                f"{rec['memory_per_rank']['fits']}); PCCL speedup {pricing['speedup']:.4f}")
+                f"collective B by op {json.dumps(rec['collectives']['bytes_by_op'])}; memory "
+                + ", ".join(f"{k} {mem[k]:.6g}" for k in MEMORY_FIELDS)
+                + f", total {mem['total']:.4g} B (fits 80 GB: {mem['fits']}); PCCL speedup "
+                f"{pricing['speedup']:.4f}; fallbacks {rec['fallbacks']['count']} "
+                f"{json.dumps(rec['fallbacks']['ops'])}")
+            check(rec["fallbacks"]["count"] == 0,
+                  f"{arch} x {shape} x {mesh}: {rec['fallbacks']['count']} ops fell back "
+                  f"({rec['fallbacks']['ops']})")
             stats["dryrun"][f"{arch}__{shape}__{mesh}"] = {
                 "per_rank": rec["per_rank"], "bytes_by_op": rec["collectives"]["bytes_by_op"],
                 "count_by_op": rec["collectives"]["count_by_op"],
                 "memory_per_rank": rec["memory_per_rank"], "speedup": pricing["speedup"],
                 "pccl_comm_s": pricing["pccl_comm_s"], "fixed_comm_s": pricing["fixed_comm_s"],
                 "count_s": rec["count_s"], "depth": rec["depth"],
-                "fallbacks": rec["fallbacks"]["count"]}
+                "fallbacks": rec["fallbacks"]["count"], "fallback_ops": rec["fallbacks"]["ops"]}
     finally:
         for job in jobs:  # every process the path started ends with it
             if job["proc"].poll() is None:
@@ -3341,8 +3418,12 @@ def main() -> int:
     log(f"  phase main path 7: {time.perf_counter() - t:.3f} s; kernel launches {path7}")
     check(path7["flash"] > 0 and path7["ssd"] > 0, "main path 7 never launched K3 or K4")
     train_stats = check_train(torch, trained, zamba2_train, plain_loss)
-    train_stats["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-    log(f"  peak device memory: {train_stats['peak_gib']:.2f} GiB")
+    held = trained["warm_step_memory"]
+    train_stats["peak_gib"] = max(held["peak_before"], torch.cuda.max_memory_allocated()) / 2**30
+    train_stats["warm_step_memory"] = held
+    log(f"  peak device memory: {train_stats['peak_gib']:.2f} GiB; the last (warm) step: "
+        f"{held['allocated_before']} B allocated before it, {held['peak']} B at its peak "
+        f"(+{held['peak'] - held['allocated_before']} B), its arguments {held['arguments']} B")
     t = time.perf_counter()
     train_stats["profile"] = profile_train(torch, trained)
     del trained

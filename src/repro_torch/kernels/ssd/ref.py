@@ -27,6 +27,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding.rules import einsum as sharded_einsum
+
 
 def _bc_expand(m: torch.Tensor) -> torch.Tensor:
     return m[:, :, None, :] if m.ndim == 3 else m  # (B,S,N) shared across heads
@@ -73,7 +75,7 @@ def ssd_reference(
     dec = torch.exp(torch.where(tri[None, None, :, :, None], dec, -torch.inf))
     scores = torch.einsum("bclgn,bcmgn->bclmg", Cc, Bc)        # (B,nc,L,L,Hb)
     w = scores * dec                                           # broadcasts Hb == 1
-    Y_diag = torch.einsum("bclmh,bcmhp->bclhp", w, Xc)
+    Y_diag = sharded_einsum("bclmh,bcmhp->bclhp", w, Xc)  # batch and heads may be split
 
     # chunk states: S_c = Σ_s exp(total - cum_s) X_s ⊗ B_s   → (B,nc,H,P,N)
     decay_to_end = torch.exp(total[:, :, None, :] - cum)       # (B,nc,L,H)

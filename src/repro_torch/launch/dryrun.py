@@ -15,10 +15,14 @@ by op.  Each record holds:
 * the roofline (H100 SXM constants) and MODEL_FLOPS;
 * collective bytes and counts by op, and their PCCL pricing
   (:func:`repro_torch.launch.perf.pccl_pricing`);
-* bytes per rank of the parameters, their gradients, AdamW's two fp32
-  moments and the decode state, from the placements, and whether they fit
-  an 80 GB card.  Activation memory is not counted (torch has no
-  counterpart of XLA's ``memory_analysis``).
+* the reference's ``memory_analysis`` fields per rank, from the live
+  bytes of the rank's local tensors over the step
+  (:class:`repro_torch.launch.roofline.LiveBytes`): arguments, outputs,
+  temporaries (the peak less the arguments) and outputs aliased to
+  arguments; whether arguments and temporaries fit an 80 GB card; and
+  beside them the bytes of the parameters, their gradients, AdamW's two
+  fp32 moments and the decode state, from the placements.  The lifetimes
+  are eager execution's, not XLA's buffer assignment after fusion.
 
 Families whose full depth is slow to count eagerly (the SSD scan's and the
 sLSTM's loops: hybrid and ssm) and configs of more than 32 layers are
@@ -74,6 +78,7 @@ from repro_torch.models import build_model
 from repro_torch.models import ssm as SSM
 from repro_torch.models.module import ParamSpec, children, param_count
 from repro_torch.sharding import default_rules, use_partitioning
+from repro_torch.sharding.rules import clear_caches
 from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
 from repro_torch.train.train_step import make_train_step
 
@@ -89,11 +94,15 @@ def _quiet() -> None:
 
 
 def fake_world(n: int) -> None:
-    """Make the default process group a fake one of ``n`` ranks."""
+    """Make the default process group a fake one of ``n`` ranks.  DTensor's
+    caches of placements are emptied with the old group: a mesh of the new
+    one compares equal to an old mesh of the same shape, and a cached
+    placement would carry the old mesh's (destroyed) process groups."""
     if dist.is_initialized():
         if dist.get_world_size() == n and dist.get_backend() == "fake":
             return
         dist.destroy_process_group()
+    clear_caches()
     init_fake_world(n)
 
 
@@ -131,20 +140,20 @@ def count_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, rules, *,
             step = make_train_step(model, OptimizerConfig(), microbatches=microbatches)
             opt_state = init_opt_state(params)
             batch = batch_specs(cfg, shape, mesh, rules)
-            with R.count_step() as count:
-                step(params, opt_state, batch)
+            with R.count_step(params, opt_state, batch) as count:
+                count.memory.returned(step(params, opt_state, batch))
         elif shape.kind == "prefill":
             batch = batch_specs(cfg, shape, mesh, rules)
             # the cache the prefill fills: placed DTensors, not whole host tensors
             fresh = build_model(cfg)
             model.init_decode_state = (
                 lambda b, t, device=None: decode_state_specs(fresh, b, t, mesh, rules))
-            with torch.no_grad(), R.count_step() as count:
-                model.prefill(params, batch, max_len=max_len)
+            with torch.no_grad(), R.count_step(params, batch) as count:
+                count.memory.returned(model.prefill(params, batch, max_len=max_len))
         else:  # decode
             tokens, state = decode_specs(cfg, shape, mesh, rules)
-            with torch.no_grad(), R.count_step() as count:
-                model.decode_step(params, state, tokens)
+            with torch.no_grad(), R.count_step(params, state, tokens) as count:
+                count.memory.returned(model.decode_step(params, state, tokens))
     return count
 
 
@@ -161,14 +170,19 @@ def use_depth_points(cfg: ModelConfig, depth: str) -> bool:
     return bool(cfg.hybrid or cfg.xlstm) or cfg.n_layers > MAX_FULL_DEPTH_LAYERS
 
 
+def _fields(c: R.StepCount) -> Dict:
+    return {"flops": c.flops, "hbm_bytes": c.hbm_bytes, **c.memory.analysis(),
+            "peak_bytes": c.memory.peak}
+
+
 def count_full(cfg: ModelConfig, shape: ShapeConfig, mesh, rules, depth: str = "auto",
                **step) -> Dict:
     """The cell's per-rank count at full depth: counted, or extrapolated
-    from two depths (``depth_points``).  ``step`` goes to
-    :func:`count_cell`."""
+    from two depths (``depth_points``), the memory fields as the FLOPs.
+    ``step`` goes to :func:`count_cell`."""
     if not use_depth_points(cfg, depth):
         c = count_cell(cfg, shape, mesh, rules, **step)
-        return {"depth": {"full": cfg.n_layers}, "flops": c.flops, "hbm_bytes": c.hbm_bytes,
+        return {"depth": {"full": cfg.n_layers}, **_fields(c),
                 "bytes_by_op": dict(c.stats.bytes_by_op), "count_by_op": dict(c.stats.count_by_op),
                 "fallbacks": c.fallbacks, "fallback_ops": dict(c.fallback_ops)}
     points, v_full = R.depth_points(cfg)
@@ -180,10 +194,10 @@ def count_full(cfg: ModelConfig, shape: ShapeConfig, mesh, rules, depth: str = "
         return {k: _extrapolate(d1.get(k, 0), d2.get(k, 0), v1, v2, v_full)
                 for k in sorted(set(d1) | set(d2))}
 
+    f1, f2 = _fields(c1), _fields(c2)
     return {
         "depth": {"points": [v1, v2], "v_full": v_full},
-        "flops": _extrapolate(c1.flops, c2.flops, v1, v2, v_full),
-        "hbm_bytes": _extrapolate(c1.hbm_bytes, c2.hbm_bytes, v1, v2, v_full),
+        **{k: _extrapolate(f1[k], f2[k], v1, v2, v_full) for k in f1},
         "bytes_by_op": by("bytes_by_op"),
         "count_by_op": by("count_by_op"),
         "fallbacks": c1.fallbacks + c2.fallbacks,
@@ -200,10 +214,17 @@ def _state_bytes(state_shapes, axes, mesh, rules) -> int:
     return sum(_state_bytes(v, a, mesh, rules) for v, a in zip(state_shapes, axes))
 
 
-def memory_per_rank(cfg: ModelConfig, shape: ShapeConfig, mesh, rules) -> Dict:
-    """Bytes rank 0 holds of the parameters (fp32), their gradients (the
+MEMORY_FIELDS = ("argument_size_in_bytes", "output_size_in_bytes", "temp_size_in_bytes",
+                 "alias_size_in_bytes")
+
+
+def memory_per_rank(cfg: ModelConfig, shape: ShapeConfig, mesh, rules, counted: Dict) -> Dict:
+    """Bytes rank 0 holds: the reference's ``memory_analysis`` fields from
+    the count (``counted``, :func:`count_full`'s record), and whether the
+    arguments and the peak of temporaries fit an 80 GB card; beside them,
+    from the placements, the parameters (fp32), their gradients (the
     port's step keeps them until the update), AdamW's two fp32 moments and,
-    for decode cells, the decode state; activations are not counted."""
+    for decode cells, the decode state."""
     model = build_model(cfg)
     specs = model.specs()
 
@@ -222,9 +243,9 @@ def memory_per_rank(cfg: ModelConfig, shape: ShapeConfig, mesh, rules) -> Dict:
     if shape.kind == "decode":
         state = model.init_decode_state(shape.global_batch, shape.seq_len, device="meta")
         out["decode_state"] = _state_bytes(state, model.decode_state_axes(), mesh, rules)
-    total = sum(out.values())
-    out.update(total=total, card_bytes=CARD_BYTES, fits=total <= CARD_BYTES,
-               activations="not counted")
+    out.update({k: counted[k] for k in MEMORY_FIELDS})
+    total = counted["argument_size_in_bytes"] + counted["temp_size_in_bytes"]
+    out.update(total=total, card_bytes=CARD_BYTES, fits=total <= CARD_BYTES)
     return out
 
 
@@ -275,7 +296,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *, verbose: bool = True
         "collectives": {"bytes_by_op": per_rank["bytes_by_op"],
                         "count_by_op": per_rank["count_by_op"]},
         "fallbacks": {"count": per_rank["fallbacks"], "ops": per_rank["fallback_ops"]},
-        "memory_per_rank": memory_per_rank(cfg, shape, mesh, rules),
+        "memory_per_rank": memory_per_rank(cfg, shape, mesh, rules, per_rank),
         "pccl_pricing": pccl_pricing(per_rank["bytes_by_op"], chips),
     }
     if verbose:
@@ -296,8 +317,9 @@ def one_rank_roofline(cfg: ModelConfig, kind: str, batch: int, seq: int, *,
     """The roofline of one step of ``cfg`` on one card — a mesh of one
     rank, so every tensor is whole — for a measured time to stand beside:
     ``kind`` "train" (``microbatches``) or "prefill" (a cache of
-    ``max_len``) at ``batch`` × ``seq`` tokens.  Counts the plain path
-    (the kernels' ``ops`` never see a meta tensor)."""
+    ``max_len``) at ``batch`` × ``seq`` tokens, with its ``memory_analysis``
+    fields and the peak of live bytes, for a measured peak to stand beside.
+    Counts the plain path (the kernels' ``ops`` never see a meta tensor)."""
     _quiet()
     fake_world(1)
     mesh = make_mesh((1, 1), ("data", "model"), device_type="cpu")
@@ -311,7 +333,8 @@ def one_rank_roofline(cfg: ModelConfig, kind: str, batch: int, seq: int, *,
     return {"arch": cfg.name, "kind": kind, "batch": batch, "seq": seq,
             "microbatches": microbatches, "max_len": max_len, "depth": c["depth"],
             "flops": c["flops"], "hbm_bytes": c["hbm_bytes"], "compute_s": rl.compute_s,
-            "memory_s": rl.memory_s, "count_s": round(time.time() - t0, 2)}
+            "memory_s": rl.memory_s, "peak_bytes": c["peak_bytes"],
+            **{k: c[k] for k in MEMORY_FIELDS}, "count_s": round(time.time() - t0, 2)}
 
 
 def cell_path(arch, shape_name, mesh_kind, out: pathlib.Path = RESULTS) -> pathlib.Path:

@@ -32,6 +32,8 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from repro_torch.device import resolve_device
+
 
 def _child(program: Callable, rank: int, world: int, store_path: str, backend: str,
            args: Tuple, kwargs: Dict, results, threads: Optional[int]) -> None:
@@ -139,7 +141,7 @@ def case_schedule(case: Dict, schedules):
     return getattr(schedules, name)(*[nbytes if a == "nbytes" else a for a in rest])
 
 
-def collectives_program(cases: Sequence[Dict], device: str = "cpu", reps: int = 0,
+def collectives_program(cases: Sequence[Dict], device: Optional[str] = None, reps: int = 0,
                         digest: bool = False) -> Dict[str, Any]:
     """Each case on this rank's :func:`local_input`.
 
@@ -160,7 +162,8 @@ def collectives_program(cases: Sequence[Dict], device: str = "cpu", reps: int = 
     ``ScheduleExecutionError`` text it raised; the kernels' launches of its
     first call, by route; and with ``reps`` (or the case's own ``reps``)
     the mean ms of that many more calls, each ending in a device sync.  The
-    routes and staged bytes count every call, the timed ones too."""
+    routes and staged bytes count every call, the timed ones too.  On the
+    rank's CUDA device unless ``device`` names another."""
     from repro_torch.api import PcclSession
     from repro_torch.comm import exec_engine
     from repro_torch.comm import primitives as P
@@ -174,8 +177,9 @@ def collectives_program(cases: Sequence[Dict], device: str = "cpu", reps: int = 
 
     group = dist.group.WORLD
     me = dist.get_rank()
+    device = resolve_device(device)
     exec_engine.clear_exec_caches()
-    sync = torch.cuda.synchronize if device.startswith("cuda") else (lambda: None)
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     results: List[Dict[str, Any]] = []
     for case in cases:
         dtype = getattr(torch, case.get("dtype", "float32"))
@@ -318,20 +322,22 @@ def gloo_cuda_program(what: str) -> List[float]:
     return out.cpu().tolist()
 
 
-def elastic_program(device: str = "cpu") -> Dict[str, Any]:
+def elastic_program(device: Optional[str] = None) -> Dict[str, Any]:
     """``tests/elastic_check.py`` on 8 ranks: a ``(4, 2)`` ``("data",
     "model")`` mesh loses data slice 2, :func:`~repro_torch.runtime.fault.shrink_mesh`
     gives ``(3, 2)``, :func:`~repro_torch.runtime.fault.reshard_tree` moves
     ``w`` (8 × 8, split over both axes) and ``b`` (4 × 8, over "model"),
-    and a step (× 2) runs on the survivors.  Returns what a survivor sees
-    (``None`` values on a failed rank)."""
+    and a step (× 2) runs on the survivors (on the rank's CUDA device unless
+    ``device`` names another).  Returns what a survivor sees (``None``
+    values on a failed rank)."""
     from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor import distribute_tensor
 
     from repro_torch.runtime.fault import reshard_tree, shrink_mesh
     from repro_torch.sharding.partition import Sharding, placements
 
-    mesh = init_device_mesh(device, (4, 2), mesh_dim_names=("data", "model"))
+    device = resolve_device(device)
+    mesh = init_device_mesh(device.type, (4, 2), mesh_dim_names=("data", "model"))
     sh = {"w": Sharding(mesh, (("data",), ("model",))), "b": Sharding(mesh, (None, ("model",)))}
     whole = {"w": torch.arange(64.0).reshape(8, 8), "b": torch.ones(4, 8)}
     tree = {k: distribute_tensor(v.to(device), mesh, placements(sh[k].spec, v.ndim, mesh),
@@ -352,11 +358,12 @@ def elastic_program(device: str = "cpu") -> Dict[str, Any]:
 
 
 def trainer_program(cfg, data_cfg, opt_cfg, trainer_cfg, *, mesh_shape: Tuple[int, ...],
-                    rules, device: str = "cpu", ckpt_dir: Optional[str] = None,
+                    rules, device: Optional[str] = None, ckpt_dir: Optional[str] = None,
                     fail_at: Sequence[int] = (), shrink: bool = False) -> Dict[str, Any]:
     """The :class:`~repro_torch.train.Trainer` on a ``("data", "model")``
     mesh of ``mesh_shape`` over the world (checkpoints under ``ckpt_dir``,
-    failures injected at ``fail_at``).  Returns each step's loss and wall,
+    failures injected at ``fail_at``), on the rank's CUDA device unless
+    ``device`` names another.  Returns each step's loss and wall,
     the kernels' launches by route in this process, and on CUDA its peak
     memory.  With ``shrink``, data slice 1 then "fails": the mesh shrinks
     (:func:`~repro_torch.runtime.fault.shrink_mesh`), the parameters and
@@ -373,11 +380,13 @@ def trainer_program(cfg, data_cfg, opt_cfg, trainer_cfg, *, mesh_shape: Tuple[in
     # DTensor warns at every two-axis reduction it plans (each rank, each
     # step); the rank's log keeps its errors
     logging.getLogger("torch.distributed.tensor").setLevel(logging.ERROR)
-    mesh = make_mesh(tuple(mesh_shape), ("data", "model")[:len(mesh_shape)], device_type=device)
+    device = resolve_device(device)
+    mesh = make_mesh(tuple(mesh_shape), ("data", "model")[:len(mesh_shape)],
+                     device_type=device.type)
     ckpt = CheckpointConfig(ckpt_dir, async_write=True) if ckpt_dir else None
     trainer = Trainer(cfg, data_cfg, opt_cfg, trainer_cfg, ckpt_cfg=ckpt, mesh=mesh, rules=rules,
                       failure_injector=FailureInjector(tuple(fail_at)), device=device)
-    cuda = device.startswith("cuda")
+    cuda = device.type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     LAUNCHES.reset()

@@ -17,7 +17,13 @@ are meta tensors (nothing is allocated), under two dispatch modes
 * the inner mode sees the functional collectives DTensor issues to
   redistribute, on their local tensors, and turns each result size R and
   group size S into per-rank wire bytes with the reference's ring factors
-  (``_WIRE_FACTOR``).
+  (``_WIRE_FACTOR``);
+* the inner mode also sees every local tensor an op makes, and
+  :class:`LiveBytes` holds the bytes of their storages (each once, so a
+  view adds nothing) until the storage dies: the rank's live bytes as the
+  caching allocator would see them, and their peak over the step.  With the
+  step's arguments (held on entry) and what it returns, they give the
+  reference's ``memory_analysis`` fields (:meth:`LiveBytes.analysis`).
 
 Where DTensor's sharding propagation has no rule for an op on its inputs'
 placements (an uneven unflatten, say), the outer mode replicates those
@@ -37,10 +43,12 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
+import weakref
 from dataclasses import dataclass, field
 from typing import Dict, Iterator, Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten, tree_map
@@ -214,17 +222,102 @@ def _active_params(cfg: ModelConfig, n_params: int) -> Optional[int]:
 # ------------------------------------------------------------- counting
 
 
+class LiveBytes:
+    """The bytes of the distinct tensor storages one rank holds, each from
+    the op that made it until it dies, and their peak.
+
+    A storage is counted once, whatever views of it exist, and dropped by a
+    ``weakref.finalize`` when it is freed: the lifetimes eager execution
+    gives, as the caching allocator sees them (its rounding of each block
+    to 512 bytes aside).  Meta storages count their bytes as real ones do.
+    The step's arguments are held on entry (:meth:`hold_arguments`), what
+    it returns at its end (:meth:`returned`)."""
+
+    def __init__(self) -> None:
+        self.live = 0
+        self.peak = 0
+        self.argument = 0
+        self.output = 0
+        self.alias = 0
+        self._held: Dict[int, int] = {}
+        self._arguments: set = set()
+
+    def hold(self, t) -> None:
+        """Count ``t``'s storage from now on, if it is not counted yet."""
+        if isinstance(t, DTensor):
+            t = t._local_tensor
+        if not isinstance(t, torch.Tensor) or isinstance(t, FakeTensor):
+            return  # DTensor's own shape inference, on a cache miss
+        s = t.untyped_storage()
+        key, n = s._cdata, s.nbytes()
+        old = self._held.get(key)
+        if old is None:
+            weakref.finalize(s, self._drop, key)
+        elif old == n:
+            return
+        self._held[key] = n
+        self.live += n - (old or 0)
+        self.peak = max(self.peak, self.live)
+
+    def _drop(self, key: int) -> None:
+        self.live -= self._held.pop(key, 0)
+        self._arguments.discard(key)
+
+    def hold_arguments(self, *trees) -> None:
+        for t in _tensor_leaves(trees):
+            self.hold(t)
+        self._arguments = set(self._held)
+        self.argument = self.live
+
+    def returned(self, tree) -> None:
+        """What the step returned and is live at its end; the part of it
+        whose storage is an argument's (updated in place) is the alias."""
+        keys = {}
+        for t in _tensor_leaves(tree):
+            t = t._local_tensor if isinstance(t, DTensor) else t
+            s = t.untyped_storage()
+            keys[s._cdata] = self._held.get(s._cdata, s.nbytes())
+        self.output = sum(keys.values())
+        self.alias = sum(n for k, n in keys.items() if k in self._arguments)
+
+    def analysis(self) -> Dict[str, int]:
+        """The reference's ``memory_analysis`` fields: arguments, outputs,
+        the peak of live bytes less the arguments, and the outputs that are
+        arguments updated in place."""
+        return {"argument_size_in_bytes": self.argument,
+                "output_size_in_bytes": self.output,
+                "temp_size_in_bytes": self.peak - self.argument,
+                "alias_size_in_bytes": self.alias}
+
+
+def _tensor_leaves(tree):
+    """The tensors of a tree of dicts, lists, tuples and modules."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, torch.nn.Module):
+        yield from tree.parameters()
+        yield from tree.buffers()
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensor_leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensor_leaves(v)
+
+
 @dataclass
 class StepCount:
     """What one rank does in the counted region: FLOPs, HBM bytes (an
-    estimate), collective wire bytes by op, and the ops DTensor could not
-    place without replicating their inputs first."""
+    estimate), collective wire bytes by op, the ops DTensor could not
+    place without replicating their inputs first, and the live bytes of
+    its local tensors."""
 
     flops: float = 0.0
     hbm_bytes: float = 0.0
     stats: CollectiveStats = field(default_factory=CollectiveStats)
     fallbacks: int = 0
     fallback_ops: Dict[str, int] = field(default_factory=dict)
+    memory: LiveBytes = field(default_factory=LiveBytes)
 
 
 def shard_factor(t: DTensor) -> int:
@@ -344,7 +437,8 @@ class _Ops(TorchDispatchMode):
 
 
 class _Collectives(TorchDispatchMode):
-    """Inner mode: the functional collectives, on their local tensors."""
+    """Inner mode: the functional collectives, and the storage of every
+    tensor made, on their local tensors."""
 
     def __init__(self, count: StepCount):
         super().__init__()
@@ -355,6 +449,8 @@ class _Collectives(TorchDispatchMode):
         if any(issubclass(t, DTensor) for t in types):
             return NotImplemented  # DTensor desugars it into local ops first
         out = func(*args, **kwargs)
+        for t in tree_flatten(out)[0]:
+            self.count.memory.hold(t)
         op = FUNCOL_OPS.get(func._overloadpacket.__name__)
         if op is not None and func.namespace in ("_c10d_functional", "_dtensor"):
             self.count.stats.add(op, _local_bytes(out), _group_size(func, args, kwargs))
@@ -383,11 +479,14 @@ def _shard_dim_alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
 
 
 @contextlib.contextmanager
-def count_step() -> Iterator[StepCount]:
-    """Count what one rank does in the block (see the module docstring)."""
+def count_step(*arguments) -> Iterator[StepCount]:
+    """Count what one rank does in the block (see the module docstring);
+    ``arguments`` are the step's (held from the start), and the block hands
+    what the step returns to ``count.memory.returned``."""
     from torch.distributed.tensor import placement_types
 
     count = StepCount()
+    count.memory.hold_arguments(*arguments)
     saved = placement_types.shard_dim_alltoall
     placement_types.shard_dim_alltoall = _shard_dim_alltoall
     try:

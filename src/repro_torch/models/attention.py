@@ -36,6 +36,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tenso
 from repro_torch.configs.base import MLAConfig, ModelConfig
 from repro_torch.kernels.flash import ops as flash_ops
 from repro_torch.sharding import shard
+from repro_torch.sharding.partition import local_part
 
 from .layers import apply_rope
 from .module import ParamSpec, normal_init
@@ -128,7 +129,7 @@ def _on_shards(attend, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, **kw) 
 
     def local(t, pl):
         if isinstance(t, DTensor):
-            return t.redistribute(mesh, pl).to_local()
+            return local_part(t, pl)
         return distribute_tensor(t, mesh, pl, src_data_rank=None).to_local()
 
     q_l, k_l, v_l = (local(t, place) for t in (q, k, v))

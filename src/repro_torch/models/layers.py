@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.sharding import shard
+from repro_torch.sharding.partition import local_part
 
 from .module import ParamSpec, normal_init, ones_init, zeros_init
 
@@ -92,6 +93,49 @@ def _rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
     return DTensor.from_local(local, mesh, out_place, run_check=False,
                               shape=torch.Size(shape), stride=stride)
+
+
+def pick_targets(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """``logits.gather(-1, targets[..., None])[..., 0]``: each position's
+    logit of its target, on DTensors by each rank from its own shards.
+
+    DTensor's gather backward makes a zero gradient of the logits' global
+    shape, replicated, on every rank (``new_zeros`` keeps the global size)
+    before it scatters into it.  Here each rank gathers from its local
+    logits (partial sums reduced first): where one mesh dimension splits
+    the vocabulary, the targets in its slice, with zeros for the others,
+    the result summed over that dimension (the masked gather DTensor does
+    itself); the backward scatters into a local zero."""
+    ids = targets.long().unsqueeze(-1)
+    if not isinstance(logits, DTensor) or not isinstance(targets, DTensor):
+        return logits.gather(-1, ids).squeeze(-1)
+    mesh, last = logits.device_mesh, logits.ndim - 1
+    vocab = [i for i, p in enumerate(logits.placements)
+             if isinstance(p, Shard) and p.dim == last and mesh.size(i) > 1]
+    if len(vocab) > 1:
+        return logits.gather(-1, ids).squeeze(-1)
+    keep = [Replicate() if p.is_partial() else p for p in logits.placements]
+    rows = [Replicate() if i in vocab else p for i, p in enumerate(keep)]
+    local_logits = local_part(logits, keep)
+    local_ids = targets.redistribute(mesh, rows).to_local().long()
+    out_place = list(rows)
+    if vocab:
+        (v,) = vocab
+        width = -(-logits.shape[-1] // mesh.size(v))  # torch.chunk's split
+        lo = mesh.get_local_rank(v) * width
+        n = local_logits.shape[-1]
+        mine = (local_ids >= lo) & (local_ids < lo + n)
+        got = local_logits.gather(-1, (local_ids - lo).clamp(0, max(n - 1, 0)).unsqueeze(-1))
+        local = torch.where(mine, got.squeeze(-1), torch.zeros((), dtype=got.dtype,
+                                                                device=got.device))
+        out_place[v] = Partial()
+    else:
+        local = local_logits.gather(-1, local_ids.unsqueeze(-1)).squeeze(-1)
+    shape = tuple(targets.shape)
+    stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+    gold = DTensor.from_local(local, mesh, out_place, run_check=False,
+                              shape=torch.Size(shape), stride=stride)
+    return gold.redistribute(mesh, rows)  # the partial sum reduced at once, as ``_settled``
 
 
 def embed_lookup(table: torch.Tensor, ids: torch.Tensor, dtype) -> torch.Tensor:

@@ -29,6 +29,8 @@ import functools
 from typing import Dict, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
@@ -38,7 +40,6 @@ from torch.utils.checkpoint import (
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.sharding import shard
-from repro_torch.sharding.partition import _settled
 
 from . import attention as A
 from . import moe as M
@@ -51,6 +52,7 @@ from .layers import (
     init_mlp,
     init_norm,
     logits_projection,
+    pick_targets,
     sinusoidal_positions,
 )
 from .module import ParamTree, init_tree, normal_init, shapes_of, stack_init, unstack
@@ -65,7 +67,7 @@ def _positions(B: int, S: int, device=None) -> torch.Tensor:
 def _xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Mean softmax cross-entropy of fp32 ``logits`` against token ids."""
     lse = torch.logsumexp(logits, dim=-1)
-    gold = _settled(logits.gather(-1, targets.long().unsqueeze(-1))).squeeze(-1)
+    gold = pick_targets(logits, targets)
     return (lse - gold).mean()
 
 
@@ -84,7 +86,10 @@ def _remat(fn, cfg: ModelConfig):
     ``"full"`` saves only its inputs, ``"dots"`` also the outputs of its
     matmuls, ``"none"`` does not wrap.  Non-reentrant
     ``torch.utils.checkpoint``; without grad mode ``fn`` runs as it is.
-    The loss and gradients are the same in every mode."""
+    The loss and gradients are the same in every mode.  The recompute runs
+    on the autograd engine's thread, which for CUDA tensors is not the
+    caller's: DTensor's implicit replication (a thread-local switch, on in
+    a sharded step) is carried over to it."""
     if cfg.remat == "none":
         return fn
     if cfg.remat == "dots":
@@ -97,7 +102,15 @@ def _remat(fn, cfg: ModelConfig):
     def wrapped(*args, **kwargs):
         if not torch.is_grad_enabled():
             return fn(*args, **kwargs)
-        return checkpoint(fn, *args, use_reentrant=False, **extra, **kwargs)
+        carried = DTensor._op_dispatcher._allow_implicit_replication
+
+        def body(*a, **k):
+            if carried and not DTensor._op_dispatcher._allow_implicit_replication:
+                with implicit_replication():
+                    return fn(*a, **k)
+            return fn(*a, **k)
+
+        return checkpoint(body, *args, use_reentrant=False, **extra, **kwargs)
 
     return wrapped
 

@@ -1,3 +1,4 @@
+from . import rules
 from .partition import (
     SITES,
     Rules,
@@ -11,5 +12,8 @@ from .partition import (
     spec_for,
     use_partitioning,
 )
+
+# the port's DTensor rules where the running torch has none (``rules``)
+RULES_INSTALLED = rules.install()
 
 __all__ = [k for k in dir() if not k.startswith("_")]

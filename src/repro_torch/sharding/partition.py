@@ -258,6 +258,25 @@ def shard(x: torch.Tensor, axes: Sequence[Optional[str]]) -> torch.Tensor:
     return x
 
 
+def local_part(x: DTensor, place) -> torch.Tensor:
+    """``x`` redistributed to ``place``, and this rank's local tensor of it,
+    for a computation on each rank's shards.  The gradient that comes back
+    through it is this rank's, contiguous: DTensor wraps it with ``x``'s
+    global strides, and a later view of a transposed local gradient (an
+    einsum's backward leaves one) would fail; and where a recompute on
+    autograd's CUDA thread hands it back as a DTensor (a remat'd layer
+    under implicit replication), wrapping that again would nest one
+    DTensor in another."""
+    local = x.redistribute(x.device_mesh, place).to_local()
+    if local.requires_grad:
+        local.register_hook(_local_gradient)
+    return local
+
+
+def _local_gradient(g: torch.Tensor) -> torch.Tensor:
+    return (g.to_local() if isinstance(g, DTensor) else g).contiguous()
+
+
 def _settled(x):
     """``x`` with its masked partial sums (a gather or an embedding lookup
     on a vocab-sharded dimension) reduced at once: DTensor keeps the mask

@@ -974,6 +974,85 @@ def test_sharded_trainer_on_the_card_equals_one_process(dev, tmp_path):
     assert len(survivors) == 2 and all(r["reshard_exact"] for r in survivors)
 
 
+def _loss_and_grads(cfg, start, batch, dev, mesh=None, rules=None):
+    """The loss and every gradient of one step of ``cfg`` from the weights
+    ``start``; under ``mesh`` the parameters and the batch are DTensors
+    placed by ``rules``, as the sharded ``Trainer`` places them."""
+    import contextlib
+
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.data import to_device
+    from repro_torch.models import ParamTree, build_model
+    from repro_torch.models.module import axes_of, shapes_of
+    from repro_torch.sharding import partition
+    from repro_torch.train.optimizer import leaves
+    from repro_torch.train.trainer import _place
+
+    model = build_model(cfg)
+    params = ParamTree.from_state_dict({k: v.clone().to(dev) for k, v in start.items()})
+    batch = to_device(batch, dev)
+    placed = contextlib.nullcontext()
+    if mesh is not None:
+        specs = model.specs()
+        _place(params, partition.param_sharding(axes_of(specs), mesh, rules,
+                                                shapes_tree=shapes_of(specs)), mesh)
+        with partition.use_partitioning(mesh, rules):
+            batch = {k: distribute_tensor(v, mesh, partition.placements(partition.spec_for(
+                ("batch",) + (None,) * (v.ndim - 1), tuple(v.shape)), v.ndim, mesh),
+                src_data_rank=None) for k, v in batch.items()}
+        placed = contextlib.ExitStack()
+        placed.enter_context(partition.use_partitioning(mesh, rules))
+        placed.enter_context(implicit_replication())
+    p = leaves(params)
+    for t in p.values():
+        t.requires_grad_(True)
+    with placed:
+        loss, _ = model.loss(params, batch)
+        loss.backward()
+    whole = lambda t: (t.full_tensor() if isinstance(t, DTensor) else t).detach().cpu()
+    return whole(loss), {k: whole(t.grad) for k, t in p.items()}
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "olmoe-1b-7b"])
+def test_reduced_train_step_under_a_one_rank_nccl_mesh_equals_no_mesh(dev, arch):
+    """A reduced Zamba2 and OLMoE step (fp32, plain path) with DTensor
+    parameters and batch on a one-rank NCCL mesh, the default rules: the
+    ops this torch has no DTensor rule for take the port's
+    (``repro_torch.sharding.rules``); the loss and every gradient within
+    1e-6 of the step with no mesh."""
+    import os
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.models import build_model
+    from repro_torch.sharding import default_rules
+
+    cfg = get_config(arch).reduced()
+    start = build_model(cfg).init(torch.Generator().manual_seed(0), "cpu").state_dict()
+    batch = SyntheticLMData(cfg, DataConfig(global_batch=4, seq_len=32)).global_batch(0)
+    want_loss, want = _loss_and_grads(cfg, start, batch, dev)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    dist.init_process_group("nccl", rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        loss, grads = _loss_and_grads(cfg, start, batch, dev, mesh, default_rules())
+    finally:
+        dist.destroy_process_group()
+    torch.testing.assert_close(loss, want_loss, rtol=0, atol=1e-6)
+    assert set(grads) == set(want)
+    for k in want:
+        torch.testing.assert_close(grads[k], want[k], rtol=0, atol=1e-6, msg=k)
+
+
 # ------------------------------------------- the kernel lint's launch models
 
 def _lint_cases():

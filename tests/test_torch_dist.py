@@ -122,7 +122,7 @@ def worlds(tmp_path_factory):
     def get(n):
         if n not in done:
             cases = [c for _, c in CASES[n]]
-            done[n] = procs.spawn(procs.collectives_program, n, (cases,),
+            done[n] = procs.spawn(procs.collectives_program, n, (cases, "cpu"),
                                   store_dir=str(tmp_path_factory.mktemp(f"store{n}")),
                                   timeout_s=TIMEOUT_S)
         return done[n]

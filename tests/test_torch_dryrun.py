@@ -327,19 +327,26 @@ def test_specs_are_placed_meta_dtensors():
 
 
 def test_memory_per_rank_follows_the_placements():
+    """The placement breakdown beside the count's ``memory_analysis``
+    fields, whose arguments and temporaries decide ``fits``."""
     D.fake_world(256)
     mesh = D.make_production_mesh(device_type="cpu")
     rules = default_rules()
     cfg = configs.get_config("zamba2-2.7b")
-    mem = D.memory_per_rank(cfg, configs.SHAPES["train_4k"], mesh, rules)
+    counted = {"argument_size_in_bytes": 3e9, "output_size_in_bytes": 2e9,
+               "temp_size_in_bytes": 78e9, "alias_size_in_bytes": 1e9}
+    mem = D.memory_per_rank(cfg, configs.SHAPES["train_4k"], mesh, rules, counted)
     model = build_model(cfg)
     from repro_torch.models.module import axes_of, shapes_of
 
     shapes, axes = shapes_of(model.specs()), axes_of(model.specs())
     params = 4 * sum(SP.local_numel(shapes[k], axes[k], mesh, rules) for k in shapes)
     assert mem["params"] == params and mem["grads"] == params and mem["adam_moments"] == 2 * params
-    assert mem["total"] == 4 * params and mem["fits"] and mem["activations"] == "not counted"
-    dec = D.memory_per_rank(cfg, configs.SHAPES["decode_32k"], mesh, rules)
+    assert {k: mem[k] for k in D.MEMORY_FIELDS} == counted
+    assert mem["total"] == 81e9 and not mem["fits"] and "activations" not in mem
+    assert D.memory_per_rank(cfg, configs.SHAPES["train_4k"], mesh, rules,
+                             dict(counted, temp_size_in_bytes=77e9))["fits"]
+    dec = D.memory_per_rank(cfg, configs.SHAPES["decode_32k"], mesh, rules, counted)
     assert dec["decode_state"] > 0 and "adam_moments" not in dec
 
 
@@ -363,7 +370,15 @@ def test_the_cli_counts_zamba2_train_4k_on_256_ranks(tmp_path):
     assert rec["depth"] == {"points": [1, 2], "v_full": 9}
     assert rec["per_rank"]["flops"] > rec["model_flops"] / 256  # remat recomputes the forward
     assert set(rec["collectives"]["bytes_by_op"]) <= set(R.COLLECTIVE_OPS)
-    assert rec["memory_per_rank"]["fits"] and rec["fallbacks"]["count"] == 0
+    assert rec["fallbacks"]["count"] == 0
+    mem = rec["memory_per_rank"]
+    # the arguments: parameters and AdamW's moments, the step count (int32)
+    # and a rank's 16 × 4096 int64 tokens
+    assert mem["argument_size_in_bytes"] == mem["params"] + mem["adam_moments"] + 4 + 16 * 4096 * 8
+    assert mem["alias_size_in_bytes"] == mem["params"] + mem["adam_moments"]
+    assert mem["temp_size_in_bytes"] > mem["grads"]
+    assert mem["total"] == mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    assert mem["fits"] == (mem["total"] <= D.CARD_BYTES)
     assert rec["pccl_pricing"]["speedup"] > 0
 
 

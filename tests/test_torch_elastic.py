@@ -161,7 +161,7 @@ def sharded(tmp_path_factory, jax_losses):
         if kw:
             kw["ckpt_dir"] = str(d / "ckpt")
         runs[name] = procs.spawn(procs.trainer_program, 4, _port_args(),
-                                 dict(mesh_shape=(2, 2), rules=default_rules(), **kw),
+                                 dict(mesh_shape=(2, 2), rules=default_rules(), device="cpu", **kw),
                                  store_dir=str(d), timeout_s=TIMEOUT_S)
     return runs
 
@@ -173,7 +173,8 @@ def one_process():
 
 
 def test_elastic_shrink_and_reshard_on_eight_processes(tmp_path):
-    results = procs.spawn(procs.elastic_program, 8, store_dir=str(tmp_path), timeout_s=TIMEOUT_S)
+    results = procs.spawn(procs.elastic_program, 8, ("cpu",), store_dir=str(tmp_path),
+                          timeout_s=TIMEOUT_S)
     failed = [r for r in results if r["failed"]]
     survivors = [r for r in results if not r["failed"]]
     assert len(failed) == 2 and len(survivors) == 6  # data slice 2: ranks 4 and 5

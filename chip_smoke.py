@@ -107,7 +107,13 @@ and then drives the port's main paths:
    OLMoE-1B-7B × train_4k on 256 ranks and Zamba2 on 512 (11c), after the
    torch release and the DTensor rules the port installed on it: each
    exits 0, allocates nothing on the card, has no op that fell back, and
-   prints its bytes by collective, its memory per rank and PCCL's speedup.
+   prints its bytes by collective, its memory per rank and PCCL's speedup;
+   Zamba2's FLOPs a rank and OLMoE's all-reduce bytes within 5 % of the
+   torch 2.13 record counted on the CPU (``PATH11_TORCH213``; Zamba2's speedup, its
+   512-rank cell and OLMoE's reduce-scatter bytes printed beside theirs).  11d: ``python -m repro_torch.launch.dryrun
+   --reduced`` in a fresh process beside them, every architecture's
+   reduced config × train, prefill and decode on a 2 × 2 mesh: each cell
+   counted with no op falling back.
 
 12. one process per rank: four processes on this card joined over gloo
    on a ``FileStore`` (``repro_torch.launch.procs.spawn``).  12a: path 1's
@@ -129,7 +135,13 @@ and then drives the port's main paths:
    on the same batches, K3 counted in each process; ms a step and peak
    memory printed.  12c: data slice 1 fails, ``shrink_mesh`` gives ``(1,
    2)``, ``reshard_tree`` keeps every value bit for bit and the survivors
-   take one more step.
+   take one more step.  12d: Whisper-small, 12b's weights, fp32 activations,
+   serving on the (2, 2) mesh of four processes through the model's own
+   ``prefill`` and ``decode_step`` (``procs.serve_program``: 4 prompts of 228 tokens, 1500
+   random encoder frames, 4 greedy steps; the self-attention cache split
+   along its length over "model", written and attended on each rank's
+   part): the greedy tokens of one process on the card, every step's
+   logits within 2e-2 (absolute and relative, as the continuation gates).
 
 13. the kernel lint on the card (run right after the kernel phase, held
    to 60 s): ``repro_torch.analysis.kernel_lint.run_shipped`` over every
@@ -2760,6 +2772,21 @@ def path13_phase(torch, smi: str) -> dict:
 
 PATH11_CELLS = (("zamba2-2.7b", "train_4k", "single"), ("olmoe-1b-7b", "train_4k", "single"),
                 ("zamba2-2.7b", "train_4k", "multi"))
+# the same cells counted on the CPU with torch 2.13 (python -m
+# repro_torch.launch.dryrun): a rank's FLOPs, PCCL's speedup and the
+# all-reduce and reduce-scatter bytes the card's torch must come within
+# PATH11_REL of (Zamba2: FLOPs and speedup; OLMoE: the two collectives)
+PATH11_TORCH213 = {
+    "zamba2-2.7b__train_4k__single": {"flops": 1.0178e14, "speedup": 2.9925},
+    "olmoe-1b-7b__train_4k__single": {"all-reduce": 1.6675e10, "reduce-scatter": 1.5024e10},
+    "zamba2-2.7b__train_4k__multi": {"flops": 1.027e14, "speedup": 2.4142},
+}
+PATH11_REL = 0.05
+# the ratios held to PATH11_REL; the others are printed: torch 2.11's rules
+# still place Zamba2's collectives and its 512-rank step, and OLMoE's
+# reduce-scatters, otherwise than 2.13's (PERF.md §6)
+PATH11_HELD = {("zamba2-2.7b__train_4k__single", "flops"),
+               ("olmoe-1b-7b__train_4k__single", "all-reduce")}
 PATH11_TIMEOUT = 600   # seconds a background count may take
 ROOFLINE_CODE = """
 import json
@@ -2785,9 +2812,9 @@ def start_background(name: str, cmd) -> dict:
     return {"name": name, "cmd": cmd, "proc": proc, "t0": time.perf_counter()}
 
 
-def finish_background(job) -> list:
-    """Wait for a background process; its lines, all printed.  Fails unless
-    it exits 0."""
+def finish_background(job, quiet: bool = False) -> list:
+    """Wait for a background process; its lines, all printed (``quiet``:
+    the last 20).  Fails unless it exits 0."""
     try:
         out, err = job["proc"].communicate(timeout=PATH11_TIMEOUT)
     except subprocess.TimeoutExpired:
@@ -2797,7 +2824,7 @@ def finish_background(job) -> list:
     wall = time.perf_counter() - job["t0"]
     lines = out.strip().splitlines()
     log(f"  {job['name']}: exit {job['proc'].returncode} after {wall:.1f} s")
-    for line in lines:
+    for line in lines[-20:] if quiet else lines:
         log(f"    | {line[:400]}")
     check(job["proc"].returncode == 0, f"{job['name']} failed: {err[-3000:]}")
     return lines
@@ -2867,6 +2894,9 @@ def path11_phase(torch, zamba2, path2_run, serve_stats, train_stats, reset_count
             jobs.append(start_background(f"11c {arch} x {shape} x {mesh}", [
                 "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
                 "--mesh", mesh, "--force", "--out", str(out_dir)]))
+        reduced = start_background("11d the reduced sweep",
+                                   ["-m", "repro_torch.launch.dryrun", "--reduced"])
+        jobs.append(reduced)
         prompt = max(SERVE_PROMPTS)
         code = ROOFLINE_CODE % (len(SERVE_PROMPTS), prompt, prompt + SERVE_NEW_TOKENS,
                                 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICROBATCHES)
@@ -2918,6 +2948,7 @@ def path11_phase(torch, zamba2, path2_run, serve_stats, train_stats, reset_count
 
         log("== main path 11c: python -m repro_torch.launch.dryrun, 256 and 512 ranks, "
             "fresh processes")
+        from repro_torch.configs import ARCH_IDS
         from repro_torch.launch.dryrun import MEMORY_FIELDS
         from repro_torch.sharding import RULES_INSTALLED, rules
 
@@ -2929,7 +2960,7 @@ def path11_phase(torch, zamba2, path2_run, serve_stats, train_stats, reset_count
             f"{stats['einsum_on_shards']} (torch's view rule "
             f"{'flattens' if rules.flattens_splits() else 'refuses to flatten'} two splits)")
         stats["dryrun"] = {}
-        for job, (arch, shape, mesh) in zip(jobs[:-1], PATH11_CELLS):
+        for job, (arch, shape, mesh) in zip(jobs, PATH11_CELLS):
             lines = finish_background(job)
             check(any(x.endswith("device memory allocated: 0 bytes") for x in lines),
                   f"the dry run of {arch} x {shape} x {mesh} allocated device memory")
@@ -2954,6 +2985,32 @@ def path11_phase(torch, zamba2, path2_run, serve_stats, train_stats, reset_count
                 "pccl_comm_s": pricing["pccl_comm_s"], "fixed_comm_s": pricing["fixed_comm_s"],
                 "count_s": rec["count_s"], "depth": rec["depth"],
                 "fallbacks": rec["fallbacks"]["count"], "fallback_ops": rec["fallbacks"]["ops"]}
+            record = PATH11_TORCH213[f"{arch}__{shape}__{mesh}"]
+            here = {"flops": rec["per_rank"]["flops"], "speedup": pricing["speedup"],
+                    **rec["collectives"]["bytes_by_op"]}
+            ratios = {k: here.get(k, 0.0) / v for k, v in record.items()}
+            log(f"    against torch 2.13's count: " + ", ".join(
+                f"{k} {here.get(k, 0.0):.6g} / {v:.6g} = {ratios[k]:.4f}" for k, v in record.items()))
+            stats["dryrun"][f"{arch}__{shape}__{mesh}"]["over_torch213"] = ratios
+            held = {k: r for k, r in ratios.items() if (f"{arch}__{shape}__{mesh}", k) in PATH11_HELD}
+            check(all(abs(r - 1) <= PATH11_REL for r in held.values()),
+                  f"{arch} x {shape} x {mesh} on torch {torch.__version__}: {held} of the "
+                  f"torch 2.13 counts, not within {PATH11_REL:.0%}")
+
+        log("== main path 11d: python -m repro_torch.launch.dryrun --reduced, every architecture's "
+            "reduced config x train, prefill and decode on a 2 x 2 mesh")
+        lines = finish_background(reduced, quiet=True)
+        cells = [json.loads(x[len("REDUCED "):]) for x in lines if x.startswith("REDUCED ")]
+        for rec in cells:
+            log(f"  {rec['arch']} x {rec['kind']}: {rec['status']}, fallbacks "
+                f"{rec.get('fallbacks')} {json.dumps(rec.get('fallback_ops', {}))}, FLOPs a rank "
+                f"{rec.get('flops')}" + (f", {rec['error'][:300]}" if "error" in rec else ""))
+        check(len(cells) == 3 * len(ARCH_IDS), f"11d counted {len(cells)} cells")
+        bad = [(r["arch"], r["kind"]) for r in cells if r["status"] != "ok" or r["fallbacks"]]
+        check(not bad, f"11d: cells that failed or fell back on torch {torch.__version__}: {bad}")
+        stats["reduced_sweep"] = {f"{r['arch']}__{r['kind']}": {
+            k: r.get(k) for k in ("status", "flops", "fallbacks", "fallback_ops", "count_s")}
+            for r in cells}
     finally:
         for job in jobs:  # every process the path started ends with it
             if job["proc"].poll() is None:
@@ -2976,6 +3033,11 @@ P12_LOSS_TOL = 1e-4
 P12_THREADS = 2         # intra-op threads a rank: 4 ranks beside this process on 8 cores
 P12_TIMEOUT = 420       # seconds a spawn may take before every rank is killed
 P12_COLLECTIVES = ("all_reduce", "reduce_scatter", "all_gather", "all_to_all")
+P12D_BATCH, P12D_PROMPT, P12D_STEPS = 4, 228, 4  # 12d: rows, prompt tokens, greedy steps
+# |a - b| <= tol + tol * |b|, as CONTINUATION_TOL holds logits; 12d runs
+# fp32 activations: in bf16 (an ulp is 3e-2 at 4) the tensor-parallel
+# partial sums and the split softmax, met in another order, reached 2.5e-2
+P12D_LOGITS_TOL = 2e-2
 
 
 def path12_cases(tokens=TOKENS, d_model=D_MODEL, d_ff=D_FF) -> list:
@@ -3179,6 +3241,44 @@ def path12b(torch, store_dir, cfg, device) -> dict:
     return stats
 
 
+def path12d(torch, store_dir, cfg, device) -> dict:
+    """Whisper-small with 12b's weights (the Trainer's seed) served on the
+    ``P12_MESH`` mesh of ``P12_RANKS`` processes through the model's own
+    prefill and decode steps, against one process on the same device: the
+    same greedy tokens, every step's logits within ``P12D_LOGITS_TOL``."""
+    from repro_torch.launch import procs
+    from repro_torch.sharding import default_rules
+    from repro_torch.train import TrainerConfig
+
+    kw = dict(batch=P12D_BATCH, prompt=P12D_PROMPT, steps=P12D_STEPS,
+              max_len=P12D_PROMPT + P12D_STEPS, seed=TrainerConfig().seed)
+    cfg = replace(cfg, dtype="float32")  # K3 on its fp32 route
+    t = time.perf_counter()
+    ranks = procs.spawn(procs.serve_program, P12_RANKS, (cfg,),
+                        dict(kw, mesh_shape=P12_MESH, rules=default_rules(fsdp=False),
+                             device=device.type),
+                        store_dir=store_dir, timeout_s=P12_TIMEOUT, threads=P12_THREADS)
+    log(f"  12d: {P12_RANKS} processes in {time.perf_counter() - t:.1f} s")
+    one = procs.serve_program(cfg, **kw, device=device.type)
+    log(f"  12d: one process: tokens {one['tokens']}, {one['wall_s']:.2f} s, K3 "
+        f"{one['launches'].get('flash')}")
+    stats = {"one_process_wall_s": one["wall_s"], "ranks": []}
+    for r, rank in enumerate(ranks):
+        err = max(float(abs(a - b).max()) for a, b in zip(rank["logits"], one["logits"]))
+        excess = max(float((abs(a - b) - P12D_LOGITS_TOL * (1 + abs(b))).max())
+                     for a, b in zip(rank["logits"], one["logits"]))
+        log(f"  12d rank {r}: tokens {rank['tokens']}; max |logit - one process's| {err:.3e}, "
+            f"within tol + tol * |logit| (tol {P12D_LOGITS_TOL}): {excess <= 0}; prefill and "
+            f"{P12D_STEPS} steps in {rank['wall_s']:.2f} s; K3 {rank['launches'].get('flash')}")
+        check(rank["tokens"] == one["tokens"],
+              f"12d rank {r}: greedy tokens {rank['tokens']} differ from one process's")
+        check(excess <= 0, f"12d rank {r}: logits {err:.3e} from one process's")
+        stats["ranks"].append({"max_abs_logit_err": err, "wall_s": rank["wall_s"],
+                               "flash": rank["launches"].get("flash")})
+    stats["tokens"] = one["tokens"]
+    return stats
+
+
 def path12_phase(torch, cfg, device=None, cases=None):
     """Path 12: 12a, the NCCL probe, 12b and 12c; returns (K1, K2 and K3
     launches summed over the processes, the stats)."""
@@ -3203,11 +3303,18 @@ def path12_phase(torch, cfg, device=None, cases=None):
         t = time.perf_counter()
         stats["12bc"] = path12b(torch, str(Path(store) / "b"), cfg, device)
         log(f"  phase main path 12b-c: {time.perf_counter() - t:.3f} s")
+        log(f"== main path 12d: serve {cfg.name} on the {P12_MESH} mesh of {P12_RANKS} processes "
+            f"(12b's weights; the model's prefill and {P12D_STEPS} decode steps), against one "
+            "process")
+        t = time.perf_counter()
+        stats["12d"] = path12d(torch, str(Path(store) / "d"), cfg, device)
+        log(f"  phase main path 12d: {time.perf_counter() - t:.3f} s")
     launches = {
         "matmul": {k: sum(r["matmul"][k] for r in stats["12a"]["launches"])
                    for k in ("wgmma", "fma")},
         "rmsnorm": sum(r["rmsnorm"]["triton"] for r in stats["12a"]["launches"]),
-        "flash": {k: sum(r["flash"][k] for r in stats["12bc"]["ranks"]) for k in ("wgmma", "fma")},
+        "flash": {k: sum(r["flash"][k] for r in stats["12bc"]["ranks"])
+                  + sum(r["flash"][k] for r in stats["12d"]["ranks"]) for k in ("wgmma", "fma")},
     }
     return launches, stats
 

@@ -73,7 +73,7 @@ def ssd_reference(
     dec = cum[:, :, :, None, :] - cum[:, :, None, :, :]        # (B,nc,t,s,H)
     tri = torch.tril(torch.ones((L, L), dtype=torch.bool, device=X.device))
     dec = torch.exp(torch.where(tri[None, None, :, :, None], dec, -torch.inf))
-    scores = torch.einsum("bclgn,bcmgn->bclmg", Cc, Bc)        # (B,nc,L,L,Hb)
+    scores = sharded_einsum("bclgn,bcmgn->bclmg", Cc, Bc)      # (B,nc,L,L,Hb)
     w = scores * dec                                           # broadcasts Hb == 1
     Y_diag = sharded_einsum("bclmh,bcmhp->bclhp", w, Xc)  # batch and heads may be split
 
@@ -83,7 +83,7 @@ def ssd_reference(
     if Hb == 1:
         states = torch.einsum("bclhp,bcln->bchpn", Xw, Bc[:, :, :, 0])
     else:
-        states = torch.einsum("bclhp,bclhn->bchpn", Xw, Bc)
+        states = sharded_einsum("bclhp,bclhn->bchpn", Xw, Bc)
 
     # inter-chunk recurrence, emitting the state BEFORE each chunk
     carry = (
@@ -101,7 +101,7 @@ def ssd_reference(
     if Hb == 1:
         Y_off = torch.einsum("bcln,bchpn->bclhp", Cc[:, :, :, 0], R)
     else:
-        Y_off = torch.einsum("bclhn,bchpn->bclhp", Cc, R)
+        Y_off = sharded_einsum("bclhn,bchpn->bclhp", Cc, R)
     Y_off = Y_off * torch.exp(cum)[..., None]
 
     Y = (Y_diag + Y_off).reshape(B, S, H, P)[:, :orig_S]
@@ -125,5 +125,5 @@ def ssd_decode_step(
     Cm = Cm.expand(Bsz, H, Cm.shape[-1]).float()
     st = state.float() * torch.exp(la.float())[:, :, None, None]
     st = st + x.float()[..., :, None] * Bm[..., None, :]
-    y = torch.einsum("bhpn,bhn->bhp", st, Cm)
+    y = sharded_einsum("bhpn,bhn->bhp", st, Cm)
     return y.to(x.dtype), st.to(state.dtype)

@@ -36,6 +36,7 @@ under ``--out`` (existing ones are skipped unless ``--force``).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch zamba2-2.7b --shape train_4k --mesh single
+  python -m repro_torch.launch.dryrun --reduced [--arch ARCH]
   python -m repro_torch.launch.dryrun --all
   python -m repro_torch.launch.dryrun --list
 """
@@ -73,6 +74,8 @@ from repro_torch.launch.specs import (
     decode_state_specs,
     local_numel,
     param_specs,
+    state_specs,
+    whole_shapes,
 )
 from repro_torch.models import build_model
 from repro_torch.models import ssm as SSM
@@ -111,21 +114,47 @@ def _slstm_body_once():
     """The sLSTM's step loop dispatches one cell a layer: each later step of
     a layer returns the first step's output without running (the reference's
     HLO count sees a scan body once; ``_slstm_correction_flops`` adds the
-    rest)."""
-    first: Dict[int, tuple] = {}
-    cell = SSM._slstm_cell
+    rest).  The first step is kept for one call of ``apply_slstm`` only: the
+    backward's recompute of a layer (``_remat``) runs its own first cell and
+    saves what the forward saved, and nothing outlives the layer."""
+    cell, apply = SSM._slstm_cell, SSM.apply_slstm
+    first: list = []
 
     def once(p, pre_x, st):
-        key = id(p["r"])
-        if key not in first:
-            first[key] = cell(p, pre_x, st)
-        return first[key]
+        if not first:
+            first.append(cell(p, pre_x, st))
+        return first[0]
 
-    SSM._slstm_cell = once
+    def layer(*args, **kw):
+        first.clear()
+        try:
+            return apply(*args, **kw)
+        finally:
+            first.clear()
+
+    SSM._slstm_cell, SSM.apply_slstm = once, layer
     try:
         yield
     finally:
-        SSM._slstm_cell = cell
+        SSM._slstm_cell, SSM.apply_slstm = cell, apply
+
+
+def _placed_states(model, mesh, rules) -> None:
+    """Make ``model``'s prefill build its cache (and an encoder-decoder's
+    self-attention cache) as placed meta DTensors: only each rank's part is
+    made, as the count's live bytes should see it, not a whole state first."""
+    fresh = build_model(model.cfg)
+    model.init_decode_state = (
+        lambda b, t, device=None: decode_state_specs(fresh, b, t, mesh, rules))
+    if hasattr(fresh, "_self_cache"):
+        axes = fresh.decode_state_axes()["self"]
+
+        def self_cache(b, t, device=None):
+            with whole_shapes():
+                whole = fresh._self_cache(b, t, "meta")
+            return state_specs(whole, axes, mesh, rules)
+
+        model._self_cache = self_cache
 
 
 def count_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, rules, *,
@@ -144,10 +173,7 @@ def count_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, rules, *,
                 count.memory.returned(step(params, opt_state, batch))
         elif shape.kind == "prefill":
             batch = batch_specs(cfg, shape, mesh, rules)
-            # the cache the prefill fills: placed DTensors, not whole host tensors
-            fresh = build_model(cfg)
-            model.init_decode_state = (
-                lambda b, t, device=None: decode_state_specs(fresh, b, t, mesh, rules))
+            _placed_states(model, mesh, rules)
             with torch.no_grad(), R.count_step(params, batch) as count:
                 count.memory.returned(model.prefill(params, batch, max_len=max_len))
         else:  # decode
@@ -175,6 +201,10 @@ def _fields(c: R.StepCount) -> Dict:
             "peak_bytes": c.memory.peak}
 
 
+def _peak_by_op(c: R.StepCount) -> Dict[str, int]:
+    return dict(c.memory.peak_by_op)
+
+
 def count_full(cfg: ModelConfig, shape: ShapeConfig, mesh, rules, depth: str = "auto",
                **step) -> Dict:
     """The cell's per-rank count at full depth: counted, or extrapolated
@@ -184,7 +214,8 @@ def count_full(cfg: ModelConfig, shape: ShapeConfig, mesh, rules, depth: str = "
         c = count_cell(cfg, shape, mesh, rules, **step)
         return {"depth": {"full": cfg.n_layers}, **_fields(c),
                 "bytes_by_op": dict(c.stats.bytes_by_op), "count_by_op": dict(c.stats.count_by_op),
-                "fallbacks": c.fallbacks, "fallback_ops": dict(c.fallback_ops)}
+                "fallbacks": c.fallbacks, "fallback_ops": dict(c.fallback_ops),
+                "peak_by_op": _peak_by_op(c)}
     points, v_full = R.depth_points(cfg)
     v1, v2 = sorted(points)
     c1, c2 = (count_cell(points[v], shape, mesh, rules, **step) for v in (v1, v2))
@@ -203,6 +234,8 @@ def count_full(cfg: ModelConfig, shape: ShapeConfig, mesh, rules, depth: str = "
         "fallbacks": c1.fallbacks + c2.fallbacks,
         "fallback_ops": {k: c1.fallback_ops.get(k, 0) + c2.fallback_ops.get(k, 0)
                          for k in set(c1.fallback_ops) | set(c2.fallback_ops)},
+        # the deeper point's: extrapolated bytes have no op
+        "peak_by_op": _peak_by_op(c2),
     }
 
 
@@ -244,6 +277,8 @@ def memory_per_rank(cfg: ModelConfig, shape: ShapeConfig, mesh, rules, counted: 
         state = model.init_decode_state(shape.global_batch, shape.seq_len, device="meta")
         out["decode_state"] = _state_bytes(state, model.decode_state_axes(), mesh, rules)
     out.update({k: counted[k] for k in MEMORY_FIELDS})
+    if "peak_by_op" in counted:
+        out["peak_by_op"] = counted["peak_by_op"]
     total = counted["argument_size_in_bytes"] + counted["temp_size_in_bytes"]
     out.update(total=total, card_bytes=CARD_BYTES, fits=total <= CARD_BYTES)
     return out
@@ -337,6 +372,44 @@ def one_rank_roofline(cfg: ModelConfig, kind: str, batch: int, seq: int, *,
             **{k: c[k] for k in MEMORY_FIELDS}, "count_s": round(time.time() - t0, 2)}
 
 
+REDUCED_MESH = (2, 2)               # ("data", "model") of the reduced sweep
+REDUCED_BATCH, REDUCED_SEQ = 4, 32  # its cells' rows and tokens (decode: the cache's length)
+
+
+def reduced_cell(arch: str, kind: str) -> Dict:
+    """One cell of the reduced sweep: ``arch``'s reduced config, one
+    ``kind`` step ("train", "prefill" or "decode") of ``REDUCED_BATCH`` ×
+    ``REDUCED_SEQ`` on a fake ``REDUCED_MESH`` mesh.  Its status, FLOPs,
+    bytes by op, temporaries and the ops that fell back; an error is
+    recorded, not raised."""
+    cfg = get_config(arch).reduced()
+    shape = ShapeConfig(f"reduced_{kind}", REDUCED_SEQ, REDUCED_BATCH, kind)
+    fake_world(math.prod(REDUCED_MESH))
+    mesh = make_mesh(REDUCED_MESH, ("data", "model"), device_type="cpu")
+    t0 = time.time()
+    try:
+        c = count_cell(cfg, shape, mesh, default_rules())
+    except Exception as e:  # the record says what failed; the sweep goes on
+        return {"arch": arch, "kind": kind, "status": "error", "error": repr(e)[:2000]}
+    return {"arch": arch, "kind": kind, "status": "ok", "flops": c.flops,
+            "bytes_by_op": dict(c.stats.bytes_by_op),
+            "temp_size_in_bytes": c.memory.analysis()["temp_size_in_bytes"],
+            "fallbacks": c.fallbacks, "fallback_ops": dict(c.fallback_ops),
+            "count_s": round(time.time() - t0, 2)}
+
+
+def reduced_sweep(archs=None, kinds=("train", "prefill", "decode")) -> list:
+    """Every architecture's reduced config × ``kinds`` (:func:`reduced_cell`),
+    one ``REDUCED {json}`` line printed a cell."""
+    out = []
+    for arch in archs or ARCH_IDS:
+        for kind in kinds:
+            rec = reduced_cell(arch, kind)
+            print("REDUCED " + json.dumps(rec), flush=True)
+            out.append(rec)
+    return out
+
+
 def cell_path(arch, shape_name, mesh_kind, out: pathlib.Path = RESULTS) -> pathlib.Path:
     return out / f"{arch}__{shape_name}__{mesh_kind}.json"
 
@@ -350,8 +423,21 @@ def main(argv=None) -> int:
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--list", action="store_true")
     ap.add_argument("--out", default=str(RESULTS), help="directory of the cells' records")
+    ap.add_argument("--reduced", action="store_true",
+                    help="the reduced sweep: every arch's reduced config x train, prefill and "
+                         f"decode on a {REDUCED_MESH} mesh, a REDUCED json line a cell")
     args = ap.parse_args(argv)
     out = pathlib.Path(args.out)
+    if args.reduced:
+        _quiet()
+        try:
+            recs = reduced_sweep([args.arch] if args.arch else None)
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+        bad = [r for r in recs if r["status"] != "ok" or r["fallbacks"]]
+        print(f"reduced sweep: {len(recs)} cells, {len(bad)} failed or fell back")
+        return 1 if bad else 0
 
     archs = [args.arch] if args.arch else ARCH_IDS
     shapes = [args.shape] if args.shape else list(SHAPES)

@@ -412,6 +412,149 @@ def trainer_program(cfg, data_cfg, opt_cfg, trainer_cfg, *, mesh_shape: Tuple[in
     return out
 
 
+def serve_inputs(cfg, batch: int, prompt: int, seed: int) -> Dict[str, np.ndarray]:
+    """A prefill's inputs from ``seed``: prompt tokens, and an
+    encoder-decoder's frames or a VLM's image embeddings (fp32)."""
+    rng = np.random.default_rng(seed)
+    out = {"tokens": rng.integers(0, cfg.vocab, size=(batch, prompt)).astype(np.int64)}
+    if cfg.enc_dec:
+        out["enc_frames"] = rng.standard_normal(
+            (batch, cfg.enc_dec.enc_seq, cfg.d_model)).astype(np.float32)
+    if cfg.vlm:
+        out["img_embeds"] = rng.standard_normal(
+            (batch, cfg.vlm.n_img_tokens, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def serve_program(cfg, *, batch: int, prompt: int, steps: int, max_len: int, seed: int = 0,
+                  mesh_shape: Optional[Tuple[int, ...]] = None, rules=None,
+                  device: Optional[str] = None) -> Dict[str, Any]:
+    """The model's own ``prefill`` of :func:`serve_inputs` and ``steps``
+    greedy ``decode_step`` s, with the weights the ``Trainer`` draws from
+    ``seed``; on a ``("data", "model")`` mesh of ``mesh_shape`` over the
+    world (parameters, inputs and the decode state placed by ``rules``), or
+    with ``mesh_shape`` None in this process alone.  Returns every step's
+    logits and the last decode state's leaves, whole, as numpy (bf16 as
+    fp32), the greedy tokens, the kernels' launches by route and the wall.
+    On the rank's CUDA device unless ``device`` names another."""
+    import contextlib
+
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.comm import exec_engine
+    from repro_torch.kernels.build import LAUNCHES
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.module import axes_of, shapes_of
+    from repro_torch.sharding import partition
+    from repro_torch.train.trainer import _place
+
+    logging.getLogger("torch.distributed.tensor").setLevel(logging.ERROR)
+    device = resolve_device(device)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=device).manual_seed(seed), device)
+    act = cfg.act_dtype()
+    inputs = {k: torch.as_tensor(v, device=device).to(torch.int64 if k == "tokens" else act)
+              for k, v in serve_inputs(cfg, batch, prompt, seed).items()}
+    ctx = contextlib.ExitStack()
+    place = lambda t: t  # noqa: E731
+    if mesh_shape is not None:
+        mesh = make_mesh(tuple(mesh_shape), ("data", "model"), device_type=device.type)
+        specs = model.specs()
+        _place(params, partition.param_sharding(axes_of(specs), mesh, rules,
+                                                shapes_tree=shapes_of(specs)), mesh)
+
+        def place(t):
+            with partition.use_partitioning(mesh, rules):
+                spec = partition.spec_for(("batch",) + (None,) * (t.ndim - 1), tuple(t.shape))
+            return distribute_tensor(t, mesh, partition.placements(spec, t.ndim, mesh),
+                                     src_data_rank=None)
+
+        ctx.enter_context(partition.use_partitioning(mesh, rules))
+        ctx.enter_context(implicit_replication())
+        if device.type == "cuda" and str(dist.get_backend(mesh.get_group(0))) == "gloo":
+            ctx.enter_context(exec_engine.staged_functional_collectives())
+    whole = lambda t: (t.full_tensor() if isinstance(t, DTensor) else t).detach()  # noqa: E731
+    LAUNCHES.reset()
+    logits, tokens = [], []
+    t0 = time.perf_counter()
+    with ctx, torch.no_grad():
+        out, state = model.prefill(params, {k: place(v) for k, v in inputs.items()},
+                                   max_len=max_len)
+        for i in range(steps + 1):
+            last = whole(out)[:, -1].float()
+            logits.append(_host(last))
+            nxt = last.argmax(-1, keepdim=True)
+            tokens.append(nxt[:, 0].tolist())
+            if i < steps:
+                out, state = model.decode_step(params, state, place(nxt))
+        leaves = [_host(whole(t)) for t in _leaves(state)]
+    return {"logits": logits, "tokens": tokens, "state": leaves,
+            "launches": {k: LAUNCHES.by_route(k) for k in LAUNCHES.totals()},
+            "wall_s": time.perf_counter() - t0}
+
+
+def loss_program(cfg, *, batch: int, seq: int, seed: int = 0,
+                 mesh_shape: Optional[Tuple[int, ...]] = None, rules=None,
+                 device: Optional[str] = None) -> Dict[str, Any]:
+    """``model.loss`` and every parameter's gradient on a batch of
+    :func:`serve_inputs` (``batch`` rows of ``seq`` tokens), with the
+    weights the ``Trainer`` draws from ``seed``, placed as
+    :func:`serve_program` places them (``mesh_shape`` None: this process
+    alone).  Returns the loss and the gradients, whole, as numpy."""
+    import contextlib
+
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.module import axes_of, shapes_of
+    from repro_torch.sharding import partition
+    from repro_torch.train.optimizer import leaves
+    from repro_torch.train.trainer import _place
+
+    logging.getLogger("torch.distributed.tensor").setLevel(logging.ERROR)
+    device = resolve_device(device)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=device).manual_seed(seed), device)
+    act = cfg.act_dtype()
+    inputs = {k: torch.as_tensor(v, device=device).to(torch.int64 if k == "tokens" else act)
+              for k, v in serve_inputs(cfg, batch, seq, seed).items()}
+    ctx = contextlib.ExitStack()
+    if mesh_shape is not None:
+        mesh = make_mesh(tuple(mesh_shape), ("data", "model"), device_type=device.type)
+        specs = model.specs()
+        _place(params, partition.param_sharding(axes_of(specs), mesh, rules,
+                                                shapes_tree=shapes_of(specs)), mesh)
+        with partition.use_partitioning(mesh, rules):
+            inputs = {k: distribute_tensor(v, mesh, partition.placements(partition.spec_for(
+                ("batch",) + (None,) * (v.ndim - 1), tuple(v.shape)), v.ndim, mesh),
+                src_data_rank=None) for k, v in inputs.items()}
+        ctx.enter_context(partition.use_partitioning(mesh, rules))
+        ctx.enter_context(implicit_replication())
+    p = leaves(params)
+    for t in p.values():
+        t.requires_grad_(True)
+    with ctx:
+        loss, _ = model.loss(params, inputs)
+        loss.backward()
+    whole = lambda t: (t.full_tensor() if isinstance(t, DTensor) else t).detach()  # noqa: E731
+    return {"loss": float(whole(loss)), "grads": {k: _host(whole(t.grad)) for k, t in p.items()}}
+
+
+def _leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k])
+    else:
+        for v in tree:
+            yield from _leaves(v)
+
+
 def _shrink_and_step(trainer, mesh, params, opt_state) -> Dict[str, Any]:
     """Data slice 1 fails: shrink, re-shard, and one step on the survivors."""
     from torch import nn

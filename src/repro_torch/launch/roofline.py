@@ -240,10 +240,14 @@ class LiveBytes:
         self.output = 0
         self.alias = 0
         self._held: Dict[int, int] = {}
+        self._made_by: Dict[int, str] = {}
         self._arguments: set = set()
+        self._snapshot = 0
+        self.peak_by_op: Dict[str, int] = {}
 
-    def hold(self, t) -> None:
-        """Count ``t``'s storage from now on, if it is not counted yet."""
+    def hold(self, t, op: str = "argument") -> None:
+        """Count ``t``'s storage from now on, if it is not counted yet;
+        ``op`` names what made it."""
         if isinstance(t, DTensor):
             t = t._local_tensor
         if not isinstance(t, torch.Tensor) or isinstance(t, FakeTensor):
@@ -256,11 +260,21 @@ class LiveBytes:
         elif old == n:
             return
         self._held[key] = n
+        self._made_by.setdefault(key, op)
         self.live += n - (old or 0)
-        self.peak = max(self.peak, self.live)
+        if self.live > self.peak:
+            self.peak = self.live
+            if self.peak > 1.01 * self._snapshot:  # a new peak, 1 % past the last kept
+                self._snapshot = self.peak
+                by: Dict[str, int] = {}
+                for k, b in self._held.items():
+                    name = "argument" if k in self._arguments else self._made_by.get(k, "?")
+                    by[name] = by.get(name, 0) + b
+                self.peak_by_op = dict(sorted(by.items(), key=lambda kv: -kv[1])[:6])
 
     def _drop(self, key: int) -> None:
         self.live -= self._held.pop(key, 0)
+        self._made_by.pop(key, None)
         self._arguments.discard(key)
 
     def hold_arguments(self, *trees) -> None:
@@ -450,7 +464,7 @@ class _Collectives(TorchDispatchMode):
             return NotImplemented  # DTensor desugars it into local ops first
         out = func(*args, **kwargs)
         for t in tree_flatten(out)[0]:
-            self.count.memory.hold(t)
+            self.count.memory.hold(t, func._overloadpacket.__name__)
         op = FUNCOL_OPS.get(func._overloadpacket.__name__)
         if op is not None and func.namespace in ("_c10d_functional", "_dtensor"):
             self.count.stats.add(op, _local_bytes(out), _group_size(func, args, kwargs))

@@ -81,12 +81,27 @@ def _zip_state(fn, state, axes):
     return type(state)(*(_zip_state(fn, v, a) for v, a in zip(state, axes)))
 
 
+def whole_shapes():
+    """A block whose tensors a count does not see: the whole (meta) tensors
+    a placed state is shaped from are no storage a rank holds."""
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    return _disable_current_modes()
+
+
+def state_specs(state, axes, mesh: DeviceMesh, rules):
+    """A tree of (meta) tensors as meta DTensors of the same shapes and
+    dtypes placed by the tree of logical ``axes``: only each rank's part is
+    made."""
+    return _zip_state(lambda t, ax: meta_dtensor(t.shape, t.dtype, ax, mesh, rules), state, axes)
+
+
 def decode_state_specs(model, batch: int, max_len: int, mesh: DeviceMesh, rules):
     """``model.init_decode_state(batch, max_len)`` as meta DTensors placed
     by ``model.decode_state_axes()``."""
-    state = model.init_decode_state(batch, max_len, device="meta")
-    return _zip_state(lambda t, ax: meta_dtensor(t.shape, t.dtype, ax, mesh, rules),
-                      state, model.decode_state_axes())
+    with whole_shapes():
+        state = model.init_decode_state(batch, max_len, device="meta")
+    return state_specs(state, model.decode_state_axes(), mesh, rules)
 
 
 def decode_specs(cfg: ModelConfig, shape: ShapeConfig, mesh: DeviceMesh, rules):

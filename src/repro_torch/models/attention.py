@@ -17,9 +17,12 @@ against the cached ``c_kv`` directly, so the cache holds only
 and ``v = k_rope (B, T, rope_dim)``.
 
 Decode writes the new key and value into the cache **in place** at the
-cache's length (the reference writes through a one-hot ``where``, which on
-one device only costs a copy of the cache per step) and returns the same
-cache with its length advanced.  Cross-attention (Whisper's decoder) is
+cache's length and returns the same cache with its length advanced.  A
+plain cache takes them with ``index_copy_`` (the reference's one-hot
+``where`` costs a pass over the cache per step); a DTensor cache split along
+its length takes the one-hot ``where`` (:func:`_write_at`), which stays
+local on every rank, and the step attends each rank's part of the cache
+(:func:`_attend_split_kv`).  Cross-attention (Whisper's decoder) is
 plain ``_attend`` over the encoder's keys and values, with no rope and no
 mask, as in the reference; serving computes those keys and values once, at
 prefill (``apply_cross_attn_cached``).
@@ -31,12 +34,13 @@ import math
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distribute_tensor
 
 from repro_torch.configs.base import MLAConfig, ModelConfig
 from repro_torch.kernels.flash import ops as flash_ops
 from repro_torch.sharding import shard
-from repro_torch.sharding.partition import local_part
+from repro_torch.sharding.partition import local_part, unflattenable
+from repro_torch.sharding.rules import einsum as sharded_einsum
 
 from .layers import apply_rope
 from .module import ParamSpec, normal_init
@@ -71,6 +75,46 @@ def _resharded(cache: KVCache, k: torch.Tensor, v: torch.Tensor) -> KVCache:
     """The cache written in place, with ``k`` / ``v`` as :func:`shard`
     gave them back: the same cache unless they were redistributed."""
     return cache if (k is cache.k and v is cache.v) else KVCache(k, v, cache.length)
+
+
+def _local_writable(buf: DTensor, new: torch.Tensor):
+    """This rank's part of the cache ``buf``, where its length starts, and
+    ``new`` placed as the cache but whole along the length, as local
+    tensors: a write into the cache is then the rank's own."""
+    place = [Replicate() if isinstance(p, Shard) and p.dim == 1 else p for p in buf.placements]
+    new_l = new.to(buf.dtype).redistribute(buf.device_mesh, place).to_local()
+    return buf.to_local(), _global_offset(buf, buf.placements, 1), new_l
+
+
+def _write_prefix(buf: torch.Tensor, new: torch.Tensor) -> None:
+    """A prefill's keys ``new`` (B, S, ...) into the cache ``buf`` (B, T,
+    ...) at positions [0, S), in place; a DTensor cache split along its
+    length takes on each rank the positions that rank holds."""
+    S = new.shape[1]
+    if not isinstance(buf, DTensor):
+        buf[:, :S] = new
+        return
+    local, start, new_l = _local_writable(buf, new)
+    n = max(0, min(S - start, local.shape[1]))
+    local[:, :n] = new_l[:, start:start + n]
+
+
+def _write_at(buf: torch.Tensor, new: torch.Tensor, at: torch.Tensor) -> None:
+    """Write ``new`` (B, 1, ...) into the cache ``buf`` (B, T, ...) at
+    position ``at``, in place.  A plain cache takes it with ``index_copy_``.
+    A DTensor cache, split along its length over the mesh, takes it as the
+    reference writes: a one-hot ``where`` over the whole length, which is
+    elementwise and so runs on each rank's part with no collective (an
+    indexed write into a split dimension is not local, and DTensor relabels
+    the cache it returns)."""
+    if not isinstance(buf, DTensor):
+        buf.index_copy_(1, at.long().reshape(1), new.to(buf.dtype))
+        return
+    local, start, new_l = _local_writable(buf, new)
+    at = at.to_local() if isinstance(at, DTensor) else at
+    pos = start + torch.arange(local.shape[1], device=local.device)
+    sel = (pos == at).reshape(1, -1, *(1,) * (local.ndim - 2))
+    torch.where(sel, new_l, local, out=local)
 
 
 # ------------------------------------------------------------------- GQA
@@ -109,46 +153,197 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
     return out.reshape(B, S, H, D)
 
 
+def _kept(place, shape, mesh, dims) -> list:
+    """``place`` with a ``Shard`` kept only along ``dims`` and only where
+    the tensor dimension splits evenly over the mesh dimensions that shard
+    it (a batch of 1 over "data" is whole on every rank)."""
+    ways = {}
+    for i, p in enumerate(place):
+        if isinstance(p, Shard):
+            ways[p.dim] = ways.get(p.dim, 1) * mesh.size(i)
+    return [p if isinstance(p, Shard) and p.dim in dims and shape[p.dim] % ways[p.dim] == 0
+            else Replicate() for p in place]
+
+
+def _kv_heads_of(first: int, count: int, group: int):
+    """The KV heads that query heads ``[first, first + count)`` read (query
+    head h reads KV head h // group): a slice ``(lo, hi)`` where the local
+    call is still grouped attention over it (the heads span whole groups or
+    lie in one), else the KV head of each query head."""
+    lo, hi = first // group, (first + count - 1) // group + 1
+    if count % (hi - lo) == 0:
+        g = count // (hi - lo)
+        if all((first + j) // group - lo == j // g for j in range(count)):
+            return lo, hi
+    return [(first + j) // group for j in range(count)]
+
+
 def _on_shards(attend, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, **kw) -> torch.Tensor:
     """``attend(q, k, v, **kw)``, on each rank's shards when ``q`` is a DTensor.
 
-    Attention is independent per batch row and per KV-head group, so with
-    ``q``, ``k`` and ``v`` split alike along the batch (dim 0) and, where
-    the KV heads divide, the heads (dim 2), and whole along the sequences,
-    each rank attends its own shards and the result is placed as ``q``.
-    DTensor's own propagation through the einsums flattens sharded
-    dimensions, which some torch releases refuse, and K3 launches only on
-    a rank's local tensors.  ``q_positions`` is cut to the rank's rows."""
+    Attention is independent per batch row and per query head, so each rank
+    attends its own rows and, where the query heads split evenly over the
+    mesh dimensions that shard them, its own query heads, and the result is
+    placed as ``q``.  Its keys and values are the KV heads those query
+    heads read (:func:`_kv_heads_of`): the rank's chunk where the KV heads
+    split alike, else a slice of them whole (their gradient then sums over
+    the ranks that read them).  Keys and values split along
+    their length (a decode step's cache) stay split where ``q`` is whole:
+    each rank scores its part of the cache and the softmax is combined
+    across ranks (:func:`_attend_split_kv`).  DTensor's own propagation
+    through the einsums flattens sharded dimensions, which some torch
+    releases refuse, and K3 launches only on a rank's local tensors.
+    ``q_positions`` is cut to the rank's rows."""
     if not isinstance(q, DTensor):
         return attend(q, k, v, **kw)
     mesh = q.device_mesh
-    heads = math.prod(mesh.size(i) for i, p in enumerate(q.placements)
-                      if isinstance(p, Shard) and p.dim == 2)
-    place = [p if isinstance(p, Shard) and (p.dim == 0 or (p.dim == 2 and k.shape[2] % heads == 0))
-             else Replicate() for p in q.placements]
+    B, S, H = q.shape[:3]
+    K = k.shape[2]
+    place = _kept(q.placements, q.shape, mesh, (0, 2))
+    head_dims = [i for i, p in enumerate(place) if isinstance(p, Shard) and p.dim == 2]
+    m = math.prod(mesh.size(i) for i in head_dims)
+    rows = [p if isinstance(p, Shard) and p.dim == 0 else Replicate() for p in place]
+    kv_place, heads = list(place), None
+    if m > 1 and K % m:
+        # the rank reads a slice of the KV heads, whole on the mesh
+        kv_place = list(rows)
+        heads = _kv_heads_of(_global_offset(q, place, 2), H // m, H // K)
+    seq_dims = []
+    if isinstance(k, DTensor) and attend is _attend:
+        kv_split = _kept(k.placements, k.shape, mesh, (1,))
+        seq_dims = [i for i, p in enumerate(kv_split)
+                    if isinstance(p, Shard) and isinstance(place[i], Replicate)]
+        for i in seq_dims:
+            kv_place[i] = Shard(1)
 
-    def local(t, pl):
+    def local(t, pl, grad=None):
         if isinstance(t, DTensor):
-            return local_part(t, pl)
+            return local_part(t, pl, grad)
         return distribute_tensor(t, mesh, pl, src_data_rank=None).to_local()
 
-    q_l, k_l, v_l = (local(t, place) for t in (q, k, v))
+    q_l = local(q, place)
+    # where each rank reads part of the whole KV heads, their gradients are
+    # summed over the ranks: the slices overlap or are each one rank's
+    summed = [Partial() if i in head_dims else p for i, p in enumerate(kv_place)]
+    k_l, v_l = (local(t, kv_place, summed if heads is not None else None) for t in (k, v))
+    if isinstance(heads, tuple):
+        k_l, v_l = k_l[:, :, heads[0]:heads[1]], v_l[:, :, heads[0]:heads[1]]
+    elif heads is not None:
+        idx = torch.tensor(heads, device=k_l.device)
+        k_l, v_l = k_l.index_select(2, idx), v_l.index_select(2, idx)
     if kw.get("q_positions") is not None:
-        rows = [p if isinstance(p, Shard) and p.dim == 0 else Replicate() for p in place]
         kw["q_positions"] = local(kw["q_positions"], rows)
     if isinstance(kw.get("kv_valid_len"), DTensor):
         kw["kv_valid_len"] = kw["kv_valid_len"].full_tensor()
-    out = attend(q_l, k_l, v_l, **kw).contiguous()  # the strides given below
-    B, S, H = q.shape[:3]
+    if seq_dims:
+        offset = _global_offset(k, kv_place, 1)
+        out = _attend_split_kv(q_l, k_l, v_l, mesh, place, seq_dims, offset, B, **kw)
+    else:
+        out = attend(q_l, k_l, v_l, **kw)
+    out = out.contiguous()  # the strides given below
     shape = (B, S, H, v.shape[3])
     return DTensor.from_local(out, mesh, place, run_check=False, shape=torch.Size(shape),
                               stride=(S * H * shape[3], H * shape[3], shape[3], 1))
 
 
+def _global_offset(t: DTensor, place, dim: int) -> int:
+    """Where this rank's part of ``t`` under ``place`` starts along ``dim``."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    return int(compute_local_shape_and_global_offset(t.shape, t.device_mesh, place)[1][dim])
+
+
+def _attend_split_kv(q, k, v, mesh, place, seq_dims, offset: int, B: int, *, causal: bool,
+                     q_positions: torch.Tensor, kv_valid_len: Optional[torch.Tensor]):
+    """:func:`_attend` of a rank's queries against its part of the keys and
+    values, which start at ``offset`` of a cache split along its length over
+    the mesh dimensions ``seq_dims``: each rank scores its part, and the
+    softmax's maximum, its sum and the weighted values are combined over
+    those dimensions (a max and two sums of per-query values, the
+    flash-decoding split): the rank's share of the work, as the reference's
+    partitioner splits the contractions over the sharded cache."""
+    Bl, S, H, D = q.shape
+    T, K = k.shape[1], k.shape[2]
+    G = H // K
+    qg = q.reshape(Bl, S, K, G, D)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k).float() / math.sqrt(D)
+    kv_pos = offset + torch.arange(T, device=q.device)[None, None, None, None, :]
+    mask = torch.ones((Bl, 1, 1, S, T), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (kv_pos <= q_positions[:, None, None, :, None])
+    if kv_valid_len is not None:
+        mask = mask & (kv_pos < kv_valid_len)
+    scores = torch.where(mask, scores, NEG_INF)
+    top = _combined(scores.amax(dim=-1, keepdim=True), "max", mesh, place, seq_dims, B)
+    probs = torch.exp(scores - top)
+    total = _combined(probs.sum(dim=-1, keepdim=True), "sum", mesh, place, seq_dims, B)
+    out = torch.einsum("bkgst,btkd->bskgd", probs.to(q.dtype), v).float()
+    out = _combined(out, "sum", mesh, place, seq_dims, B)
+    out = out / total.permute(0, 3, 1, 2, 4)
+    return out.to(q.dtype).reshape(Bl, S, H, D)
+
+
+def _combined(t: torch.Tensor, op: str, mesh, place, seq_dims, B: int) -> torch.Tensor:
+    """``t``, a rank's ``op`` ("max" or "sum") over its part of the cache,
+    reduced over the mesh dimensions ``seq_dims``: the whole ``op``."""
+    rows = [Partial(op) if i in seq_dims
+            else (Shard(0) if isinstance(p, Shard) and p.dim == 0 else Replicate())
+            for i, p in enumerate(place)]
+    shape = (B, *t.shape[1:])
+    stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+    whole = [Replicate() if i in seq_dims else p for i, p in enumerate(rows)]
+    return DTensor.from_local(t.contiguous(), mesh, rows, run_check=False,
+                              shape=torch.Size(shape), stride=stride
+                              ).redistribute(mesh, whole).to_local()
+
+
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """einsum("bsd,dhk->bshk") as one contiguous matmul."""
+    """einsum("bsd,dhk->bshk") as one contiguous matmul (gathered along the
+    heads × width where DTensor splits it in a way no placement of the
+    heads describes, :func:`~repro_torch.sharding.partition.unflattenable`)."""
     d, h, k = w.shape
-    return (x @ w.reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
+    w2 = w.reshape(d, h * k)
+    if isinstance(w2, DTensor) and isinstance(x, DTensor):
+        # a weight whole along its heads (too few for "model") has its
+        # columns split where both operands are whole, as DTensor may split
+        # them at no cost: the same product on every mesh and release
+        w2 = w2.redistribute(w2.device_mesh, [
+            Shard(1) if isinstance(px, Replicate) and isinstance(pw, Replicate)
+            and not any(isinstance(p, Shard) and p.dim == 1 for p in w.placements) else pw
+            for px, pw in zip(x.placements, w2.placements)])
+    return unflattenable(x @ w2, h).reshape(*x.shape[:-1], h, k)
+
+
+def _out_project(ctx: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """einsum("bshk,hkd->bsd"): the heads' outputs through ``wo``.  A
+    DTensor ``wo`` whole along its heads (too few to split over "model":
+    12 over 16 ranks) takes each rank's rows of the outputs whole
+    (:func:`_rows_matmul`): DTensor would split the product's gradient
+    along the flattened heads × width, which no placement of the heads
+    describes."""
+    H, Dv = ctx.shape[2], ctx.shape[3]
+    flat, w = ctx.reshape(*ctx.shape[:2], H * Dv), wo.reshape(H * Dv, -1)
+    if isinstance(wo, DTensor) and isinstance(ctx, DTensor) and not any(
+            isinstance(p, Shard) and p.dim == 0 for p in wo.placements):
+        return _rows_matmul(flat, w)
+    return flat @ w
+
+
+def _rows_matmul(x: DTensor, w: DTensor) -> DTensor:
+    """``x @ w`` on each rank's rows of ``x`` (split as ``x`` is along its
+    leading dimensions, whole along the last) and the whole ``w``: the
+    result is placed as those rows, and ``w``'s gradient sums over the
+    ranks that split them."""
+    mesh = x.device_mesh
+    place = [p if isinstance(p, Shard) and p.dim < x.ndim - 1 else Replicate()
+             for p in x.placements]
+    x_l = local_part(x, place)
+    w_l = local_part(w, [Replicate()] * mesh.ndim,
+                     [Partial() if isinstance(p, Shard) else Replicate() for p in place])
+    shape = (*x.shape[:-1], w.shape[-1])
+    stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+    return DTensor.from_local(x_l @ w_l, mesh, place, run_check=False, shape=torch.Size(shape),
+                              stride=stride)
 
 
 def apply_gqa(
@@ -184,8 +379,8 @@ def apply_gqa(
     elif mode in ("train", "prefill"):
         if mode == "prefill":
             assert cache is not None
-            cache.k[:, :S] = k
-            cache.v[:, :S] = v
+            _write_prefix(cache.k, k)
+            _write_prefix(cache.v, v)
             cache.length.fill_(S)
             new_cache = cache
         if cfg.use_pallas:
@@ -197,9 +392,8 @@ def apply_gqa(
                              kv_valid_len=None)
     elif mode == "decode":
         assert cache is not None and S == 1
-        idx = cache.length.long().reshape(1)
-        cache.k.index_copy_(1, idx, k.to(cache.k.dtype))
-        cache.v.index_copy_(1, idx, v.to(cache.v.dtype))
+        _write_at(cache.k, k, cache.length)
+        _write_at(cache.v, v, cache.length)
         cache.length.add_(1)
         ck = shard(cache.k, ("batch", "kv_seq", "kv_heads", None))
         cv = shard(cache.v, ("batch", "kv_seq", "kv_heads", None))
@@ -208,9 +402,7 @@ def apply_gqa(
                          kv_valid_len=cache.length)
     else:
         raise ValueError(mode)
-    H, Dh = ctx.shape[2], ctx.shape[3]
-    out = ctx.reshape(B, S, H * Dh) @ p["wo"].to(dt).reshape(H * Dh, -1)
-    return shard(out, ("batch", "seq", "act_embed")), new_cache
+    return shard(_out_project(ctx, p["wo"].to(dt)), ("batch", "seq", "act_embed")), new_cache
 
 
 def _attend_blocked(
@@ -309,25 +501,24 @@ def apply_mla(
     if mode in ("train", "prefill"):
         if mode == "prefill":
             assert cache is not None
-            cache.k[:, :S] = c_kv
-            cache.v[:, :S] = k_rope
+            _write_prefix(cache.k, c_kv)
+            _write_prefix(cache.v, k_rope)
             cache.length.fill_(S)
             new_cache = cache
         # expanded attention: per-head keys and values from the latent
         k_nope = _project(c_kv, p["w_uk"].to(dt))              # (B,T,H,dn)
         v = _project(c_kv, p["w_uv"].to(dt))                   # (B,T,H,dv)
-        s_nope = torch.einsum("bshk,bthk->bhst", q_nope, k_nope)
+        s_nope = sharded_einsum("bshk,bthk->bhst", q_nope, k_nope)
         # the rope part is per-head in q; the one shared k_rope broadcasts
         s_rope = torch.einsum("bshk,btk->bhst", q_rope, k_rope)
         kv_pos = torch.arange(S, device=x.device)[None, None, None, :]
         mask = kv_pos <= positions[:, None, :, None]
         probs = _mla_softmax(s_nope, s_rope, scale, mask, dt)
-        ctx = torch.einsum("bhst,bthk->bshk", probs, v)
+        ctx = sharded_einsum("bhst,bthk->bshk", probs, v)
     elif mode == "decode":
         assert cache is not None and S == 1
-        idx = cache.length.long().reshape(1)
-        cache.k.index_copy_(1, idx, c_kv.to(cache.k.dtype))
-        cache.v.index_copy_(1, idx, k_rope.to(cache.v.dtype))
+        _write_at(cache.k, c_kv, cache.length)
+        _write_at(cache.v, k_rope, cache.length)
         cache.length.add_(1)
         ck = shard(cache.k, ("batch", "kv_seq", None))
         cr = shard(cache.v, ("batch", "kv_seq", None))
@@ -345,9 +536,7 @@ def apply_mla(
         ctx = torch.einsum("bshl,lhk->bshk", ctx_c, p["w_uv"].to(dt))
     else:
         raise ValueError(mode)
-    H, Dv = ctx.shape[2], ctx.shape[3]
-    out = ctx.reshape(B, S, H * Dv) @ p["wo"].to(dt).reshape(H * Dv, -1)
-    return shard(out, ("batch", "seq", "act_embed")), new_cache
+    return shard(_out_project(ctx, p["wo"].to(dt)), ("batch", "seq", "act_embed")), new_cache
 
 
 # --------------------------------------------------------- cross-attention
@@ -368,9 +557,8 @@ def apply_cross_attn_cached(p, cfg: ModelConfig, x: torch.Tensor, kv) -> torch.T
     """Cross-attention against precomputed encoder K/V (the serving path)."""
     dt = x.dtype
     q = _project(x, p["wq"].to(dt))
-    B, S, H, Dh = q.shape
+    B, S = q.shape[:2]
     pos = torch.arange(S, device=x.device)[None].expand(B, S)
     ctx = _on_shards(_attend, q, kv["k"], kv["v"], causal=False, q_positions=pos,
                      kv_valid_len=None)
-    out = ctx.reshape(B, S, H * Dh) @ p["wo"].to(dt).reshape(H * Dh, -1)
-    return shard(out, ("batch", "seq", "act_embed"))
+    return shard(_out_project(ctx, p["wo"].to(dt)), ("batch", "seq", "act_embed"))

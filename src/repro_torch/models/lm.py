@@ -25,6 +25,7 @@ width.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Dict, Optional
 
@@ -39,7 +40,7 @@ from torch.utils.checkpoint import (
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.sharding import shard
+from repro_torch.sharding import active_mesh, active_rules, placed, shard, use_partitioning
 
 from . import attention as A
 from . import moe as M
@@ -88,8 +89,9 @@ def _remat(fn, cfg: ModelConfig):
     ``torch.utils.checkpoint``; without grad mode ``fn`` runs as it is.
     The loss and gradients are the same in every mode.  The recompute runs
     on the autograd engine's thread, which for CUDA tensors is not the
-    caller's: DTensor's implicit replication (a thread-local switch, on in
-    a sharded step) is carried over to it."""
+    caller's: DTensor's implicit replication and the active mesh and
+    sharding rules (thread-local, set in a sharded step) are carried over
+    to it, so that it places every tensor as the forward did."""
     if cfg.remat == "none":
         return fn
     if cfg.remat == "dots":
@@ -103,12 +105,15 @@ def _remat(fn, cfg: ModelConfig):
         if not torch.is_grad_enabled():
             return fn(*args, **kwargs)
         carried = DTensor._op_dispatcher._allow_implicit_replication
+        mesh, rules = active_mesh(), active_rules()
 
         def body(*a, **k):
-            if carried and not DTensor._op_dispatcher._allow_implicit_replication:
-                with implicit_replication():
-                    return fn(*a, **k)
-            return fn(*a, **k)
+            with contextlib.ExitStack() as ctx:
+                if carried and not DTensor._op_dispatcher._allow_implicit_replication:
+                    ctx.enter_context(implicit_replication())
+                if mesh is not None and active_mesh() is None:
+                    ctx.enter_context(use_partitioning(mesh, rules))
+                return fn(*a, **k)
 
         return checkpoint(body, *args, use_reentrant=False, **extra, **kwargs)
 
@@ -312,7 +317,8 @@ class DecoderLM(Model):
         x = self._embed_inputs(params, batch)
         B, S = x.shape[:2]
         # cache headroom: decode appends after the prompt (and the image tokens)
-        caches = self.init_decode_state(B, max_len or S + 64, x.device)
+        caches = placed(self.init_decode_state(B, max_len or S + 64, x.device),
+                        self.decode_state_axes())
         x, _ = self._stack(params, x, _positions(B, S, device=x.device), caches, "prefill")
         x = apply_norm(params["ln_f"], x, eps=cfg.norm_eps, norm_type=cfg.norm_type)
         return logits_projection(params["lm_head"], x[:, -1:]), caches
@@ -467,7 +473,8 @@ class HybridLM(Model):
         tokens = batch["tokens"]
         x = embed_lookup(params["embed"], tokens, cfg.act_dtype())
         B, S = x.shape[:2]
-        states = self.init_decode_state(B, max_len or S + 64, x.device)
+        states = placed(self.init_decode_state(B, max_len or S + 64, x.device),
+                        self.decode_state_axes())
         x, new_states = self._stack(params, x, _positions(B, S, device=x.device), states,
                                     "prefill")
         x = apply_norm(params["ln_f"], x, eps=cfg.norm_eps, norm_type=cfg.norm_type)
@@ -611,7 +618,7 @@ class XLSTMLM(Model):
     def prefill(self, params, batch: Batch, max_len: Optional[int] = None):
         cfg = self.cfg
         x = embed_lookup(params["embed"], batch["tokens"], cfg.act_dtype())
-        states = self.init_decode_state(x.shape[0], 0, x.device)
+        states = placed(self.init_decode_state(x.shape[0], 0, x.device), self.decode_state_axes())
         x, new_states = self._stack(params, x, states, "prefill")
         x = apply_norm(params["ln_f"], x, eps=cfg.norm_eps, norm_type=cfg.norm_type)
         return logits_projection(params["lm_head"], x[:, -1:]), new_states
@@ -749,7 +756,7 @@ class EncDecLM(Model):
         B, S = x.shape[:2]
         T = max_len or S + 64
         x = x + sinusoidal_positions(T, cfg.d_model, x.device).to(x.dtype)[None, :S]
-        caches = self._self_cache(B, T, x.device)
+        caches = placed(self._self_cache(B, T, x.device), _KV_AXES)
         cross = self._cross_kv(params, enc)
         x = self._decode_stack(params, x, _positions(B, S, device=x.device), caches, cross,
                                "prefill")

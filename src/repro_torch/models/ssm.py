@@ -30,6 +30,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd.ref import ssd_reference
 from repro_torch.sharding import shard
+from repro_torch.sharding.partition import flatten_last, unflattenable, whole_along
 
 from .module import ParamSpec, const_init, normal_init, ones_init, zeros_init
 
@@ -199,11 +200,16 @@ def apply_mlstm(
     B, S, _ = x.shape
     up = x @ p["up"].to(dt_)
     u, z = up.chunk(2, dim=-1)
-    uh = u.reshape(B, S, H, P)
+    # split by heads or, where they are too few for "model" (xLSTM-1.3B: 4
+    # over 16), by each head's width, as the decode state's C: the per-head
+    # products and both scans are independent per column of X
+    uh = shard(unflattenable(u, H).reshape(B, S, H, P), ("batch", "seq", "ssm_heads", "ssm_inner"),
+               fit=True)
     # per-head products, then / sqrt(N) in X's dtype, as the reference
     q = torch.einsum("bshp,hpn->bshn", uh, p["wq"].to(dt_)) / math.sqrt(N)
     k = torch.einsum("bshp,hpn->bshn", uh, p["wk"].to(dt_)) / math.sqrt(N)
-    v = torch.einsum("bshp,hpq->bshq", uh, p["wv"].to(dt_))
+    v = shard(torch.einsum("bshp,hpq->bshq", uh, p["wv"].to(dt_)),
+              ("batch", "seq", "ssm_heads", "ssm_inner"), fit=True)
     i = torch.sigmoid((x @ p["w_igate"].to(dt_)).float() + p["b_igate"])
     la = F.logsigmoid((x @ p["w_fgate"].to(dt_)).float() + p["b_fgate"])
 
@@ -229,7 +235,9 @@ def apply_mlstm(
             new_state = MLSTMState(finC, finn)
 
     y = num.float() / torch.clamp(den.float().abs(), min=1.0)
-    y = y.reshape(B, S, di).to(dt_)
+    # whole along the sequence, which the scan's output may come split along
+    # (its chunks, on torch 2.11), for ``down``'s view of the rows
+    y = whole_along(flatten_last(y, 2).to(dt_), 1)
     # output norm, gated by silu(z)
     var = y.float().square().mean(-1, keepdim=True)
     y = (y.float() * torch.rsqrt(var + cfg.norm_eps) * p["norm_scale"]).to(dt_)
@@ -285,7 +293,11 @@ def _slstm_input(p, x: torch.Tensor) -> torch.Tensor:
     """The input half of every gate's pre-activation, fp32: x (…, d) →
     (…, 4, H, Dh).  One product for all steps of a prefill."""
     w = p["w"].float()
-    return (x.float() @ w.reshape(w.shape[0], -1)).reshape(*x.shape[:-1], *w.shape[1:])
+    y = unflattenable(x.float() @ flatten_last(w, 3), w.shape[1])
+    # split by rows and heads, as the recurrence and its state are: the
+    # gates' pre-activations are unbound along their own dimension
+    axes = ("batch", "seq")[:x.ndim - 1] + (None, "ssm_heads", None)
+    return shard(y.reshape(*x.shape[:-1], *w.shape[1:]), axes, fit=True)
 
 
 def _slstm_cell(p, pre_x: torch.Tensor, st: SLSTMState) -> Tuple[torch.Tensor, SLSTMState]:
@@ -342,7 +354,7 @@ def apply_slstm(
         for t in range(S):
             h, st = _slstm_cell(p, pre_x[:, t], st)
             hs.append(h)
-        y = torch.stack(hs, dim=1).reshape(B, S, d).to(dt_)
+        y = flatten_last(torch.stack(hs, dim=1), 2).to(dt_)
         new_state = st if mode == "prefill" else None
 
     # output norm + small GLU FFN (the sLSTM block carries its own MLP)

@@ -7,6 +7,7 @@ from .partition import (
     active_rules,
     default_rules,
     param_sharding,
+    placed,
     placements,
     shard,
     spec_for,

@@ -27,6 +27,7 @@ in mesh order, so a spec whose axis tuple is not in mesh order raises
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 import threading
 from dataclasses import dataclass
@@ -34,7 +35,7 @@ from typing import Any, List, Optional, Sequence, Tuple, Union
 
 import torch
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
 from torch.distributed.tensor.placement_types import _MaskPartial
 
 MeshAxes = Union[None, str, Tuple[str, ...]]
@@ -232,7 +233,7 @@ def _shard_sizes(spec: Spec, mesh: DeviceMesh) -> Tuple[int, ...]:
     return tuple(1 if ma is None else math.prod(_axis_size(mesh, m) for m in ma) for ma in spec)
 
 
-def shard(x: torch.Tensor, axes: Sequence[Optional[str]]) -> torch.Tensor:
+def shard(x: torch.Tensor, axes: Sequence[Optional[str]], fit: bool = False) -> torch.Tensor:
     """Constrain an activation to the logical axes' mesh mapping.
 
     A no-op with no mesh active, or when ``axes`` has more entries than
@@ -240,13 +241,15 @@ def shard(x: torch.Tensor, axes: Sequence[Optional[str]]) -> torch.Tensor:
     :class:`DTensor` is redistributed to the spec's placements.  A plain
     tensor is checked against the spec (its dimensions must split evenly)
     and returned as it is: it is a rank's whole tensor, which a one-rank
-    mesh leaves where it is."""
+    mesh leaves where it is.  With ``fit`` the spec is fit-or-drop against
+    ``x``'s shape, as a parameter's is: a mesh axis a dimension does not
+    divide passes to the next dimension that names it."""
     mesh = _ctx().mesh
     if mesh is None or _ctx().rules is None:
         return x
     if len(axes) > x.ndim:
         return x
-    spec = spec_for(axes)
+    spec = spec_for(axes, tuple(x.shape) if fit else None)
     place = placements(spec, x.ndim, mesh)
     SITES.record()
     if isinstance(x, DTensor):
@@ -258,16 +261,132 @@ def shard(x: torch.Tensor, axes: Sequence[Optional[str]]) -> torch.Tensor:
     return x
 
 
-def local_part(x: DTensor, place) -> torch.Tensor:
+def _zip(fn, tree, axes):
+    """``fn(leaf, leaf_axes)`` over a tree of tensors (dicts and named
+    tuples of them) and its tree of logical axes."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree, axes)
+    if isinstance(tree, dict):
+        return {k: _zip(fn, v, axes[k]) for k, v in tree.items()}
+    return type(tree)(*(_zip(fn, v, a) for v, a in zip(tree, axes)))
+
+
+def placed(tree, axes):
+    """A tree of whole tensors (a fresh decode state, the same on every
+    rank) placed on the active mesh by its logical ``axes``, fit-or-drop
+    against each leaf's shape: each rank keeps its part, and nothing moves.
+    DTensors pass as they are; with no mesh, or a mesh of one rank, the
+    tree is returned as it is (a rank's whole tensors, as :func:`shard`
+    leaves them)."""
+    mesh = _ctx().mesh
+    if mesh is None or _ctx().rules is None or mesh.size() == 1:
+        return tree
+
+    def one(t, ax):
+        if isinstance(t, DTensor):
+            return t
+        place = placements(spec_for(ax, tuple(t.shape)), t.ndim, mesh)
+        return distribute_tensor(t, mesh, place, src_data_rank=None)
+
+    return _zip(one, tree, axes)
+
+
+def unflattenable(y: torch.Tensor, lead: int) -> torch.Tensor:
+    """``y``, about to have its last dimension viewed as ``(lead, ...)``
+    (a product's heads × width): as it is, or where DTensor split that
+    dimension over mesh dimensions whose size does not divide ``lead`` (2
+    KV heads over 16 ranks), whole along it, since no placement of the
+    view describes that split.  The gradient passes back as it comes: split
+    back along the flattened dimension, it would meet the view again."""
+    if not isinstance(y, DTensor):
+        return y
+    last = y.ndim - 1
+    ways = math.prod(y.device_mesh.size(i) for i, p in enumerate(y.placements)
+                     if isinstance(p, Shard) and p.dim == last)
+    if lead % ways == 0:
+        return y
+    return _Gathered.apply(y, [Replicate() if isinstance(p, Shard) and p.dim == last else p
+                               for p in y.placements])
+
+
+def whole_along(y: torch.Tensor, dim: int) -> torch.Tensor:
+    """``y`` gathered along ``dim`` where it is a DTensor split along it;
+    anything else as it is."""
+    if not isinstance(y, DTensor) or not any(isinstance(p, Shard) and p.dim == dim
+                                             for p in y.placements):
+        return y
+    return y.redistribute(y.device_mesh, [Replicate() if isinstance(p, Shard) and p.dim == dim
+                                          else p for p in y.placements])
+
+
+def flatten_last(y: torch.Tensor, n: int) -> torch.Tensor:
+    """``y`` with its last ``n`` dimensions viewed as one, whose gradient is
+    viewed back through :func:`unflattenable` (a gradient split along the
+    flattened dimension in a way no placement of ``y``'s describes is
+    gathered first).  A split of one of the later ``n - 1`` dimensions is
+    gathered first where the running torch cannot flatten it (torch 2.11;
+    2.13 describes it as a strided split).  A plain tensor: the view."""
+    shape = (*y.shape[:-n], math.prod(y.shape[-n:]))
+    if not isinstance(y, DTensor):
+        return y.reshape(shape)
+    inner = [isinstance(p, Shard) and p.dim > y.ndim - n for p in y.placements]
+    if any(inner) and not flattens_inner_split():
+        y = y.redistribute(y.device_mesh, [Replicate() if i else p
+                                           for i, p in zip(inner, y.placements)])
+    return _Flattened.apply(y, n)
+
+
+@functools.cache
+def flattens_inner_split() -> bool:
+    """Whether the running torch's view rule flattens two dimensions of which
+    the second is split (torch 2.13's does, into a strided split; 2.11's
+    refuses)."""
+    from torch.distributed.tensor._ops._view_ops import propagate_shape_and_sharding, view_groups
+
+    try:
+        propagate_shape_and_sharding([Shard(1)], (4, 4), view_groups((4, 4), (16,)), (2,),
+                                     strict_view=True)
+    except RuntimeError:
+        return False
+    return True
+
+
+class _Flattened(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, n):
+        ctx.inner = tuple(y.shape[-n:])
+        return y.reshape(*y.shape[:-n], math.prod(ctx.inner))
+
+    @staticmethod
+    def backward(ctx, grad):
+        return unflattenable(grad, ctx.inner[0]).reshape(*grad.shape[:-1], *ctx.inner), None
+
+
+class _Gathered(torch.autograd.Function):
+    """``y`` redistributed to ``place``; its gradient passes back as it comes."""
+
+    @staticmethod
+    def forward(ctx, y, place):
+        return y.redistribute(y.device_mesh, place)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def local_part(x: DTensor, place, grad_place=None) -> torch.Tensor:
     """``x`` redistributed to ``place``, and this rank's local tensor of it,
-    for a computation on each rank's shards.  The gradient that comes back
+    for a computation on each rank's shards; the gradient that comes back
+    is placed as ``grad_place`` (default ``place``: a ``Partial`` where
+    each rank's gradient is a part of the sum).  The gradient that comes back
     through it is this rank's, contiguous: DTensor wraps it with ``x``'s
     global strides, and a later view of a transposed local gradient (an
     einsum's backward leaves one) would fail; and where a recompute on
     autograd's CUDA thread hands it back as a DTensor (a remat'd layer
     under implicit replication), wrapping that again would nest one
     DTensor in another."""
-    local = x.redistribute(x.device_mesh, place).to_local()
+    local = x.redistribute(x.device_mesh, place).to_local(
+        grad_placements=None if grad_place is None else tuple(grad_place))
     if local.requires_grad:
         local.register_hook(_local_gradient)
     return local

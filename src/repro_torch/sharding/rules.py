@@ -20,9 +20,18 @@ torch 2.13 places all of them itself:
   same size there.
 * ``aten._unsafe_view.default``: the view rule refuses to flatten two split
   dimensions into one, which an einsum does with its batch letters (the
-  SSD scan's, split over the batch and the heads).  No placement of torch
-  2.11 describes such a flattened split, so :func:`einsum` runs that
-  product on each rank's shards instead.
+  SSD scan's, split over the batch and the heads; MLA's scores).  No
+  placement of torch 2.11 describes such a flattened split, so
+  :func:`einsum` runs that product on each rank's shards instead.
+* ``aten.log_sigmoid_backward.default`` (the mLSTM's forget gate): no rule
+  on either release.  Here it is elementwise (:func:`_pointwise_strategy`).
+* the pointwise ops: torch 2.11's rule follows the operand with the most
+  splits, so an activation whole over "model" meeting a parameter split
+  over it gathers the parameter and the op, and what follows, runs whole
+  (Zamba2's conv, ``dt_bias``, ``A_log``, ``D``, the norm's scale).  There
+  the port offers every placement split alike on all operands beside it
+  (:func:`_with_cheaper`), and DTensor takes the cheapest, as torch 2.13's
+  rule, which decides each mesh dimension on its own, does.
 
 Each rule computes on a rank's shards what the op computes on the whole
 tensors, or replicates what it cannot keep split: it never gives a wrong
@@ -58,19 +67,25 @@ def einsum(equation: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
     An einsum runs as a batched product over all its batch letters (those
     of both operands and the output) flattened into one dimension.  Where
-    every split of ``a`` and ``b`` is along a batch letter, two or more of
-    them, the product is independent per rank: each rank multiplies its own
-    shards (an operand whole along a letter the other splits takes its own
-    part of it first, a slice) and the result is placed along the same
-    letters, as DTensor places it where its view rule can flatten such
-    splits.  Used only where the running torch's view rule refuses to
+    every split of ``a`` and ``b`` is along a letter the output keeps (a
+    batch letter, or one of a single operand's), the product is
+    independent per rank: each rank multiplies its own shards (an operand
+    whole along a letter the other splits takes its own part of it first,
+    a slice, or stays whole where it has no such letter; one split along
+    another letter is moved to the first operand's) and the result is
+    placed along the same letters, as DTensor places it where its view
+    rule can flatten such splits.  Used only where the running torch's view rule refuses to
     (torch 2.11's does, and the einsum would gather whole operands);
     anything else is DTensor's."""
     if not (isinstance(a, DTensor) and isinstance(b, DTensor)) or flattens_splits():
         return torch.einsum(equation, a, b)
+    # pending sums are reduced first, as DTensor reduces them for a product
+    a, b = (t.redistribute(t.device_mesh, [Replicate() if p.is_partial() else p
+                                           for p in t.placements])
+            if any(p.is_partial() for p in t.placements) else t for t in (a, b))
     ins, out = equation.replace(" ", "").split("->")
     la, lb = ins.split(",")
-    batch = set(la) & set(lb) & set(out)
+    kept = set(out)  # the product is independent along every letter it keeps
     place, letters = [], set()
     for pa, pb in zip(a.placements, b.placements):
         split = {t[p.dim] for t, p in ((la, pa), (lb, pb)) if _plain_shard(p)}
@@ -79,16 +94,19 @@ def einsum(equation: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                 return torch.einsum(equation, a, b)
             place.append(Replicate())
             continue
-        if len(split) > 1 or not split <= batch \
-                or not all(p.is_replicate() or _plain_shard(p) for p in (pa, pb)):
+        if not split <= kept or not all(p.is_replicate() or _plain_shard(p) for p in (pa, pb)):
             return torch.einsum(equation, a, b)
-        letters |= split
-        place.append(split.pop())
-    if len(letters) < 2:
+        # split along two letters: ``b`` moves to ``a``'s
+        letter = la[pa.dim] if _plain_shard(pa) else lb[pb.dim]
+        letters.add(letter)
+        place.append(letter)
+    if not letters:
         return torch.einsum(equation, a, b)
     # an operand whole along a split letter takes its own part: no collective
     local = torch.einsum(equation, *(
-        local_part(t, [Shard(letters_of.index(c)) if isinstance(c, str) else c for c in place])
+        local_part(t, [c if not isinstance(c, str) else
+                       Shard(letters_of.index(c)) if c in letters_of else Replicate()
+                       for c in place])
         for t, letters_of in ((a, la), (b, lb)))).contiguous()
     sizes = {**dict(zip(la, a.shape)), **dict(zip(lb, b.shape))}
     shape = tuple(sizes[c] for c in out)
@@ -131,6 +149,76 @@ def _flip_strategy(op_schema):
     options += [[Shard(d), Shard(d)] for d in range(source.ndim) if d not in flipped]
     options += [[Partial(r), Partial(r)] for r in ("sum", "avg", "max", "min")]
     return _expand(op_schema, options)
+
+
+def _pointwise_strategy(op_schema, inplace: bool = False):
+    """An elementwise op: local on the first and last dimension of the
+    output and on any an input is split along, each input split along it
+    where it has the output's size there and whole where it broadcasts (an
+    empty input, a CUDA ``log_sigmoid`` buffer, is whole); pending sums
+    through the linear ops; or whole."""
+    from torch.distributed.tensor._op_schema import OpStrategy
+
+    ins = [a for a in op_schema.args_schema if isinstance(a, OpStrategy)]
+    out = torch.broadcast_shapes(*(tuple(a.shape) for a in ins if math.prod(a.shape)))
+    options = []
+    for d in range(len(out)):
+        row = [Shard(d)]
+        for a in ins:
+            lead = len(out) - a.ndim
+            keeps = math.prod(a.shape) and d >= lead and a.shape[d - lead] == out[d]
+            row.append(Shard(d - lead) if keeps else Replicate())
+        # the first and the last dimension, or one some operand is split
+        # along already: a new split of a middle one (a sequence) meets the
+        # views that flatten it with the rows, which torch 2.11 cannot take
+        if d in (0, len(out) - 1) or any(
+                isinstance(r, Shard) and any(isinstance(p, Shard) and p.dim == r.dim
+                                             for p in a.strategies[0].output_spec.placements)
+                for r, a in zip(row[1:], ins)):
+            options.append(row)
+    options += _partial_rules(op_schema.op, len(ins)) + [[Replicate()] * (1 + len(ins))]
+    got = _expand(op_schema, options, inplace=inplace)
+    # only even splits: an uneven one moved between dimensions leaves a
+    # local tensor whose strides its DTensor does not describe
+    mesh = ins[0].mesh
+    got.strategies = [s for s in got.strategies
+                      if _splits_evenly(out, s.output_spec, mesh)
+                      and all(_splits_evenly(a.shape, w, mesh) for a, w in zip(ins, s.input_specs))]
+    # of two placements at the same cost DTensor takes the first: the one
+    # that moves operands on fewer mesh dimensions, as a release that
+    # decides each mesh dimension on its own keeps a dimension where
+    # nothing needs to move
+    got.strategies.sort(key=lambda s: (sum(map(sum, s.redistribute_cost)), _moved(s, ins)))
+    return got
+
+
+def _moved(spec, inputs) -> int:
+    """The mesh dimensions on which ``spec`` moves one of ``inputs``."""
+    have = [t.strategies[0].output_spec.placements for t in inputs]
+    want = [w.placements for w in spec.input_specs]
+    return sum(any(h[i] != w[i] for h, w in zip(have, want)) for i in range(len(have[0])))
+
+
+# linear pointwise ops and the pending sums they pass on, by the number of
+# tensor operands: [output, *operands] (torch 2.13's rules for them)
+_SUMS = ("sum", "avg")
+_LINEAR = {
+    "unary": {1: [[Partial(r), Partial(r)] for r in _SUMS]},
+    "add": {2: [[Partial(r)] * 3 for r in _SUMS]},
+    "mul": {1: [[Partial(r), Partial(r)] for r in _SUMS],
+            2: [[Partial(r), Partial(r), Replicate()] for r in _SUMS]
+            + [[Partial(r), Replicate(), Partial(r)] for r in _SUMS]},
+    "div": {1: [[Partial(r), Partial(r)] for r in _SUMS],
+            2: [[Partial(r), Partial(r), Replicate()] for r in _SUMS]},
+}
+_KIND = {"add": "add", "add_": "add", "sub": "add", "sub_": "add", "mul": "mul", "mul_": "mul",
+         "div": "div", "div_": "div", "neg": "unary", "neg_": "unary", "to": "unary",
+         "_to_copy": "unary", "clone": "unary"}
+
+
+def _partial_rules(op, n: int) -> list:
+    kind = _KIND.get(op._overloadpacket.__name__)
+    return [list(r) for r in _LINEAR.get(kind, {}).get(n, [])]
 
 
 def _scatter_strategy(op_schema):
@@ -231,12 +319,50 @@ def _behind(theirs: Callable, ours: Callable) -> Callable:
     return strategy
 
 
+def _with_cheaper(theirs: Callable) -> Callable:
+    """Torch's pointwise strategy that follows one operand (the one with the
+    most splits), offered after the port's (:func:`_pointwise_strategy`:
+    every output dimension split on every operand that has it), so that
+    DTensor takes the cheapest of both, as a release that decides each mesh
+    dimension on its own does: a whole activation meeting a parameter split
+    over "model" is then sliced, not the parameter gathered."""
+
+    def strategy(op_schema):
+        from torch.distributed.tensor._op_schema import OpStrategy
+
+        got = theirs(op_schema)
+        if not isinstance(got, OpStrategy) or op_schema.is_out_variant_op():
+            return got
+        try:
+            more = _pointwise_strategy(op_schema, inplace=op_schema.is_inplace_op())
+        except (RuntimeError, AssertionError, ValueError):
+            return got
+        # the port's first: of two placements at the same cost DTensor takes
+        # the first, and the port's keep what they can where it is
+        return OpStrategy(list(more.strategies) + list(got.strategies))
+
+    strategy.port_rule = strategy.cheaper = True
+    return strategy
+
+
+def _follows_one_operand(fn) -> bool:
+    """Whether ``fn`` is torch's pointwise strategy that follows one operand."""
+    return (getattr(fn, "__module__", "").endswith("_pointwise_ops")
+            and getattr(fn, "__qualname__", "") in _FOLLOWING)
+
+
+_FOLLOWING = ("pointwise_strategy", "linear_pointwise_strategy",
+              "partial_preserving_pointwise_strategy")
+CHEAPER = "pointwise ops: the cheapest placement"  # install()'s entry for them
+
+
 # op → (the port's strategy, the arguments of its schema info where torch
 # registered none)
 _RULES: Dict = {
     aten.flip.default: (_flip_strategy, (1,)),
     aten.scatter_.src: (_scatter_strategy, (1,)),
     aten.index_put.default: (_index_put_strategy, None),
+    aten.log_sigmoid_backward.default: (_pointwise_strategy, None),
 }
 COVERED = tuple(_RULES)
 
@@ -245,8 +371,10 @@ def install() -> List[str]:
     """Register the port's rule for each op of :data:`COVERED` the running
     torch needs it for: none where torch has a single-dimension rule (which
     DTensor asks first), the port's where torch has no rule, and else the
-    port's behind torch's (:func:`_behind`).  Returns the ops registered;
-    calling it again registers nothing new."""
+    port's behind torch's (:func:`_behind`); and each pointwise op whose
+    rule follows one operand, the port's placements beside it
+    (:func:`_with_cheaper`, listed as :data:`CHEAPER`).  Returns what it
+    registered; calling it again registers nothing new."""
     from torch.distributed.tensor._op_schema import RuntimeSchemaInfo
 
     prop = DTensor._op_dispatcher.sharding_propagator
@@ -262,6 +390,11 @@ def install() -> List[str]:
             if op not in prop.op_to_schema_info and info is not None:
                 prop.op_to_schema_info[op] = RuntimeSchemaInfo(*info)
         done.append(str(op))
+    for op, theirs in list(prop.op_strategy_funcs.items()):
+        if _follows_one_operand(theirs):
+            prop.op_strategy_funcs[op] = _with_cheaper(theirs)
+    if any(getattr(f, "cheaper", False) for f in prop.op_strategy_funcs.values()):
+        done.append(CHEAPER)
     clear_caches()
     return done
 

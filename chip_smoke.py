@@ -99,18 +99,21 @@ and then drives the port's main paths:
    default_rules())``: the tokens and every step's logits bit for bit as
    path 2's, K3 9 and K4 54 launches a prefill on the tensor-core route,
    and the shard sites a prefill reaches the count the CPU test takes.
-   Beside it, in fresh processes: the port's roofline of path 2's prefill
+   In fresh processes started before path 9 (host only, they count beside
+   paths 9 and 10): the port's roofline of path 2's prefill
    and path 7's step on one rank, printed beside their measured times, and
    the count's memory of path 7's step beside its last step's: the bytes
    of its arguments, and its peak less what was allocated before it
-   (11b); and ``python -m repro_torch.launch.dryrun`` for Zamba2-2.7B and
-   OLMoE-1B-7B × train_4k on 256 ranks and Zamba2 on 512 (11c), after the
+   (11b); and ``python -m repro_torch.launch.dryrun`` for Zamba2-2.7B,
+   OLMoE-1B-7B, DeepSeek-V2-Lite-16B and xLSTM-1.3B × train_4k and
+   DeepSeek × prefill_32k on 256 ranks and Zamba2 on 512 (11c), after the
    torch release and the DTensor rules the port installed on it: each
    exits 0, allocates nothing on the card, has no op that fell back, and
-   prints its bytes by collective, its memory per rank and PCCL's speedup;
-   Zamba2's FLOPs a rank and OLMoE's all-reduce bytes within 5 % of the
-   torch 2.13 record counted on the CPU (``PATH11_TORCH213``; Zamba2's speedup, its
-   512-rank cell and OLMoE's reduce-scatter bytes printed beside theirs).  11d: ``python -m repro_torch.launch.dryrun
+   prints its bytes by collective, its memory per rank and PCCL's speedup,
+   each beside the torch 2.13 record counted on the CPU
+   (``PATH11_TORCH213``: FLOPs a rank, every collective's bytes, the
+   temporaries and the speedup), all held within 5 % but those
+   ``PERF.md`` §6 lists as not met (printed).  11d: ``python -m repro_torch.launch.dryrun
    --reduced`` in a fresh process beside them, every architecture's
    reduced config × train, prefill and decode on a 2 × 2 mesh: each cell
    counted with no op falling back.
@@ -2771,22 +2774,49 @@ def path13_phase(torch, smi: str) -> dict:
 
 
 PATH11_CELLS = (("zamba2-2.7b", "train_4k", "single"), ("olmoe-1b-7b", "train_4k", "single"),
-                ("zamba2-2.7b", "train_4k", "multi"))
+                ("zamba2-2.7b", "train_4k", "multi"),
+                ("deepseek-v2-lite-16b", "prefill_32k", "single"),
+                ("deepseek-v2-lite-16b", "train_4k", "single"),
+                ("xlstm-1.3b", "train_4k", "single"))
 # the same cells counted on the CPU with torch 2.13 (python -m
-# repro_torch.launch.dryrun): a rank's FLOPs, PCCL's speedup and the
-# all-reduce and reduce-scatter bytes the card's torch must come within
-# PATH11_REL of (Zamba2: FLOPs and speedup; OLMoE: the two collectives)
+# repro_torch.launch.dryrun --mesh single|multi): a rank's FLOPs, every
+# collective's bytes, the temporaries and PCCL's speedup, which the card's
+# torch must come within PATH11_REL of
 PATH11_TORCH213 = {
-    "zamba2-2.7b__train_4k__single": {"flops": 1.0178e14, "speedup": 2.9925},
-    "olmoe-1b-7b__train_4k__single": {"all-reduce": 1.6675e10, "reduce-scatter": 1.5024e10},
-    "zamba2-2.7b__train_4k__multi": {"flops": 1.027e14, "speedup": 2.4142},
+    "zamba2-2.7b__train_4k__single": {
+        "flops": 1.01779715653632e14, "speedup": 2.992489, "temp_size_in_bytes": 53753422964,
+        "all-gather": 328095764460, "all-reduce": 88779648721, "all-to-all": 47643653160,
+        "reduce-scatter": 743768777880},
+    "olmoe-1b-7b__train_4k__single": {
+        "flops": 5.3177519439872e13, "speedup": 1.053743, "temp_size_in_bytes": 59886842128,
+        "all-gather": 180645281280, "all-reduce": 16674924493, "all-to-all": 190709760,
+        "reduce-scatter": 15023808000},
+    "zamba2-2.7b__train_4k__multi": {
+        "flops": 1.02666024124416e14, "speedup": 2.414182, "temp_size_in_bytes": 32171804020,
+        "all-gather": 472798654760, "all-reduce": 196646419273, "all-to-all": 14824851200,
+        "reduce-scatter": 366621149840},
+    "deepseek-v2-lite-16b__prefill_32k__single": {
+        "flops": 5.8235513995264e13, "speedup": 1.109473, "temp_size_in_bytes": 90129550448,
+        "all-gather": 52037736960, "all-reduce": 97517611200, "all-to-all": 562560000,
+        "reduce-scatter": 68074321920},
+    "deepseek-v2-lite-16b__train_4k__single": {
+        "flops": 1.06765186236416e14, "speedup": 1.124727, "temp_size_in_bytes": 905463530512,
+        "all-gather": 694082695680, "all-reduce": 179820826615, "all-to-all": 3637877760,
+        "reduce-scatter": 695430904320},
+    "xlstm-1.3b__train_4k__single": {
+        "flops": 1.09163592548352e14, "speedup": 3.820779, "temp_size_in_bytes": 65472712280,
+        "all-gather": 220047463680, "all-reduce": 50221699842, "all-to-all": 23781703680,
+        "reduce-scatter": 92141806080},
 }
 PATH11_REL = 0.05
-# the ratios held to PATH11_REL; the others are printed: torch 2.11's rules
-# still place Zamba2's collectives and its 512-rank step, and OLMoE's
-# reduce-scatters, otherwise than 2.13's (PERF.md §6)
-PATH11_HELD = {("zamba2-2.7b__train_4k__single", "flops"),
-               ("olmoe-1b-7b__train_4k__single", "all-reduce")}
+# the quantities held to PATH11_REL: all but those PERF.md §6 lists as not
+# met (printed beside theirs): Zamba2's 512-rank all-gather, where a
+# product's backward views a gradient split along the sequence as rows
+# (torch 2.13 keeps a strided split, which 2.11 cannot place: the port
+# gathers it)
+PATH11_NOT_MET = {("zamba2-2.7b__train_4k__multi", "all-gather")}
+PATH11_HELD = {(cell, k) for cell, record in PATH11_TORCH213.items() for k in record
+               if (cell, k) not in PATH11_NOT_MET}
 PATH11_TIMEOUT = 600   # seconds a background count may take
 ROOFLINE_CODE = """
 import json
@@ -2807,8 +2837,10 @@ def start_background(name: str, cmd) -> dict:
     env = dict(os.environ, PYTHONPATH=str(SRC))
     env.pop("PCCL_VERIFY", None)
     log(f"  started in the background: {name}: python {' '.join(cmd)[:120]}")
+    # below the smoke's own priority: the host-bound paths it runs beside come first
     proc = subprocess.Popen([sys.executable, *cmd], cwd=SRC.parent, env=env,
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            preexec_fn=lambda: os.nice(10))
     return {"name": name, "cmd": cmd, "proc": proc, "t0": time.perf_counter()}
 
 
@@ -2883,25 +2915,47 @@ def path11a(torch, cfg, reference, reset_counts, read_counts, device=None) -> tu
     return counts, routes, stats
 
 
-def path11_phase(torch, zamba2, path2_run, serve_stats, train_stats, reset_counts, read_counts,
-                 device=None):
-    """Path 11: the dry run's counts (11c) and the one-rank rooflines (11b)
-    in fresh processes beside 11a, Zamba2 served under a one-rank mesh."""
-    out_dir = SRC.parent / "results" / "torch_dryrun"
+PATH11_OUT = SRC.parent / "results" / "torch_dryrun"
+
+
+def start_path11_jobs() -> list:
+    """Path 11's host-only processes: the dry run's cells (11c), the reduced
+    sweep (11d) and the one-rank rooflines (11b, last), started early so
+    that they count beside the card's paths."""
     jobs = []
     try:
         for arch, shape, mesh in PATH11_CELLS:
             jobs.append(start_background(f"11c {arch} x {shape} x {mesh}", [
                 "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
-                "--mesh", mesh, "--force", "--out", str(out_dir)]))
-        reduced = start_background("11d the reduced sweep",
-                                   ["-m", "repro_torch.launch.dryrun", "--reduced"])
-        jobs.append(reduced)
+                "--mesh", mesh, "--force", "--out", str(PATH11_OUT)]))
+        jobs.append(start_background("11d the reduced sweep",
+                                     ["-m", "repro_torch.launch.dryrun", "--reduced"]))
         prompt = max(SERVE_PROMPTS)
         code = ROOFLINE_CODE % (len(SERVE_PROMPTS), prompt, prompt + SERVE_NEW_TOKENS,
                                 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICROBATCHES)
         jobs.append(start_background("11b one-rank rooflines", ["-c", code]))
+    except BaseException:
+        stop_background(jobs)
+        raise
+    return jobs
 
+
+def stop_background(jobs) -> None:
+    for job in jobs:  # every process the smoke started ends with it
+        if job["proc"].poll() is None:
+            job["proc"].kill()
+            job["proc"].communicate()
+
+
+def path11_phase(torch, zamba2, path2_run, serve_stats, train_stats, reset_counts, read_counts,
+                 device=None, jobs=None):
+    """Path 11: the dry run's counts (11c) and the one-rank rooflines (11b)
+    in fresh processes (``jobs``, :func:`start_path11_jobs`'s, or started
+    here) beside 11a, Zamba2 served under a one-rank mesh."""
+    out_dir = PATH11_OUT
+    jobs = jobs if jobs is not None else start_path11_jobs()
+    reduced = jobs[len(PATH11_CELLS)]
+    try:
         log("== main path 11a: serve zamba2-2.7b under a one-rank NCCL mesh "
             "(use_partitioning, default_rules), path 2's requests")
         t = time.perf_counter()
@@ -2956,7 +3010,7 @@ def path11_phase(torch, zamba2, path2_run, serve_stats, train_stats, reset_count
         stats["rules_installed"] = RULES_INSTALLED
         stats["einsum_on_shards"] = not rules.flattens_splits()
         log(f"  torch {torch.__version__}: the port's DTensor rules installed for "
-            f"{RULES_INSTALLED}; the SSD product on each rank's shards: "
+            f"{RULES_INSTALLED}; MLA's and the SSD's products on each rank's shards: "
             f"{stats['einsum_on_shards']} (torch's view rule "
             f"{'flattens' if rules.flattens_splits() else 'refuses to flatten'} two splits)")
         stats["dryrun"] = {}
@@ -2987,10 +3041,13 @@ def path11_phase(torch, zamba2, path2_run, serve_stats, train_stats, reset_count
                 "fallbacks": rec["fallbacks"]["count"], "fallback_ops": rec["fallbacks"]["ops"]}
             record = PATH11_TORCH213[f"{arch}__{shape}__{mesh}"]
             here = {"flops": rec["per_rank"]["flops"], "speedup": pricing["speedup"],
+                    "temp_size_in_bytes": mem["temp_size_in_bytes"],
                     **rec["collectives"]["bytes_by_op"]}
             ratios = {k: here.get(k, 0.0) / v for k, v in record.items()}
             log(f"    against torch 2.13's count: " + ", ".join(
-                f"{k} {here.get(k, 0.0):.6g} / {v:.6g} = {ratios[k]:.4f}" for k, v in record.items()))
+                f"{k} {here.get(k, 0.0):.6g} / {v:.6g} = {ratios[k]:.4f}"
+                + ("" if (f"{arch}__{shape}__{mesh}", k) in PATH11_HELD else " (not held)")
+                for k, v in record.items()))
             stats["dryrun"][f"{arch}__{shape}__{mesh}"]["over_torch213"] = ratios
             held = {k: r for k, r in ratios.items() if (f"{arch}__{shape}__{mesh}", k) in PATH11_HELD}
             check(all(abs(r - 1) <= PATH11_REL for r in held.values()),
@@ -3012,10 +3069,7 @@ def path11_phase(torch, zamba2, path2_run, serve_stats, train_stats, reset_count
             k: r.get(k) for k in ("status", "flops", "fallbacks", "fallback_ops", "count_s")}
             for r in cells}
     finally:
-        for job in jobs:  # every process the path started ends with it
-            if job["proc"].poll() is None:
-                job["proc"].kill()
-                job["proc"].communicate()
+        stop_background(jobs)
     return counts, routes, stats
 
 
@@ -3563,16 +3617,21 @@ def main() -> int:
                                                XLSTM_PARITY_LAYERS, SEED + 6)
     torch.cuda.empty_cache()
     log(f"  phase train parity: {time.perf_counter() - t:.3f} s")
-    path9, routes9, trainer_stats = trainer_phase(torch, reset_counts, read_counts)
-    gc.collect()
-    torch.cuda.empty_cache()
-    t = time.perf_counter()
-    path10, routes10, path10_stats = path10_phase(torch, gen, reset_counts, read_counts)
-    log(f"  phase main path 10 with 10b-d: {time.perf_counter() - t:.3f} s")
-    t = time.perf_counter()
-    path11, routes11, path11_stats = path11_phase(torch, zamba2, path2_run, serve_stats,
-                                                  train_stats, reset_counts, read_counts)
-    log(f"  phase main path 11 with 11b-c: {time.perf_counter() - t:.3f} s")
+    jobs11 = start_path11_jobs()  # host only: they count beside paths 9 and 10
+    try:
+        path9, routes9, trainer_stats = trainer_phase(torch, reset_counts, read_counts)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        path10, routes10, path10_stats = path10_phase(torch, gen, reset_counts, read_counts)
+        log(f"  phase main path 10 with 10b-d: {time.perf_counter() - t:.3f} s")
+        t = time.perf_counter()
+        path11, routes11, path11_stats = path11_phase(torch, zamba2, path2_run, serve_stats,
+                                                      train_stats, reset_counts, read_counts,
+                                                      jobs=jobs11)
+        log(f"  phase main path 11 with 11b-c: {time.perf_counter() - t:.3f} s")
+    finally:
+        stop_background(jobs11)
     t = time.perf_counter()
     whisper_p12 = model_config("whisper-small", True)
     path12, path12_stats = path12_phase(torch, whisper_p12)

@@ -81,7 +81,7 @@ def ssd_reference(
     decay_to_end = torch.exp(total[:, :, None, :] - cum)       # (B,nc,L,H)
     Xw = Xc * decay_to_end[..., None]
     if Hb == 1:
-        states = torch.einsum("bclhp,bcln->bchpn", Xw, Bc[:, :, :, 0])
+        states = sharded_einsum("bclhp,bcln->bchpn", Xw, Bc[:, :, :, 0])
     else:
         states = sharded_einsum("bclhp,bclhn->bchpn", Xw, Bc)
 
@@ -99,7 +99,7 @@ def ssd_reference(
 
     # cross-chunk output: C_t · (exp(cum_t) · R_c)
     if Hb == 1:
-        Y_off = torch.einsum("bcln,bchpn->bclhp", Cc[:, :, :, 0], R)
+        Y_off = sharded_einsum("bcln,bchpn->bclhp", Cc[:, :, :, 0], R)
     else:
         Y_off = sharded_einsum("bclhn,bchpn->bclhp", Cc, R)
     Y_off = Y_off * torch.exp(cum)[..., None]

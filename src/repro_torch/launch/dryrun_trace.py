@@ -11,6 +11,8 @@ Hybrid and ssm configs are counted at their first depth point
 Usage:
   python -m repro_torch.launch.dryrun_trace --arch zamba2-2.7b --shape train_4k \\
       --mesh single --out trace.txt.gz
+  python -m repro_torch.launch.dryrun_trace --arch zamba2-2.7b --shape train \\
+      --reduced --out trace.txt.gz     # a reduced-sweep cell (``dryrun --reduced``)
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import gzip
+import math
 from typing import Iterator, List
 
 import torch
@@ -70,21 +73,31 @@ def main(argv=None) -> int:
     ap.add_argument("--shape", required=True)
     ap.add_argument("--mesh", default="single", choices=["single", "multi"])
     ap.add_argument("--out", required=True, help="file to write (gzip if it ends in .gz)")
+    ap.add_argument("--reduced", action="store_true",
+                    help="the reduced sweep's cell: --shape is train, prefill or decode")
     args = ap.parse_args(argv)
     D._quiet()
     multi = args.mesh == "multi"
-    D.fake_world(512 if multi else 256)
-    mesh = D.make_production_mesh(multi_pod=multi, device_type="cpu")
-    cfg = get_config(args.arch)
-    if D.use_depth_points(cfg, "auto"):
-        points, _ = R.depth_points(cfg)
-        cfg = points[min(points)]
-    lines = trace_cell(cfg, SHAPES[args.shape], mesh, default_rules(multi_pod=multi))
+    if args.reduced:
+        D.fake_world(math.prod(D.REDUCED_MESH))
+        mesh = D.make_mesh(D.REDUCED_MESH, ("data", "model"), device_type="cpu")
+        cfg = get_config(args.arch).reduced()
+        shape = ShapeConfig(f"reduced_{args.shape}", D.REDUCED_SEQ, D.REDUCED_BATCH, args.shape)
+    else:
+        D.fake_world(512 if multi else 256)
+        mesh = D.make_production_mesh(multi_pod=multi, device_type="cpu")
+        cfg = get_config(args.arch)
+        if D.use_depth_points(cfg, "auto"):
+            points, _ = R.depth_points(cfg)
+            cfg = points[min(points)]
+        shape = SHAPES[args.shape]
+    lines = trace_cell(cfg, shape, mesh, default_rules(multi_pod=multi))
     opener = gzip.open if args.out.endswith(".gz") else open
     with opener(args.out, "wt") as fh:
         fh.write("\n".join(lines) + "\n")
+    where = f"reduced {D.REDUCED_MESH}" if args.reduced else args.mesh
     print(f"torch {torch.__version__}: {len(lines)} ops of {args.arch} x {args.shape} x "
-          f"{args.mesh} at {cfg.n_layers} layers -> {args.out}")
+          f"{where} at {cfg.n_layers} layers -> {args.out}")
     return 0
 
 

@@ -130,16 +130,17 @@ def main(argv=None) -> int:
     tables = {d: rows(_load_port(pathlib.Path(d)), reference) for d in args.port}
     if args.pair:
         first, second = (tables[d] for d in args.port[:2])
-        print(f"| cell | FLOPs a rank ÷ ref | all-gather B ÷ ref | temp B ÷ ref | fallbacks | "
-              f"op holding the peak |   ({args.port[0]} / {args.port[1]})")
-        print("|---|---|---|---|---|---|")
+        print(f"| cell | FLOPs a rank ÷ ref | all-gather B ÷ ref | temp B ÷ ref | PCCL speedup | "
+              f"fallbacks | op holding the peak |   ({args.port[0]} / {args.port[1]})")
+        print("|---|---|---|---|---|---|---|")
         for a, b in zip(first, second):
             if a["status"] != "ok" or b["status"] != "ok":
-                print(f"| {a['cell']} | {a['status']} / {b['status']} | | | | |")
+                print(f"| {a['cell']} | {a['status']} / {b['status']} | | | | | |")
                 continue
             pair = lambda k: f"{_fmt(a[k], True)} / {_fmt(b[k], True)}"  # noqa: E731
             print(f"| {a['cell']} | {_fmt(a['flops'])}: {pair('flops_ratio')} | "
                   f"{pair('all_gather_ratio')} | {pair('temp_ratio')} | "
+                  f"{a['speedup']:.4f} / {b['speedup']:.4f} | "
                   f"{a['fallbacks']} / {b['fallbacks']} | {a['peak_op']} |")
         return 0
     for d, table in tables.items():

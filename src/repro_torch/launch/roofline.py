@@ -412,6 +412,8 @@ _NO_BYTES = ("aten.empty", "aten.detach", "aten.alias", "aten.lift_fresh")
 class _Ops(TorchDispatchMode):
     """Outer mode: one entry per op as the program issues it."""
 
+    counts_issued_ops = True  # ``sharding.rules`` sets it aside for DTensor's own ops
+
     def __init__(self, count: StepCount):
         super().__init__()
         self.count = count

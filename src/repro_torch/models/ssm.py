@@ -292,12 +292,16 @@ def init_slstm(cfg: ModelConfig) -> Dict[str, ParamSpec]:
 def _slstm_input(p, x: torch.Tensor) -> torch.Tensor:
     """The input half of every gate's pre-activation, fp32: x (…, d) →
     (…, 4, H, Dh).  One product for all steps of a prefill."""
-    w = p["w"].float()
+    # the heads lead the product's columns, (d, H, 4, Dh): a split of the
+    # heads is then a plain split of the columns on every torch release
+    # (behind the gates it is a strided one, which torch 2.11 cannot place)
+    w = p["w"].float().transpose(1, 2)
     y = unflattenable(x.float() @ flatten_last(w, 3), w.shape[1])
+    y = y.reshape(*x.shape[:-1], *w.shape[1:]).transpose(-3, -2)
     # split by rows and heads, as the recurrence and its state are: the
     # gates' pre-activations are unbound along their own dimension
     axes = ("batch", "seq")[:x.ndim - 1] + (None, "ssm_heads", None)
-    return shard(y.reshape(*x.shape[:-1], *w.shape[1:]), axes, fit=True)
+    return shard(y, axes, fit=True)
 
 
 def _slstm_cell(p, pre_x: torch.Tensor, st: SLSTMState) -> Tuple[torch.Tensor, SLSTMState]:
@@ -349,7 +353,8 @@ def apply_slstm(
         h, new_state = _slstm_step(p, x[:, 0], st)
         y = h.reshape(B, 1, d).to(dt_)
     else:
-        pre_x = _slstm_input(p, x)                                     # (B, S, 4, H, Dh)
+        # contiguous, as the host-bound loop below reads each step's gates
+        pre_x = _slstm_input(p, x).contiguous()                        # (B, S, 4, H, Dh)
         hs = []
         for t in range(S):
             h, st = _slstm_cell(p, pre_x[:, t], st)

@@ -27,7 +27,6 @@ in mesh order, so a spec whose axis tuple is not in mesh order raises
 from __future__ import annotations
 
 import contextlib
-import functools
 import math
 import threading
 from dataclasses import dataclass
@@ -323,32 +322,11 @@ def flatten_last(y: torch.Tensor, n: int) -> torch.Tensor:
     """``y`` with its last ``n`` dimensions viewed as one, whose gradient is
     viewed back through :func:`unflattenable` (a gradient split along the
     flattened dimension in a way no placement of ``y``'s describes is
-    gathered first).  A split of one of the later ``n - 1`` dimensions is
-    gathered first where the running torch cannot flatten it (torch 2.11;
-    2.13 describes it as a strided split).  A plain tensor: the view."""
+    gathered first).  A plain tensor: the view."""
     shape = (*y.shape[:-n], math.prod(y.shape[-n:]))
     if not isinstance(y, DTensor):
         return y.reshape(shape)
-    inner = [isinstance(p, Shard) and p.dim > y.ndim - n for p in y.placements]
-    if any(inner) and not flattens_inner_split():
-        y = y.redistribute(y.device_mesh, [Replicate() if i else p
-                                           for i, p in zip(inner, y.placements)])
     return _Flattened.apply(y, n)
-
-
-@functools.cache
-def flattens_inner_split() -> bool:
-    """Whether the running torch's view rule flattens two dimensions of which
-    the second is split (torch 2.13's does, into a strided split; 2.11's
-    refuses)."""
-    from torch.distributed.tensor._ops._view_ops import propagate_shape_and_sharding, view_groups
-
-    try:
-        propagate_shape_and_sharding([Shard(1)], (4, 4), view_groups((4, 4), (16,)), (2,),
-                                     strict_view=True)
-    except RuntimeError:
-        return False
-    return True
 
 
 class _Flattened(torch.autograd.Function):

@@ -1,56 +1,66 @@
-"""The port's DTensor rules for the ops some torch releases cannot place.
+"""The port's DTensor rules, so that every torch release places a sharded
+step as torch 2.13 does.
 
 DTensor places an op's output from a rule per op.  Where the running torch
 has none for an op, or one that refuses the placements the models give it,
 the op cannot run on a sharded mesh, and the dry run's count falls back to
-gathering its inputs whole, which charges bytes no rank needs and runs the
-op unsplit.  Torch 2.11 does so for four ops of the models' train steps;
-torch 2.13 places all of them itself:
+gathering its inputs whole; where its rule chooses otherwise than torch
+2.13's, the count differs by release.  Torch 2.13's rules are the
+reference (the CPU tests run on it; its counts are the records a card's
+torch 2.11 is held to).  The port registers, in :func:`install`, its own
+rule for each op below wherever the running torch has no single-dimension
+rule for it (torch 2.13 has one for every op marked so, and DTensor asks it
+first): one rule then decides on every release.
 
-* ``aten.flip.default`` (the backward of ``cumsum``): no rule.  Here it is
+* ``aten.flip.default`` (the backward of ``cumsum``; 2.11 has no rule):
   local on every dimension it does not flip; a split of a flipped
-  dimension is replicated.
-* ``aten.scatter_.src``: the rule replicates every operand, so the
-  in-place op fails on a split target.  Here it is local on every
-  dimension but the scattered one where the target, the index and the
-  source have the same size.
-* ``aten.index_put.default`` (the backward of indexing, ``x[:, idx]``): the
-  rule fails on an index list that holds ``None``.  Here it is local on
-  every dimension the indices do not address, where the values have the
-  same size there.
-* ``aten._unsafe_view.default``: the view rule refuses to flatten two split
-  dimensions into one, which an einsum does with its batch letters (the
-  SSD scan's, split over the batch and the heads; MLA's scores).  No
-  placement of torch 2.11 describes such a flattened split, so
-  :func:`einsum` runs that product on each rank's shards instead.
+  dimension is replicated.  2.13: single-dimension rule.
+* ``aten.scatter_.src`` and ``aten.scatter.src`` (the MoE dispatch and the
+  router's backward; 2.11's rule replicates every operand, and fails on a
+  split target in place): local on every dimension but the scattered one
+  where the target, the index and the source have the same size, as torch
+  2.13's rule for both.
+* ``aten.index_put.default`` (the backward of indexing, ``x[:, idx]``;
+  2.11's rule fails on an index list that holds ``None``): local on every
+  dimension the indices do not address, where the values have the same
+  size there.  2.13: single-dimension rule.
 * ``aten.log_sigmoid_backward.default`` (the mLSTM's forget gate): no rule
-  on either release.  Here it is elementwise (:func:`_pointwise_strategy`).
-* the pointwise ops: torch 2.11's rule follows the operand with the most
-  splits, so an activation whole over "model" meeting a parameter split
-  over it gathers the parameter and the op, and what follows, runs whole
-  (Zamba2's conv, ``dt_bias``, ``A_log``, ``D``, the norm's scale).  There
-  the port offers every placement split alike on all operands beside it
-  (:func:`_with_cheaper`), and DTensor takes the cheapest, as torch 2.13's
-  rule, which decides each mesh dimension on its own, does.
+  on either release; elementwise (:func:`_pointwise_strategy`).
+* the elementwise ops and ``aten.clone.default``: torch 2.11's rule follows
+  the operand with the most splits (an activation whole over "model"
+  meeting a parameter split over it gathers the parameter), and its
+  ``clone`` keeps a pending sum, which 2.13's reduces onto a split (every
+  einsum's and product's reshape clones).  Here: torch 2.13's
+  single-dimension pointwise rule (:func:`_pointwise_strategy`), each mesh
+  dimension on its own, pending sums only through the ops linear in them.
+* ``aten.view.default`` and ``aten._unsafe_view.default``: torch 2.11's
+  rule refuses to flatten a split that does not lead its group of
+  dimensions, which torch 2.13 places as a strided split that no placement
+  of 2.11 describes.  Where a model's einsum flattens such splits (MLA's
+  scores, the SSD scan's products: batch and heads split), :func:`einsum`
+  runs the product on each rank's shards, placed as 2.13 places it.  Where
+  the backward of a product views its gradient so (DeepSeek's train step,
+  a gradient split along the sequence), the split is gathered first
+  (:func:`_gathering_view`): the one place where the releases' counts
+  still part, by its bytes.
 
 Each rule computes on a rank's shards what the op computes on the whole
 tensors, or replicates what it cannot keep split: it never gives a wrong
-local result.  :func:`install` (run when :mod:`repro_torch.sharding` is
-imported) registers a rule only where the running torch's own one fails,
-and leaves every op torch places itself on torch's rule.
+local result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import itertools
 import math
+import sys
 from typing import Callable, Dict, List
 
 import torch
-from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Placement, Replicate, Shard
 
-from .partition import local_part
 
 aten = torch.ops.aten
 
@@ -62,58 +72,307 @@ def _plain_shard(p) -> bool:
 
 
 def einsum(equation: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``torch.einsum(equation, a, b)`` of two operands, on each rank's
-    shards when DTensor would flatten two split dimensions into one.
+    """``torch.einsum(equation, a, b)`` of two operands, with the product on
+    each rank's shards where the running torch cannot flatten the splits of
+    its batch (torch 2.11).
 
-    An einsum runs as a batched product over all its batch letters (those
-    of both operands and the output) flattened into one dimension.  Where
-    every split of ``a`` and ``b`` is along a letter the output keeps (a
-    batch letter, or one of a single operand's), the product is
-    independent per rank: each rank multiplies its own shards (an operand
-    whole along a letter the other splits takes its own part of it first,
-    a slice, or stays whole where it has no such letter; one split along
-    another letter is moved to the first operand's) and the result is
-    placed along the same letters, as DTensor places it where its view
-    rule can flatten such splits.  Used only where the running torch's view rule refuses to
-    (torch 2.11's does, and the einsum would gather whole operands);
-    anything else is DTensor's."""
+    ATen runs such an einsum as one batched product: each operand permuted
+    to its letters' order, a reshape that flattens the letters of both
+    operands (the batch), those of one (rows or columns) and the contracted
+    ones, ``bmm``, and views back.  On DTensors each of those ops is placed
+    by its rule.  Torch 2.13's view rule describes a flattened split of an
+    inner letter (a strided split); 2.11's refuses it, which a count would
+    charge as the op on whole tensors.  Here the same ops run in the same
+    order (:func:`_pair`): as DTensor ops where the running torch can place
+    them, and only the flattening reshape, ``bmm`` and the view back on
+    each rank's local tensors where it cannot.  Each rank then holds its
+    part of the product, placed as DTensor places it where its view rule
+    takes the flattened splits, with the same collectives before it (a
+    pending sum the reshape's ``clone`` reduces, as torch 2.13's rule
+    reduces it).  Anything else, or a torch that flattens such splits
+    itself, is ``torch.einsum``'s."""
     if not (isinstance(a, DTensor) and isinstance(b, DTensor)) or flattens_splits():
         return torch.einsum(equation, a, b)
-    # pending sums are reduced first, as DTensor reduces them for a product
-    a, b = (t.redistribute(t.device_mesh, [Replicate() if p.is_partial() else p
-                                           for p in t.placements])
-            if any(p.is_partial() for p in t.placements) else t for t in (a, b))
+    return _pair(equation, a, b)
+
+
+def _pair(equation: str, a: DTensor, b: DTensor) -> torch.Tensor:
+    """ATen's two-operand einsum (``sumproduct_pair``), op for op, with the
+    flattening reshapes, ``bmm`` and the view back on local tensors where
+    the running torch cannot place the flattening (:func:`einsum`)."""
     ins, out = equation.replace(" ", "").split("->")
     la, lb = ins.split(",")
-    kept = set(out)  # the product is independent along every letter it keeps
-    place, letters = [], set()
-    for pa, pb in zip(a.placements, b.placements):
-        split = {t[p.dim] for t, p in ((la, pa), (lb, pb)) if _plain_shard(p)}
-        if not split:
-            if not (pa.is_replicate() and pb.is_replicate()):
-                return torch.einsum(equation, a, b)
-            place.append(Replicate())
-            continue
-        if not split <= kept or not all(p.is_replicate() or _plain_shard(p) for p in (pa, pb)):
-            return torch.einsum(equation, a, b)
-        # split along two letters: ``b`` moves to ``a``'s
-        letter = la[pa.dim] if _plain_shard(pa) else lb[pb.dim]
-        letters.add(letter)
-        place.append(letter)
-    if not letters:
-        return torch.einsum(equation, a, b)
-    # an operand whole along a split letter takes its own part: no collective
-    local = torch.einsum(equation, *(
-        local_part(t, [c if not isinstance(c, str) else
-                       Shard(letters_of.index(c)) if c in letters_of else Replicate()
-                       for c in place])
-        for t, letters_of in ((a, la), (b, lb)))).contiguous()
-    sizes = {**dict(zip(la, a.shape)), **dict(zip(lb, b.shape))}
-    shape = tuple(sizes[c] for c in out)
-    stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
-    return DTensor.from_local(local, a.device_mesh,
-                              [Shard(out.index(c)) if isinstance(c, str) else c for c in place],
-                              run_check=False, shape=torch.Size(shape), stride=stride)
+    layout = list(out) + sorted(set(la + lb) - set(out))  # ATen's order of the letters
+    ops = []
+    for t, letters in ((a, la), (b, lb)):
+        missing = [c for c in layout if c not in letters]
+        for _ in missing:
+            t = t.unsqueeze(-1)
+        have = list(letters) + missing
+        ops.append(t.permute([have.index(c) for c in layout]))
+    a, b = ops
+    sums = []
+    for d in range(len(out), len(layout)):
+        if a.shape[d] != 1 and b.shape[d] != 1:
+            sums.append(d)
+        elif a.shape[d] != 1:
+            a = a.sum(d, keepdim=True)
+        elif b.shape[d] != 1:
+            b = b.sum(d, keepdim=True)
+    lro, lo, ro = [], [], []
+    for d in range(len(layout)):
+        if d not in sums:
+            (lro if a.shape[d] != 1 and b.shape[d] != 1 else lo if a.shape[d] != 1 else ro).append(d)
+    lperm, rperm = lro + lo + sums + ro, lro + sums + ro + lo
+    out_ids = lro + lo + sums + ro
+    out_size = [a.shape[d] for d in lro + lo] + [1] * len(sums) + [b.shape[d] for d in ro]
+    left = _Operand.permuted(a, lperm, (len(lro), len(lo)))
+    right = _Operand.permuted(b, rperm, (len(lro), len(sums)))
+    groups = (range(len(lro)), range(len(lro), len(lro) + len(lo) + len(sums)),
+              range(len(lro) + len(lo) + len(sums), len(out_ids)))
+    # the backward's products may flatten splits the forward's did not
+    y = _LocalProduct.apply(left.t, right.t, (left, right, out_ids, out_size, groups))
+    operm = [0] * len(layout)
+    for i, d in enumerate(out_ids):
+        operm[d] = i
+    y = y.permute(operm)
+    return y.view([y.shape[d] for d in range(len(out))])
+
+
+class _Operand:
+    """An operand of ``bmm`` before ATen flattens it to three dimensions:
+    the DTensor, the letter (a dimension of the einsum's layout) of each of
+    its dimensions, its three groups of dimensions, and whether the reshape
+    copies (``clone`` and ``_unsafe_view``, else ``view``)."""
+
+    def __init__(self, t: DTensor, ids, groups, copy: bool = False):
+        self.t, self.ids, self.groups, self.copy = t, list(ids), groups, copy
+
+    @classmethod
+    def permuted(cls, t: DTensor, perm, lead) -> "_Operand":
+        """``t.permute(perm)``, grouped as the first ``lead[0]`` dimensions,
+        the next ``lead[1]`` and the rest; the copy ATen's reshape makes
+        where the strides allow no view is made here, by DTensor (whose rule
+        reduces a pending sum)."""
+        t = t.permute(perm)
+        n0, n1 = lead
+        groups = (range(n0), range(n0, n0 + n1), range(n0 + n1, t.ndim))
+        copy = not _viewable(t, tuple(math.prod(t.shape[d] for d in g) for g in groups))
+        if copy:
+            t = t.clone(memory_format=torch.contiguous_format)
+        return cls(t, perm, groups, copy)
+
+    def swapped(self) -> "_Operand":
+        """The operand transposed in its last two groups (``bmm``'s backward
+        takes the other operand so)."""
+        return _Operand(self.t, self.ids, (self.groups[0], self.groups[2], self.groups[1]))
+
+    def shape3(self, t=None):
+        t = self.t if t is None else t
+        return tuple(math.prod(t.shape[d] for d in g) for g in self.groups)
+
+    def reshaped(self, local: bool = False) -> torch.Tensor:
+        """The flattening reshape, of the DTensor or of its local tensor (a
+        transposed view where the groups are swapped)."""
+        t = self.t.to_local() if local else self.t
+        order = [d for g in self.groups for d in g]
+        if order != sorted(order):  # swapped: flatten as stored, then transpose
+            plain = (self.groups[0], self.groups[2], self.groups[1])
+            return _Operand(self.t, self.ids, plain).reshaped(local).transpose(1, 2)
+        shape = self.shape3(t)
+        return aten._unsafe_view(t, shape) if self.copy else t.view(shape)
+
+    def refused(self) -> bool:
+        """Whether the reshape flattens a split that does not lead its group:
+        torch 2.13 places it as a strided split, torch 2.11's view rule
+        refuses it."""
+        return any(self.letter(i) is not None and not self.outer(self.letter(i))
+                   for i in range(self.t.device_mesh.ndim))
+
+    def letter(self, i: int):
+        p = self.t.placements[i]
+        return self.ids[p.dim] if _plain_shard(p) else None
+
+    def role(self, letter) -> int:
+        return next(k for k, g in enumerate(self.groups) if self.ids.index(letter) in g)
+
+    def outer(self, letter) -> bool:
+        """Whether ``letter`` leads its group (a plain split once flattened;
+        a later one is a strided split)."""
+        d = self.ids.index(letter)
+        return not any(self.t.shape[e] != 1 for e in self.groups[self.role(letter)] if e < d)
+
+    def move(self, i: int, place) -> None:
+        """Redistribute along mesh dimension ``i`` as DTensor's ``bmm`` does
+        inside the op (:func:`_as_inside_an_op`): ``place`` is ``Replicate()``
+        or a letter to split along."""
+        want = list(self.t.placements)
+        want[i] = place if not isinstance(place, int) else Shard(self.ids.index(place))
+        with _as_inside_an_op():
+            self.t = self.t.redistribute(self.t.device_mesh, want)
+
+
+@contextlib.contextmanager
+def _as_inside_an_op():
+    """The block's ops counted as DTensor's own inside an op it dispatches: a
+    mode that counts the ops a program issues (``counts_issued_ops``, the
+    dry run's) and is innermost is set aside, as it never sees those; the
+    modes under it (the collectives) see them."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode, _pop_mode_temporarily
+
+    if getattr(_get_current_dispatch_mode(), "counts_issued_ops", False):
+        with _pop_mode_temporarily():
+            yield
+    else:
+        yield
+
+
+def _viewable(t: DTensor, shape) -> bool:
+    """Whether ``t``'s global strides let ATen view it as ``shape``."""
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    with _disable_current_modes():  # a stride check on the side, uncounted
+        try:
+            torch.empty_strided(t.shape, t.stride(), device="meta").view(shape)
+        except RuntimeError:
+            return False
+    return True
+
+
+def _plan(x: _Operand, y: _Operand):
+    """How torch 2.13's ``bmm`` places ``x @ y`` (groups: batch, rows,
+    contracted; and batch, contracted, columns) on each mesh dimension,
+    where their flattened splits are strided: the output's placement (a
+    letter, a pending sum, or whole), after moving an operand where its
+    rule moves it.  A split batch letter meets the other operand alike,
+    or whole (which is sliced where the letter leads its group, and else
+    the split one gathered), or split along the letter that leads (the
+    other then gathered and sliced alike), or along another inner letter
+    (both gathered), or the other's rows or columns (the strided one
+    gathered); rows of ``x`` or columns of ``y`` split meet the other
+    whole; a contracted letter split on both gives a pending sum, as does
+    a pending sum times a whole operand.  (Torch 2.13's choices, read off
+    its ``bmm`` on strided splits; where its cost model weighs sizes the
+    models' shapes decide as here.)  None for anything else (DTensor's own
+    ``bmm`` then decides).  The moves are made only once every mesh
+    dimension is placed."""
+    place, moves = [], []
+    for i, (px, py) in enumerate(zip(x.t.placements, y.t.placements)):
+        lx, ly = x.letter(i), y.letter(i)
+        rx = x.role(lx) if lx is not None else None
+        ry = y.role(ly) if ly is not None else None
+        if rx == 0 and ry == 0:
+            if lx == ly:
+                place.append(lx)
+            elif x.outer(lx) and not y.outer(ly):  # gathered, then sliced
+                moves += [(y, i, Replicate()), (y, i, lx)]
+                place.append(lx)
+            elif y.outer(ly) and not x.outer(lx):
+                moves += [(x, i, Replicate()), (x, i, ly)]
+                place.append(ly)
+            elif not (x.outer(lx) or y.outer(ly)):  # two strided splits: both gathered
+                moves += [(x, i, Replicate()), (y, i, Replicate())]
+                place.append(Replicate())
+            else:
+                return None
+        elif rx == 2 and ry == 1 and lx == ly:
+            place.append(Partial())
+        elif rx == 0 and ry == 2 and not x.outer(lx):  # a strided batch meets columns
+            moves.append((x, i, Replicate()))
+            place.append(ly)
+        elif rx == 1 and ry == 0 and not y.outer(ly):  # rows meet a strided batch
+            moves.append((y, i, Replicate()))
+            place.append(lx)
+        elif lx is not None and ly is None and py.is_replicate() and rx in (0, 1):
+            if rx == 1:
+                place.append(lx)
+            elif x.outer(lx):
+                moves.append((y, i, lx))
+                place.append(lx)
+            else:
+                moves.append((x, i, Replicate()))
+                place.append(Replicate())
+        elif ly is not None and lx is None and px.is_replicate() and ry in (0, 2):
+            if ry == 2:
+                place.append(ly)
+            elif y.outer(ly):
+                moves.append((x, i, ly))
+                place.append(ly)
+            else:
+                moves.append((y, i, Replicate()))
+                place.append(Replicate())
+        elif lx is None and ly is None and (px.is_replicate() or py.is_replicate()):
+            place.append(py if px.is_replicate() else px)
+        else:
+            return None
+    for operand, i, where in moves:
+        operand.move(i, where)
+    return place
+
+
+def _local_bmm(x: _Operand, y: _Operand, plan, ids, shape) -> DTensor:
+    """``bmm`` of the two operands' local tensors (placed by :func:`_plan`),
+    viewed as ``shape`` whose dimensions are the letters ``ids``."""
+    mesh = x.t.device_mesh
+    place = [Shard(ids.index(p)) if not isinstance(p, Placement) else p for p in plan]
+    local = list(shape)
+    for i, p in enumerate(place):
+        if isinstance(p, Shard):
+            local[p.dim] //= mesh.size(i)
+    y3 = torch.bmm(x.reshaped(local=True), y.reshaped(local=True))
+    return DTensor.from_local(y3.view(local), mesh, place, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=tuple(math.prod(shape[i + 1:]) for i in range(len(shape))))
+
+
+class _LocalProduct(torch.autograd.Function):
+    """The product of :func:`_pair` (:func:`_bmm`: on local tensors where
+    the running torch cannot flatten its operands), and its backward as
+    ATen's ``bmm`` backward: the gradient reshaped to three dimensions,
+    then ``x.T @ g`` and ``g @ y.T``, each by :func:`_bmm` again."""
+
+    @staticmethod
+    def forward(ctx, lt, rt, how):
+        x, y, ids, shape, groups = how
+        out = _bmm(x, y, ids, shape)
+        # the operands as placed for the product, saved as autograd saves
+        # bmm's (a recompute's hooks see them); only their layout is kept
+        ctx.save_for_backward(x.t, y.t)
+        ctx.how = ((x.ids, x.groups), (y.ids, y.groups), ids, groups)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y, ids, groups = ctx.how
+        x, y = (_Operand(t, *layout) for t, layout in zip(ctx.saved_tensors, (x, y)))
+        xt, yt = x.t, y.t
+        copy = not _viewable(g, tuple(math.prod(g.shape[d] for d in gr) for gr in groups))
+        if copy:
+            g = g.clone(memory_format=torch.contiguous_format)
+        grads = [None, None]
+        # ATen flattens the gradient once (``_unsafe_view`` after its copy);
+        # a second product views it
+        if ctx.needs_input_grad[1]:
+            a, b = _Operand(xt, x.ids, x.groups).swapped(), _Operand(g, ids, groups, copy)
+            grads[1] = _bmm(a, b, y.ids, tuple(yt.shape))
+            copy = False
+        if ctx.needs_input_grad[0]:
+            a, b = _Operand(g, ids, groups, copy), _Operand(yt, y.ids, y.groups).swapped()
+            grads[0] = _bmm(a, b, x.ids, tuple(xt.shape))
+        return grads[0], grads[1], None
+
+
+def _bmm(a: _Operand, b: _Operand, ids, shape) -> DTensor:
+    """``a @ b`` viewed as ``shape`` (letters ``ids``): DTensor's own
+    ``bmm`` and view where the running torch places the flattening (or
+    :func:`_plan` does not know 2.13's choice), else :func:`_local_bmm`."""
+    plan = _plan(a, b) if a.refused() or b.refused() else None
+    if plan is not None:
+        return _local_bmm(a, b, plan, ids, shape)
+    y = torch.bmm(a.reshaped(), b.reshaped()).view(shape)
+    # a new DTensor, not a view: the model writes the product in place
+    return DTensor.from_local(y.to_local(), y.device_mesh, y.placements, run_check=False,
+                              shape=y.shape, stride=y.stride())
 
 
 @functools.cache
@@ -152,73 +411,89 @@ def _flip_strategy(op_schema):
 
 
 def _pointwise_strategy(op_schema, inplace: bool = False):
-    """An elementwise op: local on the first and last dimension of the
-    output and on any an input is split along, each input split along it
-    where it has the output's size there and whole where it broadcasts (an
-    empty input, a CUDA ``log_sigmoid`` buffer, is whole); pending sums
-    through the linear ops; or whole."""
+    """An elementwise op as torch 2.13 places it (its single-dimension
+    pointwise rule, expanded over the mesh): on each mesh dimension the
+    output split along any of its dimensions, each input alike where it has
+    the output's size there and whole where it broadcasts, or everything
+    whole; the pending sums the op passes on (:func:`_partial_rows`); and
+    the cheapest of these, which DTensor takes.  A split row is offered only
+    where some input is split already, and an empty input (a CUDA
+    ``log_sigmoid`` buffer) is whole."""
     from torch.distributed.tensor._op_schema import OpStrategy
 
     ins = [a for a in op_schema.args_schema if isinstance(a, OpStrategy)]
     out = torch.broadcast_shapes(*(tuple(a.shape) for a in ins if math.prod(a.shape)))
-    options = []
+    rows = []
     for d in range(len(out)):
         row = [Shard(d)]
         for a in ins:
-            lead = len(out) - a.ndim
-            keeps = math.prod(a.shape) and d >= lead and a.shape[d - lead] == out[d]
-            row.append(Shard(d - lead) if keeps else Replicate())
-        # the first and the last dimension, or one some operand is split
-        # along already: a new split of a middle one (a sequence) meets the
-        # views that flatten it with the rows, which torch 2.11 cannot take
-        if d in (0, len(out) - 1) or any(
-                isinstance(r, Shard) and any(isinstance(p, Shard) and p.dim == r.dim
-                                             for p in a.strategies[0].output_spec.placements)
-                for r, a in zip(row[1:], ins)):
-            options.append(row)
-    options += _partial_rules(op_schema.op, len(ins)) + [[Replicate()] * (1 + len(ins))]
-    got = _expand(op_schema, options, inplace=inplace)
-    # only even splits: an uneven one moved between dimensions leaves a
-    # local tensor whose strides its DTensor does not describe
+            j = d - (len(out) - a.ndim)
+            row.append(Shard(j) if math.prod(a.shape) and j >= 0 and a.shape[j] == out[d]
+                       else Replicate())
+        rows.append(row)
+    return _single_dim(op_schema, rows + _partial_rows(op_schema.op, len(ins)),
+                       inplace=inplace or op_schema.is_inplace_op())
+
+
+def _single_dim(op_schema, rows, inplace: bool = False):
+    """A rule given for one mesh dimension expanded over the mesh as torch
+    2.13 expands its single-dimension pointwise rules: the all-whole row
+    first, the rows that split something only where some input is split,
+    every combination over the mesh dimensions, each input split evenly
+    enough to give every rank a part or kept as it is (an uneven split, a
+    single row over the data ranks, stays), an in-place op's target and
+    output as the target is."""
+    from torch.distributed.tensor._op_schema import OpSpec, OpStrategy
+    from torch.distributed.tensor._ops.utils import generate_redistribute_costs, is_tensor_shardable
+
+    ins = [a for a in op_schema.args_schema if isinstance(a, OpStrategy)]
+    have = [a.strategies[0].output_spec for a in ins]
+    split = any(p.is_shard() for h in have for p in h.placements)
+    rows = [[Replicate()] * (1 + len(ins))] + [
+        r for r in rows if split or not any(isinstance(p, Shard) for p in r)]
     mesh = ins[0].mesh
-    got.strategies = [s for s in got.strategies
-                      if _splits_evenly(out, s.output_spec, mesh)
-                      and all(_splits_evenly(a.shape, w, mesh) for a, w in zip(ins, s.input_specs))]
-    # of two placements at the same cost DTensor takes the first: the one
-    # that moves operands on fewer mesh dimensions, as a release that
-    # decides each mesh dimension on its own keeps a dimension where
-    # nothing needs to move
-    got.strategies.sort(key=lambda s: (sum(map(sum, s.redistribute_cost)), _moved(s, ins)))
+    got = OpStrategy([])
+    for combo in itertools.product(rows, repeat=mesh.ndim):
+        out = _spec(mesh, [c[0] for c in combo])
+        wanted = [_spec(mesh, [c[j + 1] for c in combo], h.tensor_meta) for j, h in enumerate(have)]
+        if inplace and not (wanted[0].placements == out.placements == have[0].placements):
+            continue
+        if not all(is_tensor_shardable(a.shape, w) or w.placements == h.placements
+                   for a, w, h in zip(ins, wanted, have)):
+            continue
+        got.strategies.append(OpSpec(
+            output_specs=out, input_specs=tuple(wanted),
+            redistribute_cost=[generate_redistribute_costs(a, w) for a, w in zip(ins, wanted)]))
     return got
 
 
-def _moved(spec, inputs) -> int:
-    """The mesh dimensions on which ``spec`` moves one of ``inputs``."""
-    have = [t.strategies[0].output_spec.placements for t in inputs]
-    want = [w.placements for w in spec.input_specs]
-    return sum(any(h[i] != w[i] for h, w in zip(have, want)) for i in range(len(have[0])))
-
-
-# linear pointwise ops and the pending sums they pass on, by the number of
-# tensor operands: [output, *operands] (torch 2.13's rules for them)
+# the pending sums an elementwise op passes on, by the number of its tensor
+# operands: [output, *operands] (torch 2.13's ``_pointwise_ops`` tables;
+# its max / min rows are left out: the models make no such partials)
 _SUMS = ("sum", "avg")
-_LINEAR = {
-    "unary": {1: [[Partial(r), Partial(r)] for r in _SUMS]},
-    "add": {2: [[Partial(r)] * 3 for r in _SUMS]},
-    "mul": {1: [[Partial(r), Partial(r)] for r in _SUMS],
+_UNARY_LINEAR = [[Partial(r), Partial(r)] for r in _SUMS]
+_PARTIAL_ROWS = {
+    "additive": {2: [[Partial(r)] * 3 for r in _SUMS]
+                 + [[Partial("avg"), Partial("avg"), Replicate()],
+                    [Partial("avg"), Replicate(), Partial("avg")]]},
+    "mul": {1: _UNARY_LINEAR,
             2: [[Partial(r), Partial(r), Replicate()] for r in _SUMS]
             + [[Partial(r), Replicate(), Partial(r)] for r in _SUMS]},
-    "div": {1: [[Partial(r), Partial(r)] for r in _SUMS],
-            2: [[Partial(r), Partial(r), Replicate()] for r in _SUMS]},
+    "div": {1: _UNARY_LINEAR, 2: [[Partial(r), Partial(r), Replicate()] for r in _SUMS]},
+    "linear": {1: _UNARY_LINEAR},
+    "copy": {1: _UNARY_LINEAR, 2: [[Partial(r)] * 3 for r in _SUMS]},
 }
-_KIND = {"add": "add", "add_": "add", "sub": "add", "sub_": "add", "mul": "mul", "mul_": "mul",
-         "div": "div", "div_": "div", "neg": "unary", "neg_": "unary", "to": "unary",
-         "_to_copy": "unary", "clone": "unary"}
+_KIND = {"add.Tensor": "additive", "add_.Tensor": "additive", "sub.Tensor": "additive",
+         "sub_.Tensor": "additive", "mul.Tensor": "mul", "mul_.Tensor": "mul",
+         "div.Tensor": "div", "div_.Tensor": "div", "mul.Scalar": "linear",
+         "mul_.Scalar": "linear", "div.Scalar": "linear", "div_.Scalar": "linear",
+         "neg.default": "linear", "neg_.default": "linear", "to.dtype": "copy",
+         "positive.default": "copy", "copy_.default": "copy"}
 
 
-def _partial_rules(op, n: int) -> list:
-    kind = _KIND.get(op._overloadpacket.__name__)
-    return [list(r) for r in _LINEAR.get(kind, {}).get(n, [])]
+def _partial_rows(op, n: int) -> list:
+    kind = _KIND.get(f"{op._overloadpacket.__name__}.{op._overloadname}")
+    return [list(r) for r in _PARTIAL_ROWS.get(kind, {}).get(n, [])]
 
 
 def _scatter_strategy(op_schema):
@@ -297,63 +572,61 @@ def _splits_evenly(shape, spec, mesh) -> bool:
 # ---------------------------------------------------------------- install
 
 
-def _keeps_target(op_schema, strategy) -> bool:
-    """Whether an in-place op's strategy offers the target's placement."""
-    have = tuple(op_schema.args_schema[0].strategies[0].output_spec.placements)
-    return any(tuple(s.output_spec.placements) == have for s in strategy.strategies)
-
-
-def _behind(theirs: Callable, ours: Callable) -> Callable:
-    """A strategy that asks torch's rule first and the port's where torch's
-    raises or offers no placement that keeps an in-place op's target."""
+def _gathering_view(theirs: Callable) -> Callable:
+    """Torch's view rule, and where it refuses to flatten a split that does
+    not lead its group (torch 2.11; 2.13 places a strided split) that split
+    gathered first, from the last mesh dimension on: a view the backward of
+    a product makes (its gradient viewed as rows) does not fall back whole."""
 
     def strategy(op_schema):
+        from torch.distributed.tensor._op_schema import OpSchema, OpSpec, OpStrategy
+        from torch.distributed.tensor._ops.utils import generate_redistribute_costs
+
         try:
-            got = theirs(op_schema)
+            return theirs(op_schema)
         except (RuntimeError, AssertionError):
-            got = None
-        if got is not None and (not op_schema.is_inplace_op() or _keeps_target(op_schema, got)):
+            refused = sys.exc_info()
+        src = op_schema.args_schema[0]
+        spec = src.strategies[0].output_spec
+        place = list(spec.placements)
+        for i in reversed(range(len(place))):
+            if not place[i].is_shard():
+                continue
+            place[i] = Replicate()
+            gathered = _spec(spec.mesh, place, spec.tensor_meta)
+            schema = OpSchema(op_schema.op, (OpStrategy([OpSpec(gathered)]),)
+                              + tuple(op_schema.args_schema[1:]), op_schema.kwargs_schema)
+            try:
+                got = theirs(schema)
+            except (RuntimeError, AssertionError):
+                continue
+            for s in got.strategies:
+                s.input_specs = (gathered,)
+                s.redistribute_cost = [generate_redistribute_costs(src, gathered)]
             return got
-        return ours(op_schema)
+        raise refused[1]
 
+    strategy.port_rule = True
     return strategy
 
 
-def _with_cheaper(theirs: Callable) -> Callable:
-    """Torch's pointwise strategy that follows one operand (the one with the
-    most splits), offered after the port's (:func:`_pointwise_strategy`:
-    every output dimension split on every operand that has it), so that
-    DTensor takes the cheapest of both, as a release that decides each mesh
-    dimension on its own does: a whole activation meeting a parameter split
-    over "model" is then sliced, not the parameter gathered."""
-
-    def strategy(op_schema):
-        from torch.distributed.tensor._op_schema import OpStrategy
-
-        got = theirs(op_schema)
-        if not isinstance(got, OpStrategy) or op_schema.is_out_variant_op():
-            return got
-        try:
-            more = _pointwise_strategy(op_schema, inplace=op_schema.is_inplace_op())
-        except (RuntimeError, AssertionError, ValueError):
-            return got
-        # the port's first: of two placements at the same cost DTensor takes
-        # the first, and the port's keep what they can where it is
-        return OpStrategy(list(more.strategies) + list(got.strategies))
-
-    strategy.port_rule = strategy.cheaper = True
-    return strategy
+_VIEWS = (aten.view.default, aten._unsafe_view.default)
+VIEWS = "views: a split behind the first gathered"  # install()'s entry for them
 
 
 def _follows_one_operand(fn) -> bool:
-    """Whether ``fn`` is torch's pointwise strategy that follows one operand."""
+    """Whether ``fn`` is torch's pointwise strategy that follows one operand
+    (torch 2.11's; 2.13 places pointwise ops per mesh dimension)."""
     return (getattr(fn, "__module__", "").endswith("_pointwise_ops")
             and getattr(fn, "__qualname__", "") in _FOLLOWING)
 
 
 _FOLLOWING = ("pointwise_strategy", "linear_pointwise_strategy",
               "partial_preserving_pointwise_strategy")
-CHEAPER = "pointwise ops: the cheapest placement"  # install()'s entry for them
+POINTWISE = "pointwise ops: torch 2.13's rule"  # install()'s entry for them
+# elementwise ops torch 2.13 places by its pointwise rule, where 2.11 has
+# another (``clone`` keeps a pending sum there)
+_ALSO_POINTWISE = (aten.clone.default,)
 
 
 # op → (the port's strategy, the arguments of its schema info where torch
@@ -361,40 +634,49 @@ CHEAPER = "pointwise ops: the cheapest placement"  # install()'s entry for them
 _RULES: Dict = {
     aten.flip.default: (_flip_strategy, (1,)),
     aten.scatter_.src: (_scatter_strategy, (1,)),
+    aten.scatter.src: (_scatter_strategy, (1,)),
     aten.index_put.default: (_index_put_strategy, None),
     aten.log_sigmoid_backward.default: (_pointwise_strategy, None),
 }
 COVERED = tuple(_RULES)
+for _rule, _ in _RULES.values():
+    _rule.port_rule = True  # what install() registered, as DTensor holds it
 
 
 def install() -> List[str]:
-    """Register the port's rule for each op of :data:`COVERED` the running
-    torch needs it for: none where torch has a single-dimension rule (which
-    DTensor asks first), the port's where torch has no rule, and else the
-    port's behind torch's (:func:`_behind`); and each pointwise op whose
-    rule follows one operand, the port's placements beside it
-    (:func:`_with_cheaper`, listed as :data:`CHEAPER`).  Returns what it
-    registered; calling it again registers nothing new."""
+    """Register the port's rule for each op of :data:`COVERED`, each
+    elementwise op whose rule follows one operand (and ``clone``; listed as
+    :data:`POINTWISE`) and the views (torch's rule behind the port's
+    gathering, :func:`_gathering_view`), wherever the running torch has no
+    single-dimension rule for the op: none on a torch whose rules already
+    place them as 2.13's do.  Returns what it registered; calling it again
+    registers nothing new."""
     from torch.distributed.tensor._op_schema import RuntimeSchemaInfo
 
     prop = DTensor._op_dispatcher.sharding_propagator
     done = []
+    single = getattr(prop, "op_single_dim_strategy_funcs", {})
     for op, (ours, info) in _RULES.items():
-        if op in getattr(prop, "op_single_dim_strategy_funcs", {}):
+        if op in single:
             continue
-        theirs = prop.op_strategy_funcs.get(op)
-        if not getattr(theirs, "port_rule", False):
-            rule = ours if theirs is None else _behind(theirs, ours)
-            rule.port_rule = True
-            prop.op_strategy_funcs[op] = rule
-            if op not in prop.op_to_schema_info and info is not None:
-                prop.op_to_schema_info[op] = RuntimeSchemaInfo(*info)
+        prop.op_strategy_funcs[op] = ours
+        if op not in prop.op_to_schema_info and info is not None:
+            prop.op_to_schema_info[op] = RuntimeSchemaInfo(*info)
         done.append(str(op))
     for op, theirs in list(prop.op_strategy_funcs.items()):
-        if _follows_one_operand(theirs):
-            prop.op_strategy_funcs[op] = _with_cheaper(theirs)
-    if any(getattr(f, "cheaper", False) for f in prop.op_strategy_funcs.values()):
-        done.append(CHEAPER)
+        out_variant = any(a.is_out for a in op._schema.arguments)  # the models call none
+        if op not in single and not out_variant and (
+                _follows_one_operand(theirs) or op in _ALSO_POINTWISE):
+            prop.op_strategy_funcs[op] = _pointwise_strategy
+    for op in _VIEWS:
+        theirs = prop.op_strategy_funcs.get(op)
+        if op not in single and theirs is not None and not getattr(theirs, "port_rule", False):
+            prop.op_strategy_funcs[op] = _gathering_view(theirs)
+    if any(getattr(prop.op_strategy_funcs.get(op), "port_rule", False) for op in _VIEWS):
+        done.append(VIEWS)
+    if any(f is _pointwise_strategy and op not in _RULES
+           for op, f in prop.op_strategy_funcs.items()):
+        done.append(POINTWISE)
     clear_caches()
     return done
 

@@ -260,9 +260,10 @@ def _follow_first(op_schema):
 
 def test_the_cheapest_pointwise_placement_slices_an_activation_to_meet_a_split_parameter():
     """A whole (per "model") activation times a parameter split over
-    "model": a rule that follows the activation gathers the parameter; with
-    the port's placements beside it, the activation is sliced instead (no
-    collective) and each rank's result is its part of the whole product."""
+    "model": a rule that follows the activation gathers the parameter; the
+    port's rule (torch 2.13's, per mesh dimension) slices the activation
+    instead (no collective) and each rank's result is its part of the whole
+    product."""
     mesh = _mesh()
     g = torch.Generator().manual_seed(0)
     x, w = torch.randn(4, 6, 8, generator=g), torch.randn(8, generator=g)
@@ -270,7 +271,7 @@ def test_the_cheapest_pointwise_placement_slices_an_activation_to_meet_a_split_p
     with _only_rule(aten.mul.Tensor, _follow_first):
         ins, _ = _decide(aten.mul.Tensor, args)
     assert ins[1] == (Replicate(), Replicate())  # the parameter gathered
-    with _only_rule(aten.mul.Tensor, rules._with_cheaper(_follow_first)):
+    with _only_rule(aten.mul.Tensor, rules._pointwise_strategy):
         ins, out = _decide(aten.mul.Tensor, args)
     assert ins == [(Shard(0), Shard(2)), (Replicate(), Shard(0))] and out == (Shard(0), Shard(2))
     whole = x * w
@@ -286,12 +287,14 @@ def test_install_offers_the_cheaper_placement_only_beside_a_rule_that_follows_on
     follows.__module__ = "torch.distributed.tensor._ops._pointwise_ops"
     follows.__qualname__ = "pointwise_strategy"
     assert rules._follows_one_operand(follows)
-    assert not rules._follows_one_operand(rules._with_cheaper(follows))
     assert not rules._follows_one_operand(rules._pointwise_strategy)
     prop = DTensor._op_dispatcher.sharding_propagator
-    # this torch places pointwise ops per mesh dimension: nothing is wrapped
-    wrapped = [op for op, f in prop.op_strategy_funcs.items() if getattr(f, "cheaper", False)]
-    assert (rules.CHEAPER in rules.install()) == bool(wrapped)
+    # this torch places pointwise ops per mesh dimension: none is the port's
+    wrapped = [op for op, f in prop.op_strategy_funcs.items()
+               if f is rules._pointwise_strategy and op not in rules.COVERED]
+    assert (rules.POINTWISE in rules.install()) == bool(wrapped)
+    single = getattr(prop, "op_single_dim_strategy_funcs", {})
+    assert all(op not in single for op in wrapped)
 
 
 @pytest.mark.parametrize("placements", [(Shard(0), Shard(2)), (Shard(0), Replicate()),
@@ -355,7 +358,7 @@ def test_a_pending_sum_passes_through_the_cheapest_pointwise_placement():
     x = DTensor.from_local(local, mesh, (Shard(0), Partial()), run_check=False,
                            shape=torch.Size((8, 6)), stride=(6, 1))
     wd = _placed(w, (Replicate(), Replicate()), mesh)
-    with _only_rule(aten.mul.Tensor, rules._with_cheaper(_follow_first)):
+    with _only_rule(aten.mul.Tensor, rules._pointwise_strategy):
         ins, out = _decide(aten.mul.Tensor, (x, wd))
     assert ins == [(Shard(0), Partial()), (Replicate(), Replicate())]
     assert out == (Shard(0), Partial())  # no collective
@@ -363,32 +366,40 @@ def test_a_pending_sum_passes_through_the_cheapest_pointwise_placement():
 
 
 def test_an_einsum_on_shards_takes_one_split_letter_and_moves_a_second(monkeypatch):
-    """Where the running torch cannot flatten a split batch letter into the
+    """Where the running torch cannot flatten a split that does not lead the
     product's batch (torch 2.11), ``rules.einsum`` multiplies each rank's
-    shards: with one split batch letter, and with the operands split along
-    two different ones on one mesh dimension (the second moved to the
-    first's, an all-to-all, whose values the fake group does not move:
-    there the placements and the collective are held); each rank's result
-    is its part of the whole."""
-    monkeypatch.setattr(rules, "flattens_splits", lambda: False)
+    shards, placed and moved as DTensor's own path on this torch (2.13)
+    places and moves them: one split batch letter (DTensor's path), the
+    heads split alike on both operands (no collective), and the heads of
+    one meeting the rows of the other split over both mesh dimensions
+    (the heads gathered and sliced as rows, whose values the fake group
+    does not move: there the placements and the collectives are held);
+    each rank's result is its part of the whole."""
+    from repro_torch.launch import roofline as R
+
     mesh = _mesh()
     g = torch.Generator().manual_seed(3)
     eq = "bshk,bthk->bhst"
     q, k = torch.randn(4, 3, 2, 5, generator=g), torch.randn(4, 3, 2, 5, generator=g)
     whole = torch.einsum(eq, q, k)
-    cases = [((Shard(0), Replicate()), (Shard(0), Replicate()), (Shard(0), Replicate())),
-             ((Shard(0), Shard(2)), (Shard(0), Shard(0)), (Shard(0), Shard(1)))]
-    for qp, kp, want in cases:
-        from repro_torch.launch import roofline as R
-
+    cases = [((Shard(0), Replicate()), (Shard(0), Replicate())),
+             ((Shard(0), Shard(2)), (Shard(0), Shard(2))),
+             ((Shard(0), Shard(2)), (Shard(0), Shard(0)))]
+    for qp, kp in cases:
         with R.count_step() as c:
-            y = rules.einsum(eq, _placed(q, qp, mesh), _placed(k, kp, mesh))
-        assert tuple(y.placements) == want and tuple(y.shape) == tuple(whole.shape)
-        moved = c.stats.count_by_op.get("all-to-all", 0)
-        assert moved == (1 if kp != qp else 0) and c.fallbacks == 0
-        if not moved:  # the fake group's all-to-all moves no data
-            torch.testing.assert_close(y.to_local(), _part(whole, want, (0, 0), mesh),
+            want = torch.einsum(eq, _placed(q, qp, mesh), _placed(k, kp, mesh))
+        with monkeypatch.context() as m:
+            m.setattr(rules, "flattens_splits", lambda: False)
+            with R.count_step() as d:
+                y = rules.einsum(eq, _placed(q, qp, mesh), _placed(k, kp, mesh))
+        assert tuple(y.placements) == tuple(want.placements)
+        assert tuple(y.shape) == tuple(whole.shape) and y.stride() == want.stride()
+        assert dict(d.stats.bytes_by_op) == dict(c.stats.bytes_by_op)
+        assert d.flops == c.flops and d.hbm_bytes == c.hbm_bytes and d.fallbacks == 0
+        if not c.stats.total_count:  # the fake group's collectives move no data
+            torch.testing.assert_close(y.to_local(), _part(whole, y.placements, (0, 0), mesh),
                                        rtol=0, atol=0)
+    assert c.stats.total_count  # the last case moves the heads
 
 
 def test_the_reference_record_holds_every_live_single_pod_cell_and_the_ratios_read_it():

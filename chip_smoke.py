@@ -7,8 +7,9 @@ Builds the port's kernels from the sources in this checkout (K1 and K3
 two CUDA C++ routes each, K4 three: the tensor-core kernels ``*_sm90*.cu``
 for bf16 and the CUDA-core kernels for fp32; one ``nvcc`` per source, all
 seven started together; K2, the Triton RMSNorm, at first launch), shows what
-``ptxas`` allotted the tensor-core kernels (registers, shared memory, no
-spills) and that their SASS holds ``HGMMA``, holds each kernel against its
+``ptxas`` allotted the tensor-core kernels and the CUDA-core K1 and K3
+(registers, shared memory, no spills) and that the tensor-core kernels'
+SASS holds ``HGMMA``, holds each kernel against its
 plain PyTorch version at the shapes its path gives it, checks which route
 each K1, K3 and K4 call took (and K4's time in each of its three passes),
 and then drives the port's main paths:
@@ -403,9 +404,10 @@ def ssd_widths(cfg) -> tuple:
     return (64, 64, 64)
 
 
-def ptxas_summary(source) -> list:
+def ptxas_summary(source, entry: str = r"sm90\w*_kernel") -> list:
     """Registers, shared memory and spills ``ptxas -v`` reported for each
-    tensor-core kernel (``*sm90*_kernel*``) of ``source``'s build."""
+    kernel of ``source``'s build whose entry matches ``entry``: by default
+    the tensor-core kernels (``*sm90*_kernel*``)."""
     from repro_torch.kernels import build
 
     rows, name, props = [], None, {}
@@ -426,7 +428,32 @@ def ptxas_summary(source) -> list:
             props["registers"] = int(m.group(1))
             sm = re.search(r"(\d+) bytes smem", line)
             props["static_smem"] = int(sm.group(1)) if sm else 0
-    return [r for r in rows if re.search(r"sm90\w*_kernel", r["entry"])]
+    return [r for r in rows if re.search(entry, r["entry"])]
+
+
+def fma_design(kernel: str, shape) -> str:
+    """The design figures of K1's or K3's CUDA-core route at ``shape``, worked
+    out by its launch model from the source's tile sizes (the figures its
+    source note states): FMAs a 16-byte shared-memory load (in K3's P V, a
+    load or a shuffle), FMAs a 4-byte word, and a block's shared memory."""
+    if kernel == "matmul":
+        from repro_torch.kernels.matmul.launch import fma_feed
+
+        M, K, N = shape
+        f = fma_feed(M, N, K)
+        return (f"{f['tile'][0]}x{f['tile'][1]} register tile, {f['fmas'] / f['loads']:.1f} FMAs "
+                f"a 16-byte shared load ({f['fmas'] / (4 * f['loads']):.1f} a word), "
+                f"{f['smem']} B shared memory a block")
+    from repro_torch.kernels.flash.launch import fma_feed
+
+    f = fma_feed(shape[-1])
+    qk, pv = f["qk_loads"], f["pv_loads"] + f["pv_shuffles"]
+    return (f"{f['tile'][0]}x{f['tile'][1]} score tile; Q K^T {f['qk_fmas'] / qk:.1f} FMAs a "
+            f"16-byte shared load ({f['qk_fmas'] / (4 * qk):.1f} a word); P V "
+            f"{f['pv_fmas'] / pv:.1f} FMAs a load or shuffle ({f['pv_loads']} loads + "
+            f"{f['pv_shuffles']} shuffles a kv column, "
+            f"{f['pv_fmas'] / (4 * f['pv_loads'] + f['pv_shuffles']):.1f} a word); "
+            f"{f['smem']} B shared memory a block")
 
 
 def sass_count(source, opcode: str) -> int:
@@ -478,9 +505,12 @@ def kernel_phase(torch, gen, dtype_name: str) -> dict:
     b_ms, b_by = bound(flops, nbytes, dtype_name)
     out["matmul"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                          bound_by=b_by, library_ms=lib_ms, shape=[M, K, N], kernel_route=route)
+    design = fma_design("matmul", (M, K, N)) if route == "fma" else None
+    if design:
+        out["matmul"]["design"] = design
     log(f"  matmul[{dtype_name}] ({M}x{K})@({K}x{N}): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
         f"torch.matmul {lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), "
-        f"{flops / ms / 1e9:.1f} TFLOP/s")
+        f"{flops / ms / 1e9:.1f} TFLOP/s" + (f"; {route} design: {design}" if design else ""))
     del x, w, got
 
     # K2: the all-reduced activation of every rank, (TP·T, d_model)
@@ -596,9 +626,13 @@ def flash_kernel_phase(torch, gen, dtype_name: str) -> dict:
         out[key] = dict(out.get(key, {}), max_abs_err=err, ms=ms, plain_ms=plain_ms,
                         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, shape=[B, S, H, K, D],
                         kernel_route=route, launches_timed=inner)
+        design = fma_design("flash", (B, S, H, K, D)) if route == "fma" else None
+        if design:
+            out[key]["design"] = design
         log(f"  flash[{dtype_name}] {(B, S, H, K, D)} causal: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms (per batch row), SDPA {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
-            f"({b_by}), {flops / ms / 1e9:.1f} TFLOP/s; mean of {inner} launches in a row")
+            f"({b_by}), {flops / ms / 1e9:.1f} TFLOP/s; mean of {inner} launches in a row"
+            + (f"; {route} design: {design}" if design else ""))
         del q, k, v
     return out
 
@@ -3426,6 +3460,15 @@ def main() -> int:
         hgmma = sass_count(source, "HGMMA")
         log(f"sass {source.name}: {hgmma} HGMMA instructions")
         check(hgmma > 0, f"{source.name} holds no HGMMA: not on the tensor cores")
+    for source, entry in ((k1.SOURCE, "matmul_kernel"), (k3.SOURCE, "flash_fwd_kernel")):
+        entries = ptxas_summary(source, entry)  # the CUDA-core routes, each instantiation
+        check(len(entries) > 0, f"ptxas reported no {entry} in {source.name}")
+        for e in entries:
+            log(f"ptxas {source.name} {e['entry']}: {e.get('registers')} registers, "
+                f"{e.get('static_smem')} bytes static smem, spill stores "
+                f"{e.get('spill_stores')} B, spill loads {e.get('spill_loads')} B")
+            check(e.get("spill_stores") == 0 and e.get("spill_loads") == 0,
+                  f"{e['entry']} spills registers")
     t = time.perf_counter()
     probe = torch.ones(2, 8, device="cuda")
     rmsnorm_triton(probe, torch.ones(8, device="cuda"))

@@ -1075,7 +1075,8 @@ def main_path_cases() -> List[Case]:
     """The kernels at the shapes the main paths give them (``PERF.md`` §6):
     K1 at the fused mm+RS step of Mistral-Large-123B TP=8, K2 at its
     all-reduced activation, K3 at Zamba2's, OLMoE's and Whisper's prefill
-    and Whisper's train microbatch, K4 at Zamba2's prefill and the mLSTM's."""
+    and Whisper's train microbatch (and on its fp32 route at Zamba2's and
+    OLMoE's, the parity prefills), K4 at Zamba2's prefill and the mLSTM's."""
     import torch
 
     from repro_torch.kernels.flash.kernel import flash_attention_cuda
@@ -1088,8 +1089,8 @@ def main_path_cases() -> List[Case]:
     def m(*shape, dtype=bf16):
         return _meta(torch, shape, dtype)
 
-    def attention(B, S, H, K, D):
-        return (m(B, S, H, D), m(B, S, K, D), m(B, S, K, D))
+    def attention(B, S, H, K, D, dtype=bf16):
+        return (m(B, S, H, D, dtype=dtype), m(B, S, K, D, dtype=dtype), m(B, S, K, D, dtype=dtype))
 
     return [
         ("main matmul (32768x3584)@(3584x12288) bf16", matmul_cuda,
@@ -1106,6 +1107,10 @@ def main_path_cases() -> List[Case]:
          attention(4, 228, 12, 12, 64), {"causal": True}),
         ("main flash Whisper train (4, 448, 12, 64)", flash_attention_cuda,
          attention(4, 448, 12, 12, 64), {"causal": True}),
+        ("main flash Zamba2 (4, 4096, 32, 80) fp32", flash_attention_cuda,
+         attention(4, 4096, 32, 32, 80, f32), {"causal": True}),
+        ("main flash OLMoE (4, 4096, 16, 128) fp32", flash_attention_cuda,
+         attention(4, 4096, 16, 16, 128, f32), {"causal": True}),
         ("main ssd Zamba2 X (4, 4096, 80, 64)", ssd_cuda,
          (m(4, 4096, 80, 64), m(4, 4096, 80, dtype=f32), m(4, 4096, 64), m(4, 4096, 64)),
          {"chunk": 64, "initial_state": m(4, 80, 64, 64, dtype=f32)}),

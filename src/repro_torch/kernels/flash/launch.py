@@ -95,12 +95,15 @@ def wgmma_site(B, S, T, H, K, D, causal, dt) -> CallSite:
 
 
 def fma_site(B, S, T, H, K, D, causal, dt) -> CallSite:
-    c = source_constants(SOURCE, ("BQ", "BK", "THREADS"))
-    BQ, BK = c["BQ"], c["BK"]
-    smem = 4 * (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1))  # flash.cu smem_bytes
+    c = source_constants(SOURCE, ("BQ", "BK", "STAGES", "THREADS"))
+    BQ, BK, STAGES = c["BQ"], c["BK"], c["STAGES"]
+    D4 = 4 * cdiv(D, 4)  # flash.cu d4_of
+    DP = D4 + (8 if D4 & 4 else 4)  # dp_of: an odd number of 16-byte pieces a row
+    VP = 32 * cdiv(D4, 32)  # vp_of: V's row, the 32-float pieces the lanes read
+    smem = 4 * (BQ * DP + STAGES * BK * (DP + VP))  # smem_bytes: Q, then the K/V ring
     nq = cdiv(S, BQ)
 
-    def tile(bh, y):  # flash.cu:84-116
+    def tile(bh, y):  # flash_fwd_kernel's block indices and kv tile count
         b, h = divmod(bh, H)
         q0 = (nq - 1 - y) * BQ  # heavy (late) tiles first
         n_kv = cdiv(T, BK)
@@ -108,11 +111,11 @@ def fma_site(B, S, T, H, K, D, causal, dt) -> CallSite:
             n_kv = min(n_kv, (min(q0 + BQ, S) - 1) // BK + 1)
         return b, h, h // (H // K), q0, n_kv
 
-    def qo(bh, y):  # :97-101 loads, :191-200 stores, guarded by s < S
+    def qo(bh, y):  # load_rows of Q, the stores: rows q0 + r guarded by r < S - q0, d < D
         b, h, _, q0, _ = tile(bh, y)
         return [Box((b, q0, h, 0), (1, BQ, 1, D))]
 
-    def kv(bh, y):  # :118-127, rows k0 + r for kt < n_kv, guarded by t < T
+    def kv(bh, y):  # load_rows of K and V: rows kt * BK + r for kt < n_kv, guarded by t < T
         b, _, kh, _, n_kv = tile(bh, y)
         return [Box((b, 0, kh, 0), (1, n_kv * BK, 1, D))]
 
@@ -125,7 +128,21 @@ def fma_site(B, S, T, H, K, D, causal, dt) -> CallSite:
         out_names=("o",), out_blocks=(Footprint(qo, masked=(1,)),),
         out_shapes=((B, S, H, D),), out_dtypes=(dt,),
         route="cuda", threads=c["THREADS"], smem=smem, smem_attr=smem,
-        smem_need=4 * (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1)),  # :75-80
+        smem_need=4 * BQ * DP + 4 * STAGES * BK * (DP + VP),  # Qs, ring: the body's carve-out
         kernel=CudaKernel(SOURCE, "flash_fwd_kernel"),
         source=repo_path(SOURCE), line=launch_line(SOURCE, "flash_fwd_kernel"),
     )
+
+
+def fma_feed(D: int) -> dict:
+    """What feeds the FMAs of ``flash_fwd_kernel`` at head width ``D``, from
+    the source's tile sizes: a lane's score tile (rows, kv columns); in
+    Q K^T the 16-byte shared loads of 4 d and the FMAs they feed; in P V
+    the loads and shuffles of one kv column and the FMAs they feed; and a
+    block's shared memory."""
+    c = source_constants(SOURCE, ("BK", "WQ"))
+    rows, cols = c["WQ"] // 4, c["BK"] // 8  # lane (ty, tx) = (lane >> 3, lane & 7)
+    dm = cdiv(4 * cdiv(D, 4), 32)  # DM: the accumulator's 16-byte d-pieces a lane holds
+    return dict(tile=(rows, cols), qk_loads=rows + cols, qk_fmas=4 * rows * cols,
+                pv_loads=dm, pv_shuffles=rows, pv_fmas=4 * rows * dm,
+                smem=fma_site(1, 1, 1, 1, 1, D, True, "float32").smem)

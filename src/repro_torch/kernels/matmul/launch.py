@@ -85,17 +85,18 @@ def wgmma_site(M: int, N: int, K: int, dt: str) -> CallSite:
 
 
 def fma_site(M: int, N: int, K: int, dt: str) -> CallSite:
-    c = source_constants(SOURCE, ("BM", "BN", "BK", "THREADS"))
-    BM, BN, BK = c["BM"], c["BN"], c["BK"]
-    n_k = cdiv(K, BK)  # matmul.cu:70, k0 < K in steps of BK
+    c = source_constants(SOURCE, ("BM", "BN", "BK", "STAGES", "THREADS", "XPAD"))
+    BM, BN, BK, STAGES, XPAD = c["BM"], c["BN"], c["BK"], c["STAGES"], c["XPAD"]
+    smem = 4 * STAGES * BK * (BM + XPAD + BN)  # matmul.cu SMEM_BYTES, the cp.async ring
+    n_k = cdiv(K, BK)  # matmul_kernel: slices k0 = kt * BK for kt < n_k
 
-    def x(bx, by):  # :73-79, loads guarded by gr < M && gc < K
+    def x(bx, by):  # load_x: rows row0 + r, k k0 + c, copies masked by gr < M && gc < K
         return [Box((bx * BM, 0), (BM, n_k * BK))]
 
-    def wt(bx, by):  # :81-87, loads guarded by gr < K && gc < N
+    def wt(bx, by):  # load_w: k k0 + r, columns col0 + c, masked by gr < K && gc < N
         return [Box((0, by * BN), (n_k * BK, BN))]
 
-    def out(bx, by):  # :104-112, stores guarded by gr < M and gc < N
+    def out(bx, by):  # the epilogue: stores guarded by gr < M and gc (+ j) < N
         return [Box((bx * BM, by * BN), (BM, BN))]
 
     return CallSite(
@@ -104,7 +105,20 @@ def fma_site(M: int, N: int, K: int, dt: str) -> CallSite:
         in_shapes=((M, K), (K, N)), in_dtypes=(dt, dt),
         out_names=("out",), out_blocks=(Footprint(out, masked=(0, 1)),),
         out_shapes=((M, N),), out_dtypes=(dt,),
-        route="cuda", threads=c["THREADS"], smem=0, static_smem=4 * BK * (BM + BN),  # :55-56
+        route="cuda", threads=c["THREADS"], smem=smem, smem_attr=smem,  # launch's attribute
+        smem_need=STAGES * 4 * (BK * (BM + XPAD) + BK * BN),  # the body's STAGES slots
         kernel=CudaKernel(SOURCE, "matmul_kernel"),
         source=repo_path(SOURCE), line=launch_line(SOURCE, "matmul_kernel"),
     )
+
+
+def fma_feed(M: int, N: int, K: int) -> dict:
+    """What feeds the FMAs of ``matmul_kernel`` at (M, K) @ (K, N), from the
+    source's tile sizes: a thread's register tile (rows, columns), the
+    16-byte shared loads of one k-step, the FMAs they feed, and a block's
+    shared memory."""
+    c = source_constants(SOURCE, ("BM", "BN", "THREADS"))
+    warps_m = c["THREADS"] // 32 // (c["BN"] // 128)  # WARPS_N = BN / 128: warps of 128 columns
+    tm, tn = c["BM"] // warps_m // 4, 128 // 8  # lanes (ty, tx) = (lane >> 3, lane & 7)
+    loads = tm // 4 + tn // 4  # a0, a1 along the rows, b4[0..3] along the columns
+    return dict(tile=(tm, tn), loads=loads, fmas=tm * tn, smem=fma_site(M, N, K, "float32").smem)

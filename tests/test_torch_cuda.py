@@ -11,7 +11,8 @@ The file imports no JAX, so it runs where only the port is installed.
 Tolerances: kernel against plain version fp32 rtol 2e-5 / atol 2e-4 (K1's
 fp32 sum runs in another order), bf16 2e-2; K3 and K4 fp32 rtol and atol
 1e-4 (sums of up to T products and an online softmax in another order);
-a reduced model or train step on the card against the CPU 1e-4; everything
+a reduced model or train step on the card against the CPU 1e-4; the
+CUDA-core routes' edge cases at ``chip_smoke.py``'s ``KERNEL_TOL``; everything
 else bit for bit, the gradients through K3 and K4 (their plain versions'
 autograd) included.  K1 and K3 have two routes each (tensor-core
 ``wgmma`` kernels for bf16, CUDA-core ``fma`` kernels otherwise), K4 three
@@ -104,6 +105,79 @@ def test_matmul_bf16_shapes_tma_cannot_address_take_the_cuda_core_route(dev, K, 
     got = matmul(x, w)
     _launched("matmul", before, "fma")
     torch.testing.assert_close(got.float(), matmul_reference(x, w).float(), rtol=2e-2, atol=2e-2)
+
+
+# chip_smoke.py's KERNEL_TOL: a kernel against its plain version (rtol, atol)
+KERNEL_TOL = {("matmul", torch.float32): (2e-5, 1e-4), ("matmul", torch.bfloat16): (2e-2, 2e-2),
+              ("flash", torch.float32): (1e-4, 1e-4), ("flash", torch.bfloat16): (2e-2, 2e-2)}
+
+
+def _off16(t, nbytes=4):
+    """A copy of ``t`` whose ``data_ptr()`` is ``nbytes`` off 16 bytes: a
+    contiguous view that starts inside a larger buffer."""
+    skip = nbytes // t.element_size()
+    buf = torch.empty(t.numel() + skip, dtype=t.dtype, device=t.device)
+    view = buf[skip:].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 == nbytes and view.is_contiguous()
+    return view
+
+
+def _close(got, want, kernel):
+    rtol, atol = KERNEL_TOL[(kernel, want.dtype)]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("M,K,N", [
+    (300, 130, 200),   # ragged M and N tiles, K % 4 == 2
+    (257, 3583, 129),  # the main path's K less one: K % 4 == 3, one row into a third tile
+    (64, 7, 33),       # K shorter than one slice, N % 4 == 1
+    (130, 36, 20),     # K % 4 == 0 (bf16: K % 8 != 0 keeps it off the tensor cores)
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_matmul_cuda_core_route_edges(dev, M, K, N, dtype):
+    """K1's fma route at ragged M, N and K, with operands and output 4
+    bytes off 16 (its masked scalar loads and stores): within KERNEL_TOL of
+    the plain version, the same bits as on aligned operands, and row chunks
+    bit-identical to one whole-M call."""
+    from repro_torch.kernels.matmul import matmul_cuda, matmul_reference
+
+    g = torch.Generator(device=dev).manual_seed(M + K + N)
+    x = torch.randn(M, K, generator=g, device=dev).to(dtype)
+    w = (torch.randn(K, N, generator=g, device=dev) / math.sqrt(K)).to(dtype)
+    before = _routes("matmul")
+    got = matmul_cuda(x, w)
+    _launched("matmul", before, "fma")
+    _close(got, matmul_reference(x, w), "matmul")
+    out = _off16(torch.empty(M, N, dtype=dtype, device=dev))
+    off = matmul_cuda(_off16(x), _off16(w), out=out)
+    assert off.data_ptr() == out.data_ptr() and torch.equal(off, got)
+    chunks = torch.cat([matmul_cuda(c, w) for c in x.split([M // 3, M // 5, M - M // 3 - M // 5])])
+    assert torch.equal(chunks, got)  # chunks start K * rows elements in: off 16 where K % 4 != 0
+
+
+@pytest.mark.parametrize("D,dtype", [
+    (6, torch.float32), (8, torch.float32), (72, torch.float32), (80, torch.float32),
+    (128, torch.float32), (8, torch.bfloat16), (72, torch.bfloat16),
+])
+def test_flash_cuda_core_route_edges(dev, D, dtype):
+    """K3's fma route at head dims 6 to 128 (D % 4 != 0 and bf16 take its
+    masked scalar path), GQA 2:1, ragged S causal and non-causal, T != S, and
+    q, k, v and o 4 bytes off 16: within KERNEL_TOL of the plain version, and
+    the same bits as on aligned operands."""
+    from repro_torch.kernels.flash import attention_reference, flash_attention_cuda
+
+    for S, T, causal in ((200, 200, True), (200, 200, False), (100, 333, False)):
+        g = torch.Generator(device=dev).manual_seed(D + S + T)
+        q = torch.randn(1, S, 4, D, generator=g, device=dev).to(dtype)
+        k, v = (torch.randn(1, T, 2, D, generator=g, device=dev).to(dtype) for _ in range(2))
+        before = _routes("flash")
+        got = flash_attention_cuda(q, k, v, causal=causal)
+        _launched("flash", before, "fma")
+        _close(got, attention_reference(q, k, v, causal=causal), "flash")
+        out = _off16(torch.empty_like(q))
+        off = flash_attention_cuda(_off16(q), _off16(k), _off16(v), causal=causal, out=out)
+        assert off.data_ptr() == out.data_ptr() and torch.equal(off, got), (S, T, causal)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -148,6 +148,7 @@ PROBES = {
     k1_launch: [
         ((_meta(2348, 200, dtype=BF16), _meta(200, 520, dtype=BF16)), {}),
         ((_meta(300, 130), _meta(130, 200)), {}),
+        ((_meta(300, 130), _meta(130, 600)), {}),  # fma: three column tiles, the last ragged
     ],
     k2_launch: [((_meta(3, 5, 100, dtype=BF16), _meta(100)), {})],
     k3_launch: [
@@ -228,8 +229,12 @@ MODEL_MUTANTS = [
      "smem = 1024 + (STAGES + 1) * stage_bytes + 2 * STAGES * 8", 0),
     (k1_launch, "smem", "wgmma attribute not what is launched", "smem_attr=smem,",
      "smem_attr=smem - 1024,", 0),
-    (k1_launch, "smem", "fma static tiles over budget", "static_smem=4 * BK * (BM + BN)",
-     "static_smem=4 * BK * (BM + BN) * 32", 0),
+    (k1_launch, "smem", "fma ring over budget", "smem = 4 * STAGES * BK * (BM + XPAD + BN)",
+     "smem = 4 * 4 * STAGES * BK * (BM + XPAD + BN)", 0),
+    (k1_launch, "smem", "fma one ring slot fewer launched", "smem = 4 * STAGES * BK",
+     "smem = 4 * (STAGES - 1) * BK", 0),
+    (k1_launch, "smem", "fma attribute not set", "smem_attr=smem,  # launch's attribute",
+     "smem_attr=None,  # launch's attribute", 0),
     # K2
     (k2_launch, "grid", "rmsnorm one row short", "launch_geometry(rows, d)\n\n    def row",
      "launch_geometry(rows - 1, d)\n\n    def row", 0),
@@ -270,9 +275,12 @@ MODEL_MUTANTS = [
     (k3_launch, "input", "fma GQA map dropped", "h // (H // K)", "h", 1),
     (k3_launch, "smem", "wgmma twice the stages",
      "2 * (2 * NB * box_bytes) + 5 * 8  # :212", "4 * (2 * NB * box_bytes) + 5 * 8  # :212", 0),
-    (k3_launch, "smem", "fma P tile not launched",
-     "smem = 4 * (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1))",
-     "smem = 4 * (BQ * (D + 1) + BK * (D + 1) + BK * D)", 0),
+    (k3_launch, "smem", "fma one K/V stage not launched",
+     "smem = 4 * (BQ * DP + STAGES * BK * (DP + VP))",
+     "smem = 4 * (BQ * DP + (STAGES - 1) * BK * (DP + VP))", 0),
+    (k3_launch, "smem", "fma V rows unpadded", "smem = 4 * (BQ * DP + STAGES * BK * (DP + VP))",
+     "smem = 4 * (BQ * DP + STAGES * BK * (DP + D4))", 0),
+    (k3_launch, "smem", "fma attribute not set", "smem_attr=smem,", "smem_attr=None,", 1),
     (k3_launch, "smem", "wgmma attribute not set", "smem_attr=smem,", "smem_attr=None,", 0),
     # K4
     (k4_launch, "role", "states scores block missing", "grid=(B * H * nc * (ptiles + 1),)",
@@ -361,13 +369,21 @@ MODEL_MUTANTS = [
 # (source, kernel, name, old, new, occurrence): one edit of a kernel body
 BODY_MUTANTS = [
     ("matmul/csrc/matmul.cu", "matmul_kernel", "fma store without from_f32",
-     "out[gr * N + gc] = from_f32<T>(acc[i][j]);", "out[gr * N + gc] = acc[i][j];", 0),
+     "dst[j] = from_f32<T>(acc[i][4 * h + j]);", "dst[j] = acc[i][4 * h + j];", 0),
+    ("matmul/csrc/matmul.cu", "matmul_kernel", "fma 16-byte store without from_f32",
+     "make_float4(from_f32<float>(acc[i][4 * h]), from_f32<float>(acc[i][4 * h + 1]),\n"
+     "                          from_f32<float>(acc[i][4 * h + 2]), from_f32<float>(acc[i][4 * h + 3]))",
+     "make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3])", 0),
     ("matmul/csrc/matmul.cu", "matmul_kernel", "fma dead parameter",
      "int M, int N, int K) {", "int M, int N, int K, int unused) {", 0),
     ("matmul/csrc/matmul_sm90.cu", "matmul_sm90_kernel", "wgmma store without bf16 packing",
      "pack_bf16x2(acc[4 * j], acc[4 * j + 1])", "__float_as_uint(acc[4 * j])", 0),
     ("flash/csrc/flash.cu", "flash_fwd_kernel", "fma store without from_f32",
-     "from_f32<T>(acc[i][j] * inv)", "(acc[i][j] * inv)", 0),
+     "from_f32<T>(acc[r][i][e] * inv)", "(acc[r][i][e] * inv)", 0),
+    ("flash/csrc/flash.cu", "flash_fwd_kernel", "fma 16-byte store without from_f32",
+     "from_f32<float>(acc[r][i][0] * inv), from_f32<float>(acc[r][i][1] * inv),\n"
+     "              from_f32<float>(acc[r][i][2] * inv), from_f32<float>(acc[r][i][3] * inv)",
+     "acc[r][i][0] * inv, acc[r][i][1] * inv, acc[r][i][2] * inv, acc[r][i][3] * inv", 0),
     ("flash/csrc/flash.cu", "flash_fwd_kernel", "fma dead q_offset_blocks",
      "float sm_scale) {", "float sm_scale, int q_offset_blocks) {", 0),
     ("flash/csrc/flash_sm90.cu", "flash_sm90_kernel", "wgmma dead parameter",
@@ -507,7 +523,7 @@ def test_pinned_mutants_are_killed(tmp_path):
     assert kinds_of(k1_launch, "grid=(cdiv(M, BM), cdiv(N, BN))",
                     "grid=(M // BM, cdiv(N, BN))", probe=1) == {"coverage-gap"}
     assert "write-race" in kinds_of(k1_launch, "return [Box((bx * BM, by * BN), (BM, BN))]",
-                                    "return [Box((bx * BM, 0), (BM, BN))]", probe=1)
+                                    "return [Box((bx * BM, 0), (BM, BN))]", probe=2)
     assert kinds_of(k2_launch, "out_blocks=(Footprint(row, masked=(1,)),)",
                     "out_blocks=(Footprint(row),)") == {"oob-write"}
     assert kinds_of(k3_launch, "in_blocks=(Footprint(qo, masked=(1,)), Footprint(kv, masked=(1,)),",
@@ -566,9 +582,9 @@ def test_the_body_rules_see_every_cuda_kernel():
 
 MODEL_CONSTANTS = {
     "matmul/csrc/matmul_sm90.cu": ("BM", "BN", "BK", "STAGES", "THREADS", "GROUP_M"),
-    "matmul/csrc/matmul.cu": ("BM", "BN", "BK", "THREADS"),
+    "matmul/csrc/matmul.cu": ("BM", "BN", "BK", "STAGES", "THREADS", "XPAD"),
     "flash/csrc/flash_sm90.cu": ("BQ", "BKV", "THREADS"),
-    "flash/csrc/flash.cu": ("BQ", "BK", "THREADS"),
+    "flash/csrc/flash.cu": ("BQ", "BK", "STAGES", "THREADS", "WQ"),
     "ssd/csrc/ssd.cu": ("THREADS", "TILE"),
     "ssd/csrc/ssd_sm90.cu": ("L", "THREADS"),
     "ssd/csrc/ssd_sm90_tiled.cu": ("L", "THREADS", "STATES_STAGES", "OUTPUTS_STAGES", "OUT_ROW",
@@ -607,6 +623,56 @@ def test_a_tile_change_in_the_source_moves_the_model(monkeypatch, tmp_path):
         "constexpr int STAGES = 4;", "constexpr int STAGES = 5;"))
     monkeypatch.setattr(k1_launch, "SOURCE_SM90", source)
     assert "smem-budget" in _kinds([lint.analyze_call_site(_site(k1_launch))])
+
+
+def _note(source: Path) -> str:
+    """The comment lines of ``source``'s head, as one line of prose."""
+    lines = []
+    for line in source.read_text().splitlines():
+        if not line.startswith("//"):
+            break
+        lines.append(line[2:].strip())
+    return " ".join(" ".join(lines).split())
+
+
+def _k1_figures(_):
+    f = k1_launch.fma_feed(32768, 12288, 3584)
+    return [f"{f['tile'][0]}x{f['tile'][1]} register tile",
+            f"{f['fmas']} FMAs: {f['fmas'] / f['loads']:.1f} FMAs a 16-byte load, "
+            f"{f['fmas'] / (4 * f['loads']):.1f} a word",
+            f"{f['smem']:,} a block"]
+
+
+def _k3_figures(D):
+    f = k3_launch.fma_feed(D)
+    qk, pv, words = f["qk_loads"], f["pv_loads"] + f["pv_shuffles"], 4 * f["pv_loads"] + 4
+    figures = [f"{f['smem']:,} B at D = {D}"]
+    if D == 128:
+        figures += [f"owns the {f['tile'][0]}x{f['tile'][1]} scores",
+                    f"{f['tile'][0]} q and {f['tile'][1]} k loads feed {f['qk_fmas']} FMAs "
+                    f"({f['qk_fmas'] / qk:g} a 16-byte load, {f['qk_fmas'] / (4 * qk):g} a word)",
+                    f"{f['pv_shuffles']} shuffles and {f['pv_loads']} loads feed {f['pv_fmas']} "
+                    f"FMAs a column ({f['pv_fmas'] / pv:g} a load or shuffle, "
+                    f"{f['pv_fmas'] / words:.1f} a word"]
+    else:
+        figures += [f"D = {D}: {f['pv_loads']} loads, {f['pv_fmas']} FMAs, "
+                    f"{f['pv_fmas'] / words:.1f} a word"]
+    return figures
+
+
+@pytest.mark.parametrize("source, figures, arg", [
+    ("matmul/csrc/matmul.cu", _k1_figures, None),
+    ("flash/csrc/flash.cu", _k3_figures, 128),
+    ("flash/csrc/flash.cu", _k3_figures, 80),
+], ids=["k1", "k3-d128", "k3-d80"])
+def test_fma_source_notes_state_the_launch_models_figures(source, figures, arg):
+    """The CUDA-core routes' source notes give the register tile, FMAs a
+    shared-memory load and word, and shared memory a block that the launch
+    models work out from the sources' tile sizes (which the card run
+    prints beside each time), so neither drifts from the code alone."""
+    note = _note(KERNELS / source)
+    for figure in figures(arg):
+        assert figure in note, figure
 
 
 # --------------------------------------------- (c) shipped and main-path cases

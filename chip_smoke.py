@@ -7,7 +7,7 @@ Builds the port's kernels from the sources in this checkout (K1 and K3
 two CUDA C++ routes each, K4 three: the tensor-core kernels ``*_sm90*.cu``
 for bf16 and the CUDA-core kernels for fp32; one ``nvcc`` per source, all
 seven started together; K2, the Triton RMSNorm, at first launch), shows what
-``ptxas`` allotted the tensor-core kernels and the CUDA-core K1 and K3
+``ptxas`` allotted the tensor-core kernels and the CUDA-core K1, K3 and K4
 (registers, shared memory, no spills) and that the tensor-core kernels'
 SASS holds ``HGMMA``, holds each kernel against its
 plain PyTorch version at the shapes its path gives it, checks which route
@@ -432,10 +432,24 @@ def ptxas_summary(source, entry: str = r"sm90\w*_kernel") -> list:
 
 
 def fma_design(kernel: str, shape) -> str:
-    """The design figures of K1's or K3's CUDA-core route at ``shape``, worked
-    out by its launch model from the source's tile sizes (the figures its
-    source note states): FMAs a 16-byte shared-memory load (in K3's P V, a
-    load or a shuffle), FMAs a 4-byte word, and a block's shared memory."""
+    """The design figures of K1's, K3's or K4's CUDA-core route at ``shape``,
+    worked out by its launch model from the source's tile sizes (the figures
+    its source note states): FMAs a 16-byte shared-memory load (in K3's P V,
+    a load or a shuffle), FMAs a 4-byte word, and a block's shared memory
+    (K4: of passes 1 and 3, with each ring's stages and each pass's blocks,
+    at K4's (B, S, H, P, N, chunk, per-head B/C))."""
+    if kernel == "ssd":
+        from repro_torch.kernels.ssd.launch import fma_feed
+
+        f = fma_feed(*shape)
+        products = "; ".join(f"{name} {fmas / loads:.1f} FMAs a 16-byte shared load "
+                             f"({fmas / (4 * loads):.1f} a word)"
+                             for name, (loads, fmas) in f["products"].items())
+        return (f"{f['tile'][0]}x{f['tile'][1]} register tile; {products}; rings of "
+                f"{f['stages'][0]} and {f['stages'][1]} stages, {f['smem'][0]} and "
+                f"{f['smem'][1]} B shared memory a block, {f['blocks'][0]} and "
+                f"{f['blocks'][1]} blocks in passes 1 and 3"
+                + (", heads side by side" if f["flat"] else ""))
     if kernel == "matmul":
         from repro_torch.kernels.matmul.launch import fma_feed
 
@@ -676,16 +690,17 @@ def ssd_pass_bytes(X, la, Bm, chunk: int, route: str) -> dict:
     writes the states before each chunk (bf16 on the wgmma route, a bf16 hi
     + lo pair on wgmma_tiled, fp32 on fma) and the final state; outputs
     reads X, B, C, la and the states before each chunk, and writes Y.  On
-    the fma route the masked C Bᵀ scores move from outputs to states:
-    states also reads C and writes the fp32 (B, H, nc, L, L) scores, which
-    outputs reads in place of B."""
+    the fma route the raw C Bᵀ scores move from outputs to states: states
+    also reads C and writes the fp32 scores, (B, nc, L, L) once per (b,
+    chunk) where B and C are shared across heads, else (B, H, nc, L, L),
+    which outputs reads in place of B."""
     B, S, H, P = X.shape
     N, e = Bm.shape[-1], X.element_size()
     nc = -(-S // chunk)
     x, bc, lab = X.numel() * e, Bm.numel() * e, la.numel() * 4
     chunk_states, totals = B * H * nc * P * N * 4, B * H * nc * 4
     before = B * H * nc * P * N * (2 if route == "wgmma" else 4)  # fp32, or bf16 hi + lo
-    scores = B * H * nc * chunk * chunk * 4 if route == "fma" else 0
+    scores = (B * (H if Bm.ndim == 4 else 1) * nc * chunk * chunk * 4) if route == "fma" else 0
     return {"states": x + bc * (2 if scores else 1) + lab + chunk_states + totals + scores,
             "recurrence": chunk_states + totals + B * H * P * N * (4 + e) + before,
             "outputs": x + bc * (1 if scores else 2) + lab + before + scores + x}
@@ -742,8 +757,10 @@ def ssd_kernel_phase(torch, gen, dtype_name: str) -> dict:
         plain_ms = time_ms(torch, lambda: ssd_reference(X, la, Bm, Cm, chunk=L,
                                                         initial_state=init), 2)
         nc = -(-S // L)
-        # per (b, h, chunk): C Bᵀ (L·L·N), W X (L·L·P), C Rᵀ and the state update (L·P·N each)
-        flops = 2.0 * B * H * nc * (L * L * N + L * L * P + 2 * L * P * N)
+        # per (b, h, chunk): W X (L·L·P), C Rᵀ and the state update (L·P·N each); C Bᵀ
+        # (L·L·N) per head where B and C are per head, else once per (b, chunk)
+        flops = 2.0 * B * nc * ((H if Bm.ndim == 4 else 1) * L * L * N
+                                + H * (L * L * P + 2 * L * P * N))
         nbytes = (2 * X.numel() + Bm.numel() + Cm.numel() + B * H * P * N) * X.element_size() \
             + (la.numel() + init.numel()) * 4
         b_ms, b_by = bound(flops, nbytes, dtype_name)
@@ -757,11 +774,16 @@ def ssd_kernel_phase(torch, gen, dtype_name: str) -> dict:
             library_ms=None, shape=[B, S, H, P, N, L], kernel_route=route, pass_ms=passes,
             pass_bytes=pass_bytes, flops=flops, fp32_fma_bound_ms=fma_ms,
             pass_bytes_bound_ms=scratch_ms)
+        design = (fma_design("ssd", (B, S, H, P, N, L, case in SSD_PER_HEAD))
+                  if route == "fma" else None)
+        if design:
+            out[SSD_TIMED[case]]["design"] = design
         log(f"  ssd[{dtype_name}] {case} X {(B, S, H, P)} N {N} chunk {L}, {route} route: kernel "
             f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}; "
             f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e9:.3f} GB), {flops / ms / 1e9:.1f} TFLOP/s; "
             f"at the fp32 FMA peak {fma_ms:.3f} ms, the passes' "
-            f"{sum(pass_bytes.values()) / 1e9:.2f} GB at the memory rate {scratch_ms:.3f} ms")
+            f"{sum(pass_bytes.values()) / 1e9:.2f} GB at the memory rate {scratch_ms:.3f} ms"
+            + (f"; {route} design: {design}" if design else ""))
         log(f"  ssd[{dtype_name}] device ms per pass ({route} route, torch.profiler): "
             + (", ".join(f"{k} {passes[k]:.3f} ms ({pass_bytes[k] / 1e6:.1f} MB, "
                          f"{pass_bytes[k] / passes[k] / 1e9:.2f} TB/s)"
@@ -3460,7 +3482,8 @@ def main() -> int:
         hgmma = sass_count(source, "HGMMA")
         log(f"sass {source.name}: {hgmma} HGMMA instructions")
         check(hgmma > 0, f"{source.name} holds no HGMMA: not on the tensor cores")
-    for source, entry in ((k1.SOURCE, "matmul_kernel"), (k3.SOURCE, "flash_fwd_kernel")):
+    for source, entry in ((k1.SOURCE, "matmul_kernel"), (k3.SOURCE, "flash_fwd_kernel"),
+                          (k4.SOURCE, "ssd_states_kernel"), (k4.SOURCE, "ssd_outputs_kernel")):
         entries = ptxas_summary(source, entry)  # the CUDA-core routes, each instantiation
         check(len(entries) > 0, f"ptxas reported no {entry} in {source.name}")
         for e in entries:

@@ -1067,6 +1067,13 @@ def shipped_kernel_cases() -> List[Case]:
         ("ssd fma P=130 N=70 chunk 48: P-tiles, N-slices, per head", ssd_cuda,
          (m(1, 100, 2, 130, dtype=bf16), m(1, 100, 2), m(1, 100, 2, 70, dtype=bf16),
           m(1, 100, 2, 70, dtype=bf16)), {"chunk": 48}),
+        ("ssd fma P=64 shared B/C: four heads a tile, the last tile past H, ragged S", ssd_cuda,
+         (m(1, 150, 5, 64), m(1, 150, 5), m(1, 150, 40), m(1, 150, 40)), {"chunk": 64}),
+        ("ssd fma P=128 chunk 128: two heads a tile, two step tiles a chunk", ssd_cuda,
+         (m(1, 300, 3, 128), m(1, 300, 3), m(1, 300, 72), m(1, 300, 72)),
+         {"chunk": 128, "initial_state": m(1, 3, 128, 72)}),
+        ("ssd fma P=300 per head: two column tiles a head", ssd_cuda,
+         (m(1, 100, 2, 300), m(1, 100, 2), m(1, 100, 2, 70), m(1, 100, 2, 70)), {"chunk": 48}),
     ]
     return cases
 
@@ -1076,7 +1083,8 @@ def main_path_cases() -> List[Case]:
     K1 at the fused mm+RS step of Mistral-Large-123B TP=8, K2 at its
     all-reduced activation, K3 at Zamba2's, OLMoE's and Whisper's prefill
     and Whisper's train microbatch (and on its fp32 route at Zamba2's and
-    OLMoE's, the parity prefills), K4 at Zamba2's prefill and the mLSTM's."""
+    OLMoE's, the parity prefills), K4 at Zamba2's prefill and the mLSTM's
+    (and on its fp32 route at Zamba2's widths, batch 1)."""
     import torch
 
     from repro_torch.kernels.flash.kernel import flash_attention_cuda
@@ -1117,6 +1125,11 @@ def main_path_cases() -> List[Case]:
         ("main ssd mLSTM X (4, 4096, 4, 1024) N=512", ssd_cuda,
          (m(4, 4096, 4, 1024), m(4, 4096, 4, dtype=f32), m(4, 4096, 4, 512),
           m(4, 4096, 4, 512)), {"chunk": 64, "initial_state": m(4, 4, 1024, 512, dtype=f32)}),
+        # the fp32 route at Zamba2's prefill widths, batch cut to 1: the same plan (20 tiles a
+        # chunk of 4 heads side by side, 4 tiles a block) at a quarter of the programs
+        ("main ssd Zamba2 X (1, 4096, 80, 64) fp32", ssd_cuda,
+         (m(1, 4096, 80, 64, dtype=f32), m(1, 4096, 80, dtype=f32), m(1, 4096, 64, dtype=f32),
+          m(1, 4096, 64, dtype=f32)), {"chunk": 64, "initial_state": m(1, 80, 64, 64, dtype=f32)}),
     ]
 
 

@@ -17,15 +17,18 @@ chunks, outputs; ``csrc/ssd_common.cuh``), chosen by the pure function
   bf16 hi + lo pair (one bf16 rounding of it, summed over N = 512, misses
   the bf16 tolerance);
 * ``"fma"`` — fp32, and every other shape: ``csrc/ssd.cu``, fp32 FMA on
-  the CUDA cores, a block staging 64-wide tiles of P and slices of N (it
-  refuses only a chunk whose tiles overflow a block's shared memory,
+  the CUDA cores, 8×8 register tiles fed from shared memory by ``cp.async``
+  rings; a block runs several 256-column tiles of X in turn, heads side by
+  side where B and C are shared and P is 64 or 128 (it refuses only a
+  chunk whose rings and decays overflow a block's shared memory,
   ``SMEM_LIMIT``).
 
 Beyond the TPU kernel all take an fp32 ``initial_state`` and read shared
 ``(B,S,N)`` B/C by index.  The source notes say what bounds each pass on an
 H100 and what the design does about it.  The scratch of the passes (chunk
 states, chunk totals, states before each chunk, and on the fma route each
-chunk's masked L × L scores) comes from here, with ``torch.empty``.  Each
+chunk's raw L × L scores C Bᵀ, once per (b, chunk) where B and C are shared)
+comes from here, with ``torch.empty``.  Each
 library is built with ``nvcc`` for ``sm_90a`` at first launch
 (:mod:`repro_torch.kernels.build`) and launched on PyTorch's current
 stream.  :data:`~repro_torch.kernels.build.LAUNCHES` counts its calls
@@ -111,11 +114,11 @@ def _library(route: str) -> ctypes.CDLL:
         # dtype, ptrs, scores, B, S, H, P, N, L, bc_per_head, stream
         fn.argtypes = [ctypes.c_int, *ptrs, ctypes.c_void_p, *[ctypes.c_int] * 7,
                        ctypes.c_void_p]
-        lib.pccl_ssd_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        lib.pccl_ssd_smem_bytes.argtypes = [ctypes.c_int]  # L
         lib.pccl_ssd_smem_bytes.restype = ctypes.c_longlong
         geometry = lib.pccl_ssd_geometry
-        # dtype, pass, B, S, H, P, N, L
-        geometry.argtypes = [*[ctypes.c_int] * 8, *GEOMETRY_ARGTYPES]
+        # dtype, pass, B, S, H, P, N, L, bc_per_head
+        geometry.argtypes = [*[ctypes.c_int] * 9, *GEOMETRY_ARGTYPES]
     fn.restype = geometry.restype = ctypes.c_int
     return lib
 
@@ -128,11 +131,14 @@ def ssd_route(dtype: torch.dtype, P: int, N: int, chunk: int) -> str:
     return "wgmma" if P == N == TENSOR_CORE_WIDTH else "wgmma_tiled"
 
 
-def buffers(X_shape, N: int, chunk: int, dtype: torch.dtype, route: str) -> Dict[str, tuple]:
+def buffers(X_shape, N: int, chunk: int, dtype: torch.dtype, route: str, *,
+            per_head: bool) -> Dict[str, tuple]:
     """(shape, dtype) of every buffer one :func:`ssd_cuda` call writes, by
     name: the outputs ``Y`` and ``fin`` and the passes' scratch (``scores``
-    on the fma route only; ``before``, the state before each chunk, in fp32
-    on fma, bf16 on wgmma, and a bf16 hi + lo pair on wgmma_tiled)."""
+    on the fma route only, the raw C Bᵀ of each chunk: ``(B, nc, L, L)``
+    for B and C shared across heads, ``(B, H, nc, L, L)`` for ``per_head``
+    ones; ``before``, the state before each chunk, in fp32 on fma, bf16 on
+    wgmma, and a bf16 hi + lo pair on wgmma_tiled)."""
     B, S, H, P = X_shape
     nc = -(-S // chunk)
     before = {"fma": ((B, H, nc, P, N), torch.float32), "wgmma": ((B, H, nc, P, N), dtype),
@@ -141,7 +147,8 @@ def buffers(X_shape, N: int, chunk: int, dtype: torch.dtype, route: str) -> Dict
            "states": ((B, H, nc, P, N), torch.float32), "totals": ((B, H, nc), torch.float32),
            "before": before}
     if route == "fma":
-        out["scores"] = ((B, H, nc, chunk, chunk), torch.float32)
+        out["scores"] = ((B, H, nc, chunk, chunk) if per_head else (B, nc, chunk, chunk),
+                         torch.float32)
     return out
 
 
@@ -195,7 +202,7 @@ def ssd_cuda(
         raise ValueError("ssd_cuda: the tensor-core routes need 16-byte aligned X, B, C")
     lib = _library(route)
     if route == "fma":
-        smem = lib.pccl_ssd_smem_bytes(P, N, chunk)
+        smem = lib.pccl_ssd_smem_bytes(chunk)
         if smem > SMEM_LIMIT:
             raise ValueError(
                 f"ssd_cuda: (P, N, chunk) = {(P, N, chunk)} needs {smem} bytes of shared "
@@ -204,7 +211,8 @@ def ssd_cuda(
     dev = X.device
     given = dict(out or {})
     bufs = {}
-    for name, (shape, dtype) in buffers(X.shape, N, chunk, X.dtype, route).items():
+    for name, (shape, dtype) in buffers(X.shape, N, chunk, X.dtype, route,
+                                        per_head=Bm.ndim == 4).items():
         t = given.pop(name, None)
         if t is None:
             t = torch.empty(shape, dtype=dtype, device=dev)

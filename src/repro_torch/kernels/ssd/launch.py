@@ -5,9 +5,11 @@ A pure-Python mirror of ``csrc/ssd_sm90.cu`` (wgmma),
 the recurrence all three share in ``csrc/ssd_common.cuh``, line by line,
 for the kernel lint (:mod:`repro_torch.analysis.kernel_lint`):
 
-1. chunk states: one block per (b, h, chunk) — on the wgmma_tiled and fma
-   routes one per P-tile of it, and on the fma route one more, the last of
-   each chunk, that writes the chunk's masked scores instead of states;
+1. chunk states: one block per (b, h, chunk) — on the wgmma_tiled route one
+   per P-tile of it; on the fma route the scores blocks first (four 64 x 64
+   tiles of a chunk's raw C Bᵀ each, once per (b, chunk) where B and C are
+   shared), then blocks of four 256 x 64 states tiles each, heads side by
+   side where B and C are shared and P is 64 or 128;
 2. the recurrence: one thread per element of the ``B·H`` states of
    ``P·N`` elements (on wgmma_tiled its own kernel, one thread per four
    elements, which stores each state before a chunk as a hi + lo pair), so a block's flat range crosses from one (b, h) to
@@ -15,7 +17,8 @@ for the kernel lint (:mod:`repro_torch.analysis.kernel_lint`):
    operands are modelled as that pass indexes them, ``states`` and
    ``before`` as ``(B·H, nc, P·N)``, ``totals`` as ``(B·H, nc)``,
    ``init`` and ``fin`` flat;
-3. outputs: one block per (b, h, chunk) and P-tile (one P-tile at P = 64).
+3. outputs: one block per (b, h, chunk), and P-tile on wgmma_tiled; on the
+   fma route blocks of four 64 x 256 tiles (steps by X columns) each.
 
 Tile sizes are read from the sources; the shapes of the buffers the passes
 write come from what the wrapper allocates (``kernel.buffers``), so a grid
@@ -44,7 +47,8 @@ def call_sites(X, la, Bm, Cm, *, chunk: int = 64, initial_state=None, **_) -> Li
     N = Bm.shape[-1]
     dt = dtype_name(X.dtype)
     route = ssd_route(X.dtype, P, N, chunk)
-    alloc = {name: shape for name, (shape, _) in buffers(X.shape, N, chunk, X.dtype, route).items()}
+    alloc = {name: shape for name, (shape, _)
+             in buffers(X.shape, N, chunk, X.dtype, route, per_head=Bm.ndim == 4).items()}
     shapes = dict(B=B, S=S, H=H, P=P, N=N, L=chunk, per_head=len(Bm.shape) == 4,
                   init=initial_state is not None, dt=dt, alloc=alloc)
     if route == "wgmma":
@@ -60,7 +64,8 @@ def call_sites(X, la, Bm, Cm, *, chunk: int = 64, initial_state=None, **_) -> Li
 def out_buffers(X, la, Bm, Cm, *, chunk: int = 64, **_) -> Dict[str, tuple]:
     """(shape, dtype) of every buffer ``ssd_cuda(..., out=...)`` writes."""
     N = Bm.shape[-1]
-    return buffers(X.shape, N, chunk, X.dtype, ssd_route(X.dtype, X.shape[3], N, chunk))
+    return buffers(X.shape, N, chunk, X.dtype, ssd_route(X.dtype, X.shape[3], N, chunk),
+                   per_head=Bm.ndim == 4)
 
 
 def device_geometry(X, la, Bm, Cm, *, chunk: int = 64, **_) -> List[dict]:
@@ -77,8 +82,8 @@ def device_geometry(X, la, Bm, Cm, *, chunk: int = 64, **_) -> List[dict]:
         return [read(lib.pccl_ssd_sm90_geometry, p, B, S, H) for p in (1, 2, 3)]
     if route == "wgmma_tiled":
         return [read(lib.pccl_ssd_sm90_tiled_geometry, p, B, S, H, P, N) for p in (1, 2, 3)]
-    return [read(lib.pccl_ssd_geometry, k4._DTYPES[X.dtype], p, B, S, H, P, N, chunk)
-            for p in (1, 2, 3)]
+    return [read(lib.pccl_ssd_geometry, k4._DTYPES[X.dtype], p, B, S, H, P, N, chunk,
+                 int(Bm.ndim == 4)) for p in (1, 2, 3)]
 
 
 def _chunk_of(x, H, nc):  # ssd_common.cuh:40-47, h fastest
@@ -94,60 +99,154 @@ def _bc(per_head, B, S, H, N):
     return (B, S, N), lambda b, h, s0, L: Box((b, s0, 0), (1, L, N))
 
 
-def fma_states_site(B, S, H, P, N, L, per_head, init, dt, alloc) -> CallSite:
-    c = source_constants(SOURCE, ("THREADS", "TILE"))
-    TILE = c["TILE"]
+_FMA_CONSTANTS = ("THREADS", "TILE", "BK", "BKN", "SCORE_BK", "PAD", "WIDE", "HEADS", "SCORE_TILES",
+                  "STATES_ITEMS", "OUTPUTS_ITEMS", "FILL", "STATES_STAGES", "OUTPUTS_STAGES",
+                  "FACTS")
+
+
+def fma_plan(B, S, H, P, N, L, per_head) -> dict:
+    """``ssd.cu``'s ``Plan`` and shared memory, from the source's tile sizes:
+    how the fma route cuts a scan into tiles and blocks.  Columns of a tile
+    are X's columns of a head group: all ``H·P`` side by side (``flat``: B
+    and C shared, P = 64 or 128), else one head's P."""
+    c = source_constants(SOURCE, _FMA_CONSTANTS)
+    W, T = c["WIDE"], c["TILE"]
     nc = cdiv(S, L)
-    pt, nt, lt, ptiles = min(P, TILE), min(N, TILE), min(L, TILE), cdiv(P, TILE)  # ssd.cu Widths
-    smem = 4 * (2 * L + max(L * pt + L * (nt + 1), 2 * lt * (nt + 1)))  # states_smem
+    flat = not per_head and P in (64, 128)
+    gm, groups = (H * P, 1) if flat else (P, H)
+    lt, mt, nt = cdiv(L, T), cdiv(gm, W), cdiv(N, T)
+    score_items = B * (H if per_head else 1) * nc * lt * lt
+    states_items, outputs_items = B * nc * groups * mt * nt, B * nc * groups * lt * mt
+    states_per = min(max(states_items // c["FILL"], 1), c["STATES_ITEMS"])  # Plan::per_block
+    outputs_per = min(max(outputs_items // c["FILL"], 1), c["OUTPUTS_ITEMS"])
+    xrow, brow = W + c["PAD"], T + c["PAD"]
+    stage1 = max(c["BK"] * (xrow + brow), 2 * c["SCORE_BK"] * xrow)  # STAGE1
+    stage3 = T * c["BKN"] + W * c["BKN"]  # STAGE3: a C and an R slice
+    return dict(
+        c, nc=nc, flat=flat, stage1=stage1, stage3=stage3,
+        lg=(6 if P == 64 else 7) if flat else 30, gm=gm, groups=groups,
+        heads=W // P if flat else 1, lt=lt, mt=mt, nt=nt, score_items=score_items,
+        score_blocks=cdiv(score_items, c["SCORE_TILES"]), states_items=states_items,
+        states_per=states_per, states_blocks=cdiv(states_items, states_per),
+        outputs_items=outputs_items, outputs_per=outputs_per,
+        outputs_blocks=cdiv(outputs_items, outputs_per),
+        smem1=4 * (c["FACTS"] + c["STATES_ITEMS"] * c["HEADS"] * L
+                   + c["STATES_STAGES"] * stage1),  # states_smem
+        smem3=4 * (c["FACTS"] + 2 * c["OUTPUTS_ITEMS"] * c["HEADS"] * L
+                   + c["OUTPUTS_STAGES"] * stage3))  # outputs_smem
+
+
+def _fma_tile(pl, x, states):
+    """``tile_of``: (b, c, hg, m0, r0) of tile x of pass 1 (``states``; r0
+    the first N column) or pass 3 (r0 the first step of the chunk)."""
+    inner, outer = (pl["nt"], pl["mt"]) if states else (pl["mt"], pl["lt"])
+    a, x = x % inner, x // inner
+    o, x = x % outer, x // outer
+    m0, r0 = ((o, a) if states else (a, o))
+    hg, x = x % pl["groups"], x // pl["groups"]
+    return x // pl["nc"], x % pl["nc"], hg, m0 * pl["WIDE"], r0 * pl["TILE"]
+
+
+def _fma_heads(pl, P, hg, m0):
+    """The first head of a tile's columns and how many it spans."""
+    return (m0 // P, pl["heads"]) if pl["flat"] else (hg, 1)
+
+
+def _fma_cols(pl, P, hg, m0, lead):
+    """The box of a tile's 256 X columns over (..., H, P) after ``lead``
+    offsets and sizes: whole heads side by side, or P-range m0.. of head hg."""
+    h0, nh = _fma_heads(pl, P, hg, m0)
+    lo, ls = lead
+    if pl["flat"]:
+        return Box((*lo, h0, 0), (*ls, nh, P))
+    return Box((*lo, hg, m0), (*ls, 1, pl["WIDE"]))
+
+
+def fma_states_site(B, S, H, P, N, L, per_head, init, dt, alloc) -> CallSite:
+    pl = fma_plan(B, S, H, P, N, L, per_head)
+    T, nc, sb = pl["TILE"], pl["nc"], pl["score_blocks"]
     bc_shape, bc = _bc(per_head, B, S, H, N)
+    last = len(bc_shape) - 1
 
-    def role(x):  # ssd.cu:175-176, 182: P-tiles 0 .. ptiles-1, then the scores block
-        tile = x % (ptiles + 1)
-        b, h, ch = _chunk_of(x // (ptiles + 1), H, nc)
-        return tile, tile == ptiles, b, h, ch
+    def score_tiles(x):  # ssd.cu scores_block: tile (b, group, c, ti, tj), SCORE_TILES a block
+        out = []
+        for q in range(pl["SCORE_TILES"]):
+            y = x * pl["SCORE_TILES"] + q
+            if y >= pl["score_items"]:
+                break
+            tj, y = y % pl["lt"], y // pl["lt"]
+            ti, y = y % pl["lt"], y // pl["lt"]
+            ch, y = y % nc, y // nc
+            out.append((y // (H if per_head else 1), y % (H if per_head else 1), ch, ti, tj))
+        return out
 
-    def xs(x):  # :220, load_rows of rows < valid, columns p0 .. p0 + pc
-        tile, scores, b, h, ch = role(x)
-        return [] if scores else [Box((b, ch * L, h, tile * TILE), (1, L, 1, TILE))]
+    def state_tiles(x):  # ssd_states_kernel: states_per tiles after the scores blocks
+        first = (x - sb) * pl["states_per"]
+        return [_fma_tile(pl, y, True)
+                for y in range(first, min(first + pl["states_per"], pl["states_items"]))]
 
-    def las(x):  # :179, chunk_cumsum of steps < valid
-        _, _, b, h, ch = role(x)
-        return [Box((b, ch * L, h), (1, L, 1))]
+    def xs(x):  # issue: X, every step of the chunk, the tile's columns
+        return [] if x < sb else [_fma_cols(pl, P, hg, m0, ((b, ch * L), (1, L)))
+                                  for b, ch, hg, m0, _ in state_tiles(x)]
 
-    def bs(x):  # :195-196 (scores), :221, 230 (states): rows < valid, every N-slice
-        _, _, b, h, ch = role(x)
-        return [bc(b, h, ch * L, L)]
+    def las(x):  # prepare: chunk_cumsum of each head of each tile
+        out = []
+        for b, ch, hg, m0, _ in ([] if x < sb else state_tiles(x)):
+            h0, nh = _fma_heads(pl, P, hg, m0)
+            out.append(Box((b, ch * L, h0), (1, L, nh)))
+        return out
 
-    def cs(x):  # :195, the scores block only
-        _, scores, b, h, ch = role(x)
-        return [bc(b, h, ch * L, L)] if scores else []
+    def bs(x):  # scores: rows tj * 64.. of the chunk; states: every step, columns n0..n0+63
+        if x < sb:
+            return [bc(b, g, ch * L + tj * T, min(T, L - tj * T))
+                    for b, g, ch, _, tj in score_tiles(x)]
+        out = []
+        for b, ch, hg, _, n0 in state_tiles(x):
+            box = bc(b, hg, ch * L, L)
+            out.append(Box((*box.offset[:-1], n0), (*box.size[:-1], T)))
+        return out
 
-    def states(x):  # :225-238, store_tile of rows < pc
-        tile, scores, b, h, ch = role(x)
-        return [] if scores else [Box((b, h, ch, tile * TILE, 0), (1, 1, 1, TILE, N))]
+    def cs(x):  # scores blocks only: rows ti * 64.. of the chunk, every column
+        return [bc(b, g, ch * L + ti * T, min(T, L - ti * T))
+                for b, g, ch, ti, _ in score_tiles(x)] if x < sb else []
 
-    def totals(x):  # :239, P-tile 0
-        tile, _, b, h, ch = role(x)
-        return [Box((b, h, ch), (1, 1, 1))] if tile == 0 else []
+    def states(x):  # compute's epilogue: the tile's rows (h, p), columns n0..n0+63
+        out = []
+        for b, ch, hg, m0, n0 in ([] if x < sb else state_tiles(x)):
+            h0, nh = _fma_heads(pl, P, hg, m0)
+            out.append(Box((b, h0, ch, 0, n0), (1, nh, 1, P, T)) if pl["flat"]
+                       else Box((b, hg, ch, m0, n0), (1, 1, 1, pl["WIDE"], T)))
+        return out
 
-    def scores_tile(x):  # :185-211, every (t, s) of the chunk, 0 above the diagonal
-        _, scores, b, h, ch = role(x)
-        return [Box((b, h, ch, 0, 0), (1, 1, 1, L, L))] if scores else []
+    def totals(x):  # prepare: each head's total_c, from the tile holding its row 0, n0 = 0
+        out = []
+        for b, ch, hg, m0, n0 in ([] if x < sb else state_tiles(x)):
+            h0, nh = _fma_heads(pl, P, hg, m0)
+            out += [Box((b, h, ch), (1, 1, 1)) for h in range(h0, min(h0 + nh, H))
+                    if n0 == 0 and ((h - hg) << pl["lg"]) >= m0]
+        return out
 
+    def scores_tiles(x):  # scores_block's stores: (t, s) of the tile below L
+        return [Box((b, g, ch, ti * T, tj * T) if per_head else (b, ch, ti * T, tj * T),
+                    (1, 1, 1, T, T) if per_head else (1, 1, T, T))
+                for b, g, ch, ti, tj in (score_tiles(x) if x < sb else [])]
+
+    scores_rank = len(alloc["scores"])
     return CallSite(
-        name="ssd_states_kernel", grid=(B * H * nc * (ptiles + 1),),  # states_geometry
+        name="ssd_states_kernel", grid=(sb + pl["states_blocks"],),  # states_geometry
         in_names=("X", "la", "Bm", "Cm"),
-        in_blocks=(Footprint(xs, masked=(1, 3)), Footprint(las, masked=(1,)),
-                   Footprint(bs, masked=(1,)), Footprint(cs, masked=(1,))),
+        in_blocks=(Footprint(xs, masked=(1, 2, 3)), Footprint(las, masked=(1, 2)),
+                   Footprint(bs, masked=(1, last)), Footprint(cs, masked=(1,))),
         in_shapes=((B, S, H, P), (B, S, H), bc_shape, bc_shape),
         in_dtypes=(dt, "float32", dt, dt),
         out_names=("states", "totals", "scores"),
-        out_blocks=(Footprint(states, masked=(3,)), Footprint(totals), Footprint(scores_tile)),
+        out_blocks=(Footprint(states, masked=(1, 3, 4)), Footprint(totals),
+                    Footprint(scores_tiles, masked=(scores_rank - 2, scores_rank - 1))),
         out_shapes=(alloc["states"], alloc["totals"], alloc["scores"]),
         out_dtypes=("float32", "float32", "float32"),
-        route="cuda", threads=c["THREADS"], smem=smem, smem_attr=smem,
-        smem_need=4 * (2 * L + max(L * pt + L * (nt + 1), 2 * lt * (nt + 1))),  # :170-217
+        route="cuda", threads=pl["THREADS"], smem=pl["smem1"], smem_attr=pl["smem1"],
+        smem_need=4 * (pl["FACTS"] + pl["STATES_ITEMS"] * pl["HEADS"] * L)  # facts, dte
+        + 4 * pl["STATES_STAGES"] * pl["stage1"],  # and the ring: the body's carve-out
         kernel=CudaKernel(SOURCE, "ssd_states_kernel"),
         source=repo_path(SOURCE), line=launch_line(SOURCE, "ssd_states_kernel"),
     )
@@ -198,52 +297,77 @@ def recurrence_site(B, S, H, P, N, L, per_head, init, dt, alloc, route) -> CallS
 
 
 def fma_outputs_site(B, S, H, P, N, L, per_head, init, dt, alloc) -> CallSite:
-    c = source_constants(SOURCE, ("THREADS", "TILE"))
-    TILE = c["TILE"]
-    nc = cdiv(S, L)
-    pt, nt, lt, ptiles = min(P, TILE), min(N, TILE), min(L, TILE), cdiv(P, TILE)  # ssd.cu Widths
-    smem = 4 * (2 * L + L * pt + lt * (L + 1) + lt * (nt + 1) + pt * (nt + 1))  # outputs_smem
+    pl = fma_plan(B, S, H, P, N, L, per_head)
+    T, nc = pl["TILE"], pl["nc"]
     bc_shape, bc = _bc(per_head, B, S, H, N)
 
-    def role(x):  # ssd.cu:262-263
-        tile = x % ptiles
-        b, h, ch = _chunk_of(x // ptiles, H, nc)
-        return tile, b, h, ch
+    def tiles(x):  # ssd_outputs_kernel: outputs_per tiles a block
+        first = x * pl["outputs_per"]
+        return [_fma_tile(pl, y, False)
+                for y in range(first, min(first + pl["outputs_per"], pl["outputs_items"]))]
 
-    def xy(x):  # :267 loads, :295-304 stores: rows < valid, columns p < pc
-        tile, b, h, ch = role(x)
-        return [Box((b, ch * L, h, tile * TILE), (1, L, 1, TILE))]
+    def xs(x):  # issue: X, every step of the chunk (W X), the tile's columns
+        return [_fma_cols(pl, P, hg, m0, ((b, ch * L), (1, L))) for b, ch, hg, m0, _ in tiles(x)]
 
-    def las(x):  # :268
-        _, b, h, ch = role(x)
-        return [Box((b, ch * L, h), (1, L, 1))]
+    def ys(x):  # compute's epilogue: steps t0..t0+63 below L and S, the tile's columns
+        return [_fma_cols(pl, P, hg, m0, ((b, ch * L + t0), (1, min(T, L - t0))))
+                for b, ch, hg, m0, t0 in tiles(x)]
 
-    def cs(x):  # :285, rows < valid, every N-slice
-        _, b, h, ch = role(x)
-        return [bc(b, h, ch * L, L)]
+    def las(x):  # prepare: chunk_cumsum of each head of each tile
+        out = []
+        for b, ch, hg, m0, _ in tiles(x):
+            h0, nh = _fma_heads(pl, P, hg, m0)
+            out.append(Box((b, ch * L, h0), (1, L, nh)))
+        return out
 
-    def ws(x):  # :273, 279, the chunk's L x L scores
-        _, b, h, ch = role(x)
-        return [Box((b, h, ch, 0, 0), (1, 1, 1, L, L))]
+    def cs(x):  # issue: C rows t0..t0+63 of the chunk, every N-slice
+        return [bc(b, hg, ch * L + t0, min(T, L - t0)) for b, ch, hg, _, t0 in tiles(x)]
 
-    def rs(x):  # :272, 286, rows p0 .. p0 + pc of the state before the chunk
-        tile, b, h, ch = role(x)
-        return [Box((b, h, ch, tile * TILE, 0), (1, 1, 1, TILE, N))]
+    def ws(x):  # issue: the scores' rows t0..t0+63 (below L), every column
+        return [Box((b, hg, ch, t0, 0), (1, 1, 1, T, L)) if per_head
+                else Box((b, ch, t0, 0), (1, 1, T, L)) for b, ch, hg, _, t0 in tiles(x)]
 
+    def rs(x):  # issue: R^T, the state before the chunk of each of the tile's columns
+        out = []
+        for b, ch, hg, m0, _ in tiles(x):
+            h0, nh = _fma_heads(pl, P, hg, m0)
+            out.append(Box((b, h0, ch, 0, 0), (1, nh, 1, P, N)) if pl["flat"]
+                       else Box((b, hg, ch, m0, 0), (1, 1, 1, pl["WIDE"], N)))
+        return out
+
+    scores_rank = len(alloc["scores"])
     return CallSite(
-        name="ssd_outputs_kernel", grid=(B * H * nc * ptiles,),  # outputs_geometry
+        name="ssd_outputs_kernel", grid=(pl["outputs_blocks"],),  # outputs_geometry
         in_names=("X", "la", "Cm", "scores", "before"),
-        in_blocks=(Footprint(xy, masked=(1, 3)), Footprint(las, masked=(1,)),
-                   Footprint(cs, masked=(1,)), Footprint(ws), Footprint(rs, masked=(3,))),
+        in_blocks=(Footprint(xs, masked=(1, 2, 3)), Footprint(las, masked=(1, 2)),
+                   Footprint(cs, masked=(1,)), Footprint(ws, masked=(scores_rank - 2,)),
+                   Footprint(rs, masked=(1, 3))),
         in_shapes=((B, S, H, P), (B, S, H), bc_shape, alloc["scores"], alloc["before"]),
         in_dtypes=(dt, "float32", dt, "float32", "float32"),
-        out_names=("Y",), out_blocks=(Footprint(xy, masked=(1, 3)),),
+        out_names=("Y",), out_blocks=(Footprint(ys, masked=(1, 2, 3)),),
         out_shapes=(alloc["Y"],), out_dtypes=(dt,),
-        route="cuda", threads=c["THREADS"], smem=smem, smem_attr=smem,
-        smem_need=4 * (2 * L + L * pt + lt * (L + 1) + lt * (nt + 1) + pt * (nt + 1)),  # :254-259
+        route="cuda", threads=pl["THREADS"], smem=pl["smem3"], smem_attr=pl["smem3"],
+        smem_need=4 * (pl["FACTS"] + 2 * pl["OUTPUTS_ITEMS"] * pl["HEADS"] * L)  # cum, exp
+        + 4 * pl["OUTPUTS_STAGES"] * pl["stage3"],  # and the ring: the body's carve-out
         kernel=CudaKernel(SOURCE, "ssd_outputs_kernel"),
         source=repo_path(SOURCE), line=launch_line(SOURCE, "ssd_outputs_kernel"),
     )
+
+
+def fma_feed(B, S, H, P, N, L, per_head) -> dict:
+    """What feeds the FMAs of the fma route's products at a shape, from the
+    source's tile sizes: a lane's register tile (rows, columns) in a warp's
+    32 x TILE tile; for each product of passes 1 and 3 the 16-byte shared
+    loads of one reduction step and the FMAs they feed; the rings' stages,
+    a block's shared memory in passes 1 and 3, and each pass's blocks."""
+    pl = fma_plan(B, S, H, P, N, L, per_head)
+    tile = (32 // 4, pl["TILE"] // 8)  # lanes (ty, tx) = (lane >> 3, lane & 7)
+    step = (tile[0] // 4 + tile[1] // 4, tile[0] * tile[1])  # float4 of A and of B a step
+    return dict(tile=tile, products={p: step for p in ("states", "scores", "C R^T", "W X")},
+                stages=(pl["STATES_STAGES"], pl["OUTPUTS_STAGES"]),
+                smem=(pl["smem1"], pl["smem3"]),
+                blocks=(pl["score_blocks"] + pl["states_blocks"], pl["outputs_blocks"]),
+                flat=pl["flat"])
 
 
 def wgmma_states_site(B, S, H, P, N, L, per_head, init, dt, alloc) -> CallSite:

@@ -109,7 +109,8 @@ def test_matmul_bf16_shapes_tma_cannot_address_take_the_cuda_core_route(dev, K, 
 
 # chip_smoke.py's KERNEL_TOL: a kernel against its plain version (rtol, atol)
 KERNEL_TOL = {("matmul", torch.float32): (2e-5, 1e-4), ("matmul", torch.bfloat16): (2e-2, 2e-2),
-              ("flash", torch.float32): (1e-4, 1e-4), ("flash", torch.bfloat16): (2e-2, 2e-2)}
+              ("flash", torch.float32): (1e-4, 1e-4), ("flash", torch.bfloat16): (2e-2, 2e-2),
+              ("ssd", torch.float32): (1e-4, 1e-4), ("ssd", torch.bfloat16): (2e-2, 2e-2)}
 
 
 def _off16(t, nbytes=4):
@@ -374,6 +375,66 @@ def test_ssd_tensor_core_route(dev, P, N, per_head, B, S, H):
             torch.testing.assert_close(fin.float(), finr.float(), **tol)
 
 
+@pytest.mark.parametrize("P,N,chunk,per_head", [
+    (6, 10, 16, False),     # P and N not multiples of 4: 4-byte copies, scalar stores
+    (6, 10, 32, True),
+    (80, 48, 32, False),    # P = 80: one head a tile, 176 of 256 columns masked
+    (80, 48, 64, True),
+    (64, 64, 16, False),    # four heads a tile (shared B/C, P = 64), chunk 16
+    (128, 72, 32, False),   # two heads a tile
+    (1000, 520, 16, True),  # four column tiles a head, nine N-slices
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_cuda_core_route_edges(dev, P, N, chunk, per_head, dtype):
+    """K4's fma route at widths and chunks off the main paths, a ragged S,
+    shared and per-head B/C, bf16 (widened in registers), with and without
+    an initial state: within KERNEL_TOL of the plain version; and with X, B
+    and C 4 bytes off 16 (its 4-byte copies), the same bits."""
+    from repro_torch.kernels.ssd import ssd_cuda, ssd_reference, ssd_route
+
+    assert ssd_route(dtype, P, N, chunk) == "fma"
+    X, la, Bm, Cm, init = _ssd_inputs(dev, 1, 3 * chunk + 5, 3, P, N, dtype, per_head,
+                                      seed=P + N + chunk)
+    for state in (None, init):
+        before = _routes("ssd")
+        Y, fin = ssd_cuda(X, la, Bm, Cm, chunk=chunk, initial_state=state)
+        _launched("ssd", before, "fma")
+        assert Y.dtype == fin.dtype == dtype
+        Yr, finr = ssd_reference(X, la, Bm, Cm, chunk=chunk, initial_state=state)
+        _close(Y, Yr, "ssd")
+        _close(fin, finr, "ssd")
+        Yo, fino = ssd_cuda(_off16(X), la, _off16(Bm), _off16(Cm), chunk=chunk, initial_state=state)
+        assert torch.equal(Yo, Y) and torch.equal(fino, fin), state is None
+
+
+def test_ssd_fma_route_keeps_raw_scores_once_per_chunk_where_b_and_c_are_shared(dev):
+    """Shared B/C: the fma route's scores scratch is (B, nc, L, L), each
+    chunk's raw C Bᵀ once for all heads (rows and columns past S zero), the
+    per-head masks applied as pass 3 reads it; per-head B/C keeps (B, H, nc,
+    L, L).  Given as ``out=`` buffers, the same Y and final state as buffers
+    of the call's own."""
+    from repro_torch.kernels.ssd import ssd_cuda, ssd_reference
+    from repro_torch.kernels.ssd.kernel import buffers
+
+    for per_head in (False, True):
+        X, la, Bm, Cm, init = _ssd_inputs(dev, 2, 150, 5, 64, 64, torch.float32, per_head, seed=7)
+        shapes = buffers(X.shape, 64, 64, X.dtype, "fma", per_head=per_head)
+        assert shapes["scores"][0] == ((2, 5, 3, 64, 64) if per_head else (2, 3, 64, 64))
+        out = {name: torch.empty(shape, dtype=dt, device=dev)
+               for name, (shape, dt) in shapes.items()}
+        Y, fin = ssd_cuda(X, la, Bm, Cm, chunk=64, initial_state=init, out=out)
+        Y2, fin2 = ssd_cuda(X, la, Bm, Cm, chunk=64, initial_state=init)
+        assert torch.equal(Y, Y2) and torch.equal(fin, fin2)
+        pad = (0, 0) * (Bm.ndim - 2) + (0, 42)  # S = 150 to 3 chunks of 64
+        Bc, Cc = (torch.nn.functional.pad(m, pad).unflatten(1, (3, 64)) for m in (Bm, Cm))
+        raw = (torch.einsum("bcthn,bcshn->bhcts", Cc, Bc) if per_head
+               else torch.einsum("bctn,bcsn->bcts", Cc, Bc))
+        torch.testing.assert_close(out["scores"], raw, rtol=1e-5, atol=1e-5)
+        Yr, finr = ssd_reference(X, la, Bm, Cm, chunk=64, initial_state=init)
+        _close(Y, Yr, "ssd")
+        _close(fin, finr, "ssd")
+
+
 def test_flash_and_ssd_refuse_what_they_cannot_take(dev):
     from repro_torch.kernels.flash import flash_attention_cuda
     from repro_torch.kernels.ssd import ssd_cuda
@@ -429,8 +490,9 @@ def test_ssd_tiled_route_at_the_mlstm_prefill_writes_its_out_buffers(dev):
     from repro_torch.kernels.ssd.kernel import buffers
 
     X, la, Bm, Cm, init = _ssd_inputs(dev, 4, 4096, 4, 1024, 512, torch.bfloat16, True, seed=12)
+    shapes = buffers(X.shape, 512, 64, X.dtype, "wgmma_tiled", per_head=True)
     out = {name: torch.empty(shape, dtype=dtype, device=dev)
-           for name, (shape, dtype) in buffers(X.shape, 512, 64, X.dtype, "wgmma_tiled").items()}
+           for name, (shape, dtype) in shapes.items()}
     assert out["before"].shape == (4, 4, 64, 2, 1024, 512)  # hi, lo
     before = _routes("ssd")
     Y, fin = ssd_cuda(X, la, Bm, Cm, chunk=64, initial_state=init, out=out)

@@ -176,6 +176,15 @@ PROBES = {
           _meta(1, 300, 128, dtype=BF16)), {"chunk": 64, "initial_state": _meta(1, 2, 128, 128)}),
         ((_meta(2, 130, 3, 64, dtype=BF16), _meta(2, 130, 3), _meta(2, 130, 3, 192, dtype=BF16),
           _meta(2, 130, 3, 192, dtype=BF16)), {"chunk": 64}),
+        # fma: four heads a tile (shared B/C, P = 64), the last tile past H, three
+        # chunks' scores in one block; two tiles of P = 300 a head; two heads a
+        # tile (P = 128) and two 64-step tiles a chunk of 128
+        ((_meta(1, 150, 5, 64), _meta(1, 150, 5), _meta(1, 150, 40), _meta(1, 150, 40)),
+         {"chunk": 64}),
+        ((_meta(1, 100, 2, 300), _meta(1, 100, 2), _meta(1, 100, 2, 70), _meta(1, 100, 2, 70)),
+         {"chunk": 48}),
+        ((_meta(1, 300, 3, 128), _meta(1, 300, 3), _meta(1, 300, 72), _meta(1, 300, 72)),
+         {"chunk": 128}),
     ],
 }
 
@@ -283,24 +292,32 @@ MODEL_MUTANTS = [
     (k3_launch, "smem", "fma attribute not set", "smem_attr=smem,", "smem_attr=None,", 1),
     (k3_launch, "smem", "wgmma attribute not set", "smem_attr=smem,", "smem_attr=None,", 0),
     # K4
-    (k4_launch, "role", "states scores block missing", "grid=(B * H * nc * (ptiles + 1),)",
-     "grid=(B * H * nc * ptiles,)", 0),
-    (k4_launch, "role", "states role split shifted by one", "return tile, tile == ptiles, b, h, ch",
-     "return tile, tile == ptiles - 1, b, h, ch", 0),
-    (k4_launch, "role", "states roles by P-tiles only", "tile = x % (ptiles + 1)",
-     "tile = x % ptiles", 0),
+    (k4_launch, "role", "states scores block missing", 'grid=(sb + pl["states_blocks"],)',
+     'grid=(pl["states_blocks"],)', 0),
+    (k4_launch, "role", "states role split shifted by one",
+     "for b, ch, hg, m0, n0 in ([] if x < sb else", "for b, ch, hg, m0, n0 in ([] if x <= sb else",
+     0),
+    (k4_launch, "role", "scores tiles a block one fewer", 'y = x * pl["SCORE_TILES"] + q',
+     'y = x * (pl["SCORE_TILES"] - 1) + q', 0),
     (k4_launch, "grid", "recurrence grid ceil->floor", "grid=(cdiv(BH * PN // V, RT),)",
      "grid=(BH * PN // V // RT,)", 0),
-    (k4_launch, "grid", "fma outputs one block too many a chunk",
-     "grid=(B * H * nc * ptiles,)", "grid=(B * H * nc * (ptiles + 1),)", 0),
+    (k4_launch, "grid", "fma outputs one block short", 'grid=(pl["outputs_blocks"],)',
+     'grid=(pl["outputs_blocks"] - 1,)', 0),
+    (k4_launch, "grid", "fma scores blocks ceil->floor",
+     'score_blocks=cdiv(score_items, c["SCORE_TILES"])',
+     'score_blocks=score_items // c["SCORE_TILES"]', 0),
     (k4_launch, "grid", "fma states chunks ceil->floor", "nc = cdiv(S, L)", "nc = S // L", 0),
     (k4_launch, "grid", "wgmma states one chunk short", "grid=(B * H * nc,),  # states_geometry",
      "grid=(B * H * (nc - 1),),  # states_geometry", 0),
     (k4_launch, "output", "fma states first N-slice only",
-     "[Box((b, h, ch, tile * TILE, 0), (1, 1, 1, TILE, N))]",
-     "[Box((b, h, ch, tile * TILE, 0), (1, 1, 1, TILE, nt))]", 0),
-    (k4_launch, "output", "totals from every P-tile", "if tile == 0 else []",
-     "if not _ else []", 0),
+     'else Box((b, hg, ch, m0, n0), (1, 1, 1, pl["WIDE"], T)))',
+     'else Box((b, hg, ch, m0, 0), (1, 1, 1, pl["WIDE"], T)))', 0),
+    (k4_launch, "output", "fma flat states one head a tile",
+     "Box((b, h0, ch, 0, n0), (1, nh, 1, P, T))", "Box((b, h0, ch, 0, n0), (1, 1, 1, P, T))", 0),
+    (k4_launch, "output", "fma outputs steps of the chunk's first tile only",
+     "((b, ch * L + t0), (1, min(T, L - t0)))", "((b, ch * L), (1, min(T, L - t0)))", 0),
+    (k4_launch, "output", "totals from every P-tile",
+     'if n0 == 0 and ((h - hg) << pl["lg"]) >= m0]', "if n0 == 0]", 0),
     (k4_launch, "output", "recurrence before one chunk short", "Box((r, 0, e), (nr, nc, ne))",
      "Box((r, 0, e), (nr, nc - 1, ne))", 0),
     (k4_launch, "output", "recurrence half the threads", "return [Box((x * span,), (span,))]",
@@ -309,12 +326,13 @@ MODEL_MUTANTS = [
      "(1, L, 1, P))]\n\n    def bcs", "(1, L, 1, P // 2))]\n\n    def bcs", 0),
     (k4_launch, "output", "chunk map b and c swapped", "return x // nc, h, x % nc",
      "return x % nc, h, x // nc", 0),
-    (k4_launch, "mask", "fma Y mask on P dropped", "out_blocks=(Footprint(xy, masked=(1, 3)),)",
-     "out_blocks=(Footprint(xy, masked=(1,)),)", 0),
-    (k4_launch, "mask", "fma Y mask on S dropped", "out_blocks=(Footprint(xy, masked=(1, 3)),)",
-     "out_blocks=(Footprint(xy, masked=(3,)),)", 0),
+    (k4_launch, "mask", "fma Y mask on P dropped", "out_blocks=(Footprint(ys, masked=(1, 2, 3)),)",
+     "out_blocks=(Footprint(ys, masked=(1, 2)),)", 0),
+    (k4_launch, "mask", "fma Y mask on S dropped", "out_blocks=(Footprint(ys, masked=(1, 2, 3)),)",
+     "out_blocks=(Footprint(ys, masked=(2, 3)),)", 0),
     (k4_launch, "mask", "fma states mask on P dropped",
-     "out_blocks=(Footprint(states, masked=(3,)),", "out_blocks=(Footprint(states),", 0),
+     "out_blocks=(Footprint(states, masked=(1, 3, 4)),",
+     "out_blocks=(Footprint(states, masked=(1, 4)),", 0),
     (k4_launch, "mask", "recurrence before mask dropped",
      "out_blocks=(Footprint(pairs if pair else rows, masked=(0,)), Footprint(flat, masked=(0,))),",
      "out_blocks=(Footprint(pairs if pair else rows), Footprint(flat, masked=(0,))),", 0),
@@ -324,14 +342,20 @@ MODEL_MUTANTS = [
     (k4_launch, "mask", "wgmma Y mask dropped",
      'out_names=("Y",), out_blocks=(Footprint(xy, masked=(1,)),)',
      'out_names=("Y",), out_blocks=(Footprint(xy),)', 0),
-    (k4_launch, "smem", "fma states smem the smaller role's",
-     "smem = 4 * (2 * L + max(L * pt", "smem = 4 * (2 * L + min(L * pt", 0),
+    (k4_launch, "smem", "fma states one ring slot fewer launched",
+     '+ c["STATES_STAGES"] * stage1),  # states_smem',
+     '+ (c["STATES_STAGES"] - 1) * stage1),  # states_smem', 0),
+    (k4_launch, "smem", "fma outputs one ring slot fewer launched",
+     '+ c["OUTPUTS_STAGES"] * stage3))  # outputs_smem',
+     '+ (c["OUTPUTS_STAGES"] - 1) * stage3))  # outputs_smem', 0),
     (k4_launch, "smem", "wgmma states over budget", "smem = 1024 + 3 * tile_bytes",
      "smem = 1024 + 30 * tile_bytes", 0),
-    (k4_launch, "smem", "fma outputs attribute not set", "smem_attr=smem,", "smem_attr=None,", 1),
+    (k4_launch, "smem", "fma outputs attribute not set", 'smem_attr=pl["smem3"],',
+     "smem_attr=None,", 0),
     (k4_launch, "input", "wgmma X half the chunk",
      "(1, L, 1, P))]\n\n    def bs", "(1, L // 2, 1, P))]\n\n    def bs", 0),
-    (k4_launch, "input", "la mask dropped", "Footprint(las, masked=(1,))", "Footprint(las)", 0),
+    (k4_launch, "input", "la mask dropped", "Footprint(las, masked=(1, 2))",
+     "Footprint(las, masked=(2,))", 0),
     (k4_launch, "input", "recurrence totals first chunk only", "Box((r, 0), (nr, nc))",
      "Box((r, 0), (nr, 1))", 0),
     (k4_launch, "grid", "wgmma_tiled states chunks ceil->floor", "nc, ptiles = cdiv(S, L), P // W",
@@ -359,11 +383,9 @@ MODEL_MUTANTS = [
     (k4_launch, "smem", "wgmma_tiled outputs without the alignment slack",
      "smem = 1024 + carved  # OUTPUTS_SMEM", "smem = carved  # OUTPUTS_SMEM", 0),
     (k4_launch, "input", "wgmma_tiled states la mask dropped", "Footprint(las, masked=(1,))",
-     "Footprint(las)", 4),
+     "Footprint(las)", 2),
     (k4_launch, "input", "fma outputs scores one column over",
-     "        _, b, h, ch = role(x)\n        return [Box((b, h, ch, 0, 0), (1, 1, 1, L, L))]",
-     "        _, b, h, ch = role(x)\n        return [Box((b, h, ch, 0, 0), (1, 1, 1, L, L + 1))]",
-     0),
+     "else Box((b, ch, t0, 0), (1, 1, T, L))", "else Box((b, ch, t0, 0), (1, 1, T, L + 1))", 0),
 ]
 
 # (source, kernel, name, old, new, occurrence): one edit of a kernel body
@@ -390,6 +412,19 @@ BODY_MUTANTS = [
      "float scale_log2) {", "float scale_log2, int unused) {", 0),
     ("ssd/csrc/ssd.cu", "ssd_outputs_kernel", "outputs store without from_f32",
      "from_f32<T>(yd[i][j] + ecum[t] * yo[i][j])", "(yd[i][j] + ecum[t] * yo[i][j])", 0),
+    ("ssd/csrc/ssd.cu", "ssd_outputs_kernel", "outputs 16-byte store without from_f32",
+     "make_float4(from_f32<float>(yd[i][4 * h] + ecum[t] * yo[i][4 * h]),\n"
+     "                            from_f32<float>(yd[i][4 * h + 1] + ecum[t] * yo[i][4 * h + 1]),\n"
+     "                            from_f32<float>(yd[i][4 * h + 2] + ecum[t] * yo[i][4 * h + 2]),\n"
+     "                            from_f32<float>(yd[i][4 * h + 3] + ecum[t] * yo[i][4 * h + 3]))",
+     "make_float4(yd[i][4 * h] + ecum[t] * yo[i][4 * h],"
+     " yd[i][4 * h + 1] + ecum[t] * yo[i][4 * h + 1],"
+     " yd[i][4 * h + 2] + ecum[t] * yo[i][4 * h + 2],"
+     " yd[i][4 * h + 3] + ecum[t] * yo[i][4 * h + 3])",
+     0),
+    ("ssd/csrc/ssd.cu", "ssd_states_kernel", "fma states dead parameter",
+     "int P, int N, int L, int bc_per_head) {",
+     "int P, int N, int L, int bc_per_head, int unused) {", 0),
     ("ssd/csrc/ssd_common.cuh", "ssd_recurrence_kernel", "fin stored without from_f32",
      "fin[i] = from_f32<FT>(R);", "fin[i] = R;", 0),
     ("ssd/csrc/ssd_common.cuh", "ssd_recurrence_kernel", "before stored without from_f32",
@@ -531,8 +566,8 @@ def test_pinned_mutants_are_killed(tmp_path):
                     probe=2) == {"oob-read"}
     assert "smem-budget" in kinds_of(k4_launch, "smem = 1024 + 3 * tile_bytes",
                                      "smem = 1024 + 30 * tile_bytes")
-    assert kinds_of(k4_launch, "return tile, tile == ptiles, b, h, ch",
-                    "return tile, tile == ptiles - 1, b, h, ch", probe=4) == {"coverage-gap"}
+    assert kinds_of(k4_launch, "for b, ch, hg, m0, n0 in ([] if x < sb else",
+                    "for b, ch, hg, m0, n0 in ([] if x <= sb else", probe=4) == {"coverage-gap"}
     big = dataclasses.replace(_site(k1_launch), grid=(1 << 18,))
     assert _kinds([lint.analyze_call_site(big)]) == {"grid-unenumerable"}
     assert _kinds([lint.analyze_call_site(dataclasses.replace(_site(k1_launch), grid=(0,)))]) == {
@@ -585,7 +620,9 @@ MODEL_CONSTANTS = {
     "matmul/csrc/matmul.cu": ("BM", "BN", "BK", "STAGES", "THREADS", "XPAD"),
     "flash/csrc/flash_sm90.cu": ("BQ", "BKV", "THREADS"),
     "flash/csrc/flash.cu": ("BQ", "BK", "STAGES", "THREADS", "WQ"),
-    "ssd/csrc/ssd.cu": ("THREADS", "TILE"),
+    "ssd/csrc/ssd.cu": ("THREADS", "TILE", "BK", "BKN", "SCORE_BK", "PAD", "WIDE", "HEADS",
+                        "SCORE_TILES", "STATES_ITEMS", "OUTPUTS_ITEMS", "FILL", "STATES_STAGES",
+                        "OUTPUTS_STAGES", "FACTS"),
     "ssd/csrc/ssd_sm90.cu": ("L", "THREADS"),
     "ssd/csrc/ssd_sm90_tiled.cu": ("L", "THREADS", "STATES_STAGES", "OUTPUTS_STAGES", "OUT_ROW",
                                    "PAIR_VEC"),
@@ -660,11 +697,24 @@ def _k3_figures(D):
     return figures
 
 
+def _k4_figures(shape):
+    f = k4_launch.fma_feed(*shape)
+    [(loads, fmas)] = set(f["products"].values())  # every product of passes 1 and 3 alike
+    assert fmas / (4 * loads) >= 4 and max(f["smem"]) <= 232448
+    return [f"{f['tile'][0]}x{f['tile'][1]} register tile",
+            f"{loads} loads feed {fmas} FMAs, {fmas / loads:.1f} FMAs a 16-byte load, "
+            f"{fmas / (4 * loads):.1f} a word",
+            f"{f['stages'][0]} stages in pass 1 ({f['smem'][0]:,} B a block at L = 64",
+            f"{f['stages'][1]} in pass 3 ({f['smem'][1]:,} B a block)"]
+
+
 @pytest.mark.parametrize("source, figures, arg", [
     ("matmul/csrc/matmul.cu", _k1_figures, None),
     ("flash/csrc/flash.cu", _k3_figures, 128),
     ("flash/csrc/flash.cu", _k3_figures, 80),
-], ids=["k1", "k3-d128", "k3-d80"])
+    ("ssd/csrc/ssd.cu", _k4_figures, (4, 4096, 80, 64, 64, 64, False)),
+    ("ssd/csrc/ssd.cu", _k4_figures, (4, 4096, 4, 1024, 512, 64, True)),
+], ids=["k1", "k3-d128", "k3-d80", "k4-zamba2", "k4-mlstm"])
 def test_fma_source_notes_state_the_launch_models_figures(source, figures, arg):
     """The CUDA-core routes' source notes give the register tile, FMAs a
     shared-memory load and word, and shared memory a block that the launch

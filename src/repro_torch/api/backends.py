@@ -36,6 +36,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.comm.errors import ScheduleExecutionError
+from repro_torch.spans import span
 
 if TYPE_CHECKING:  # pragma: no cover
     from repro_torch.core.schedules import Schedule
@@ -131,10 +132,15 @@ class InterpBackend:
 
     def _collective(self, comm, collective, x):
         _check(comm, collective, x)
-        sched = comm.axis_schedule(
-            collective,
-            _eager_nbytes(comm, collective, _local_shape(comm, x), x.element_size()),
-        )
+        with span("collective", op=collective, n=comm.n, bytes=x.numel() * x.element_size()) as sp:
+            sched = comm.axis_schedule(
+                collective,
+                _eager_nbytes(comm, collective, _local_shape(comm, x), x.element_size()),
+            )
+            sp.set(algorithm=sched.algorithm)
+            return self._planned(comm, collective, x, sched)
+
+    def _planned(self, comm, collective, x, sched: "Schedule"):
         if collective != "all_reduce":
             return self._run(comm, collective, x, sched)
         if comm.process_group is not None:

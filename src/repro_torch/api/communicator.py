@@ -34,6 +34,7 @@ from repro_torch.comm.errors import ScheduleExecutionError
 from repro_torch.comm.exec_engine import _LruCache
 from repro_torch.core.schedules import Groups, Schedule
 from repro_torch.core.schedules import replicate_groups as subgroup_schedule  # noqa: F401 back-compat re-export
+from repro_torch.spans import span
 
 from .backends import Backend, get_backend
 
@@ -113,15 +114,16 @@ class Communicator:
         repeated collectives on a split communicator return one object
         (with its fingerprint already memoized) instead of recomposing.
         """
-        sched = self._schedule(collective, nbytes)
-        if self.groups is None:
-            return sched
-        key = (sched.fingerprint(), sched.buffer_bytes)
-        composed = self._axis_sched_cache.get(key)
-        if composed is None:
-            composed = subgroup_schedule(sched, self.groups, self.axis_size)
-            self._axis_sched_cache.put(key, composed)
-        return composed
+        with span("plan"):
+            sched = self._schedule(collective, nbytes)
+            if self.groups is None:
+                return sched
+            key = (sched.fingerprint(), sched.buffer_bytes)
+            composed = self._axis_sched_cache.get(key)
+            if composed is None:
+                composed = subgroup_schedule(sched, self.groups, self.axis_size)
+                self._axis_sched_cache.put(key, composed)
+            return composed
 
     def chosen_algorithm(self, collective: str, nbytes: float) -> str:
         return self._schedule(collective, nbytes).algorithm

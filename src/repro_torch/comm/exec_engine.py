@@ -58,6 +58,7 @@ round.
 from __future__ import annotations
 
 import contextlib
+import math
 import os
 import sys
 import threading
@@ -70,6 +71,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.schedules import Round, Schedule
+from repro_torch.spans import span
 
 from .errors import ScheduleExecutionError
 
@@ -221,28 +223,29 @@ def compile_schedule(schedule: Schedule) -> CompiledSchedule:
     and the variable is read only on that miss, so the disabled path costs
     nothing.
     """
-    fp = schedule.fingerprint()
-    cached = _COMPILED.get(fp)
-    if cached is not None:
-        return cached
-    if os.environ.get("PCCL_VERIFY", "0") not in ("", "0"):
-        from repro_torch.analysis.verify import assert_verified  # lazy: avoids a cycle
+    with span("plan"):
+        fp = schedule.fingerprint()
+        cached = _COMPILED.get(fp)
+        if cached is not None:
+            return cached
+        if os.environ.get("PCCL_VERIFY", "0") not in ("", "0"):
+            from repro_torch.analysis.verify import assert_verified  # lazy: avoids a cycle
 
-        assert_verified(schedule)
-    tables = [
-        round_tables(rnd, schedule.n, ctx=_ctx(schedule, i))
-        for i, rnd in enumerate(schedule.rounds)
-    ]
-    compiled = CompiledSchedule(
-        fingerprint=fp,
-        collective=schedule.collective,
-        algorithm=schedule.algorithm,
-        n=schedule.n,
-        num_rounds=schedule.num_rounds,
-        groups=_fold_groups(tables),
-    )
-    _COMPILED.put(fp, compiled)
-    return compiled
+            assert_verified(schedule)
+        tables = [
+            round_tables(rnd, schedule.n, ctx=_ctx(schedule, i))
+            for i, rnd in enumerate(schedule.rounds)
+        ]
+        compiled = CompiledSchedule(
+            fingerprint=fp,
+            collective=schedule.collective,
+            algorithm=schedule.algorithm,
+            n=schedule.n,
+            num_rounds=schedule.num_rounds,
+            groups=_fold_groups(tables),
+        )
+        _COMPILED.put(fp, compiled)
+        return compiled
 
 
 # ------------------------------------------------ compact (O(n)) all-to-all
@@ -277,19 +280,20 @@ def compile_all_to_all(
     dense path.  Memoized by ``(fingerprint, local_of)``; the sentinel for
     "checked, infeasible" is cached too so the simulation runs once.
     """
-    n_rows = schedule.n
-    if len(local_of) != n_rows:
-        raise ScheduleExecutionError(
-            f"local_of covers {len(local_of)} ranks, schedule has {n_rows}"
-        )
-    key = (schedule.fingerprint(), m, tuple(local_of))
-    cached = _COMPILED.get(key)
-    if cached is not None:
-        return None if cached is _INFEASIBLE else cached
+    with span("plan"):
+        n_rows = schedule.n
+        if len(local_of) != n_rows:
+            raise ScheduleExecutionError(
+                f"local_of covers {len(local_of)} ranks, schedule has {n_rows}"
+            )
+        key = (schedule.fingerprint(), m, tuple(local_of))
+        cached = _COMPILED.get(key)
+        if cached is not None:
+            return None if cached is _INFEASIBLE else cached
 
-    compiled = _compile_all_to_all(schedule, m, tuple(local_of))
-    _COMPILED.put(key, _INFEASIBLE if compiled is None else compiled)
-    return compiled
+        compiled = _compile_all_to_all(schedule, m, tuple(local_of))
+        _COMPILED.put(key, _INFEASIBLE if compiled is None else compiled)
+        return compiled
 
 
 def _compile_all_to_all(
@@ -406,15 +410,16 @@ def device_tables(compiled: CompiledSchedule, device: torch.device) -> DeviceTab
     The rank-stacked counterpart of the reference's per-communicator device
     table upload: a steady-state loop copies no index table to the device.
     """
-    key = (id(compiled), str(device))
-    hit = _DEVICE_TABLES.get(key)
-    # the entry pins its CompiledSchedule, so an id is never reused while
-    # its entry lives; the identity check guards against a stale entry
-    if hit is not None and hit[0] is compiled:
-        return hit[1]
-    tables = _upload(compiled, device)
-    _DEVICE_TABLES.put(key, (compiled, tables))
-    return tables
+    with span("plan"):
+        key = (id(compiled), str(device))
+        hit = _DEVICE_TABLES.get(key)
+        # the entry pins its CompiledSchedule, so an id is never reused while
+        # its entry lives; the identity check guards against a stale entry
+        if hit is not None and hit[0] is compiled:
+            return hit[1]
+        tables = _upload(compiled, device)
+        _DEVICE_TABLES.put(key, (compiled, tables))
+        return tables
 
 
 def apply_round(buf: torch.Tensor, rows: torch.Tensor, rnd: DeviceRound,
@@ -450,9 +455,16 @@ def execute_compiled(chunks: torch.Tensor, compiled: CompiledSchedule,
             f"buffer has {chunks.shape[0]} ranks, schedule spans {compiled.n}"
         )
     tables = device_tables(compiled, chunks.device)
-    for rnd in tables.rounds:
-        apply_round(chunks, tables.rows, rnd)
+    row = chunk_bytes(chunks)
+    for i, rnd in enumerate(tables.rounds):
+        with span("round", chunks, index=i, reduce=rnd.reduce, bytes=rnd.src_ids.numel() * row):
+            apply_round(chunks, tables.rows, rnd)
     return chunks
+
+
+def chunk_bytes(chunks: torch.Tensor) -> int:
+    """Bytes of one chunk of a rank-stacked ``(n, n_chunks, …)`` buffer."""
+    return math.prod(chunks.shape[2:]) * chunks.element_size()
 
 
 def execute_all_to_all_compact(

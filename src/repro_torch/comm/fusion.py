@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from repro_torch.comm.errors import ScheduleExecutionError
+from repro_torch.spans import span
 
 from . import exec_engine
 from .exec_engine import CompiledSchedule
@@ -111,16 +112,17 @@ def stream_program(compiled: CompiledSchedule) -> Optional[StreamProgram]:
     execution (no round observes an unset slot).  Memoized by schedule
     fingerprint, including the ``None`` verdict.
     """
-    fp = compiled.fingerprint
-    with _STREAM_LOCK:
-        if fp in _STREAM_PROGRAMS:
-            return _STREAM_PROGRAMS[fp]
-    prog = _stream_program(compiled)
-    with _STREAM_LOCK:
-        if len(_STREAM_PROGRAMS) >= _STREAM_MAX:
-            _STREAM_PROGRAMS.clear()
-        _STREAM_PROGRAMS[fp] = prog
-    return prog
+    with span("plan"):
+        fp = compiled.fingerprint
+        with _STREAM_LOCK:
+            if fp in _STREAM_PROGRAMS:
+                return _STREAM_PROGRAMS[fp]
+        prog = _stream_program(compiled)
+        with _STREAM_LOCK:
+            if len(_STREAM_PROGRAMS) >= _STREAM_MAX:
+                _STREAM_PROGRAMS.clear()
+            _STREAM_PROGRAMS[fp] = prog
+        return prog
 
 
 def _stream_program(compiled: CompiledSchedule) -> Optional[StreamProgram]:
@@ -209,29 +211,32 @@ def fused_matmul_reduce_scatter(
     N = w.shape[1]
     blocks = (block_m, block_n, block_k)
 
-    prog = None
-    if comm.groups is None and M % n == 0 and tiles_exactly(
-        M // n, K, N, block_m=block_m, block_n=block_n, block_k=block_k
-    ):
-        sched = comm.axis_schedule(
-            "reduce_scatter", float(M) * N * x.element_size()
-        )
-        prog = stream_program(exec_engine.compile_schedule(sched))
-    if prog is None:
-        return _unfused_matmul_reduce_scatter(comm, x, w, blocks=blocks)
+    # bytes: the product x @ w that the reduce-scatter reduces
+    with span("collective", op="mm_rs", n=n, bytes=x.numel() // K * N * x.element_size()) as sp:
+        prog = None
+        if comm.groups is None and M % n == 0 and tiles_exactly(
+            M // n, K, N, block_m=block_m, block_n=block_n, block_k=block_k
+        ):
+            sched = comm.axis_schedule(
+                "reduce_scatter", float(M) * N * x.element_size()
+            )
+            sp.set(algorithm=sched.algorithm)
+            prog = stream_program(exec_engine.compile_schedule(sched))
+        if prog is None:
+            return _unfused_matmul_reduce_scatter(comm, x, w, blocks=blocks)
 
-    if local:
-        out = _fused_mm_rs_local(prog, x, w, blocks, comm.process_group)
-    else:
-        out = _fused_mm_rs(prog, x, w, blocks)
-    Mc = M // n
-    # every round but the last runs with later tiles still pending
-    exec_engine.note_fused_dispatch(
-        chunks_streamed=n,
-        bytes_hidden=comm.axis_size * max(0, prog.rounds - 1) * Mc * N
-        * x.element_size(),
-    )
-    return out
+        if local:
+            out = _fused_mm_rs_local(prog, x, w, blocks, comm.process_group)
+        else:
+            out = _fused_mm_rs(prog, x, w, blocks)
+        Mc = M // n
+        # every round but the last runs with later tiles still pending
+        exec_engine.note_fused_dispatch(
+            chunks_streamed=n,
+            bytes_hidden=comm.axis_size * max(0, prog.rounds - 1) * Mc * N
+            * x.element_size(),
+        )
+        return out
 
 
 def _unfused_matmul_reduce_scatter(comm, x, w, *, blocks):
@@ -255,18 +260,19 @@ def _fused_mm_rs(prog: StreamProgram, x, w, blocks):
     N = w.shape[1]
     dev = x.device
     xc = x.reshape(S, n, Mc, K)
-    ranks = torch.arange(S, device=dev)
-    src_of = np.zeros(S, dtype=np.int64)
-    for src, dst in prog.perm:
-        src_of[dst] = src
 
     def dev_table(a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a.astype(np.int64), device=dev)
 
-    order = dev_table(prog.order)  # (S, n)
-    src_rows = dev_table(src_of)   # (S,)
-    send = dev_table(prog.send)    # (rounds, S)
-    recv = dev_table(prog.recv)
+    with span("plan"):
+        ranks = torch.arange(S, device=dev)
+        src_of = np.zeros(S, dtype=np.int64)
+        for src, dst in prog.perm:
+            src_of[dst] = src
+        order = dev_table(prog.order)  # (S, n)
+        src_rows = dev_table(src_of)   # (S,)
+        send = dev_table(prog.send)    # (rounds, S)
+        recv = dev_table(prog.recv)
 
     def tiles(s: int) -> torch.Tensor:
         """Every rank's tile ``order[r, s]`` in one kernel launch."""
@@ -274,12 +280,16 @@ def _fused_mm_rs(prog: StreamProgram, x, w, blocks):
         return matmul(rows, w, block_k=blocks[2]).reshape(S, Mc, N)
 
     buf = torch.empty((S, n, Mc, N), dtype=x.dtype, device=dev)
-    buf[ranks, order[:, 0]] = tiles(0)
+    row = S * exec_engine.chunk_bytes(buf)
+    with span("tile", x, step=0):
+        buf[ranks, order[:, 0]] = tiles(0)
     for s in range(1, n):
-        buf[ranks, order[:, s]] = tiles(s)  # tile order[:, s] is done …
+        with span("tile", x, step=s):
+            buf[ranks, order[:, s]] = tiles(s)  # tile order[:, s] is done …
         t = s - 1  # … so round t, which only touches stored tiles, runs now
-        got = buf[src_rows, send[t, src_rows]]
-        buf[ranks, recv[t]] = buf[ranks, recv[t]] + got
+        with span("round", x, index=t, reduce=True, bytes=row):
+            got = buf[src_rows, send[t, src_rows]]
+            buf[ranks, recv[t]] = buf[ranks, recv[t]] + got
     return buf[ranks, ranks]
 
 
@@ -345,20 +355,22 @@ def fused_all_reduce_rmsnorm(
             f"{tuple(x.shape)}"
         )
     local_size = math.prod(x.shape if group is not None else x.shape[1:])
-    if comm.groups is not None or local_size % comm.n:
-        exec_engine.note_fallback_dispatch()
-        return rmsnorm(comm.all_reduce(x), gamma, eps=eps)
+    with span("collective", op="ar_rmsnorm", n=comm.n, bytes=x.numel() * x.element_size()) as sp:
+        if comm.groups is not None or local_size % comm.n:
+            exec_engine.note_fallback_dispatch()
+            return rmsnorm(comm.all_reduce(x), gamma, eps=eps)
 
-    sched = comm.axis_schedule("all_reduce", float(local_size) * x.element_size())
-    if group is not None:
-        red = prims.all_reduce(x.reshape(-1), sched, group).reshape(x.shape)
-    else:
-        red = prims.all_reduce(x.reshape(x.shape[0], -1), sched).reshape(x.shape)
-    # in place: the normalization writes over the all-reduce's own buffer
-    out = rmsnorm(red, gamma, eps=eps, out=red)
-    # consumer-side fusion: no producer tiles streamed
-    exec_engine.note_fused_dispatch(chunks_streamed=0, bytes_hidden=0)
-    return out
+        sched = comm.axis_schedule("all_reduce", float(local_size) * x.element_size())
+        sp.set(algorithm=sched.algorithm)
+        if group is not None:
+            red = prims.all_reduce(x.reshape(-1), sched, group).reshape(x.shape)
+        else:
+            red = prims.all_reduce(x.reshape(x.shape[0], -1), sched).reshape(x.shape)
+        # in place: the normalization writes over the all-reduce's own buffer
+        out = rmsnorm(red, gamma, eps=eps, out=red)
+        # consumer-side fusion: no producer tiles streamed
+        exec_engine.note_fused_dispatch(chunks_streamed=0, bytes_hidden=0)
+        return out
 
 
 # -------------------------------------- wire-compressed (int8) execution
@@ -399,8 +411,11 @@ def execute_compiled_quantized(chunks: torch.Tensor, compiled: CompiledSchedule,
         return _dequantize(q, scale).to(chunks.dtype)
 
     tables = exec_engine.device_tables(compiled, chunks.device)
-    for rnd in tables.rounds:
-        exec_engine.apply_round(chunks, tables.rows, rnd, transform=wire)
+    row = exec_engine.chunk_bytes(chunks)
+    for i, rnd in enumerate(tables.rounds):
+        with span("round", chunks, index=i, reduce=rnd.reduce, bytes=rnd.src_ids.numel() * row,
+                  wire="int8"):
+            exec_engine.apply_round(chunks, tables.rows, rnd, transform=wire)
     return chunks
 
 

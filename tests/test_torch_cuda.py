@@ -1225,3 +1225,53 @@ def test_launch_writes_every_output_element_and_no_guard(dev, case):
     args, kwargs = materialize(torch, args, kwargs, dev, g)
     for name, r in probe_outputs(torch, fn, args, kwargs).items():
         assert r["unwritten"] == 0 and r["touched"] == 0, (label, name, r)
+
+
+# -- the program's spans: device events on the host's clock -----------------
+
+
+def test_spans_put_device_events_on_the_host_clock(dev):
+    """A span opened on an idle stream reads a lead near 0; one opened behind
+    a 20 ms sleep kernel reads the sleep as its lead."""
+    from repro_torch import spans
+
+    x = torch.zeros(1024, device=dev)
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    torch.cuda._sleep(10**7)
+    b.record()
+    b.synchronize()
+    cycles_per_ms = 10**7 / a.elapsed_time(b)
+    with spans.tracing():
+        torch.cuda.synchronize()
+        with spans.span("round", x):
+            x.add_(1)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(20 * cycles_per_ms))
+        with spans.span("round", x):
+            x.add_(1)
+    first, behind = spans.records()
+    lead_ms = [(s.device_start_ns - s.start_ns) / 1e6 for s in (first, behind)]
+    assert abs(lead_ms[0]) < 0.05, lead_ms
+    assert lead_ms[1] >= 15, lead_ms
+    assert all(s.device_end_ns >= s.device_start_ns for s in (first, behind))
+
+
+@pytest.mark.parametrize("workload, device_metrics", [
+    ("mistral123b-tp8.layer", {"round_GBps.coll", "lead_ms.mm_rs"}),
+    ("mistral123b-tp8.colls", {"round_GBps.coll"}),
+])
+def test_a_traced_cell_reads_the_spans_device_metrics(dev, workload, device_metrics):
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    out = subprocess.run([sys.executable, "pcclbench/run.py", "--workload", workload,
+                          "--seed", str(2**31 + 7), "--seconds", "1", "--trace", "1"],
+                         cwd=Path(__file__).resolve().parents[1], capture_output=True,
+                         text=True, timeout=900)
+    assert out.returncode == 0, out.stderr[-3000:]
+    r = json.loads(out.stdout.strip().splitlines()[-1])
+    assert r["correct"] is True
+    assert device_metrics | {"plan_us.coll", "enqueue_us.round"} <= set(r["metrics"]), r["metrics"]

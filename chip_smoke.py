@@ -21,6 +21,9 @@ and then drives the port's main paths:
        PcclSession(H100_DGX) → communicator("x", 8) → planned all_reduce,
        reduce_scatter, all_gather and all_to_all, ring_ef8 all_reduce,
        fused matmul → reduce-scatter (K1), fused all-reduce → RMSNorm (K2);
+       every round of the engine on the round kernel, whose launches are
+       counted by route, and the all-reduce's rounds held bit for bit
+       against the index path and timed at the layer's shape;
 
 2. serving Zamba2-2.7B at its published widths and depth (54 Mamba-2
    layers, 9 shared-attention calls, random weights from seed 0):
@@ -937,6 +940,78 @@ def check_main_path(torch, r) -> None:
     unfused = rmsnorm(comm.all_reduce(x), r["gamma"], eps=EPS)
     check(torch.equal(out, unfused), "fused AR+RMSNorm differs from all_reduce → K2")
     log("  fused all-reduce→RMSNorm [bfloat16] vs all_reduce → K2: bit-identical")
+
+
+def round_phase(torch, r, path1_rounds: dict) -> dict:
+    """The round kernel on path 1.  Its launches on path 1's own run
+    (``path1_rounds``, by route) against what the same calls run again
+    under the program's spans say: a launch a round in place, two a staged
+    round, a copy for the reduce-scatter's and the all-gather's diagonal
+    and the compact all-to-all's final gather.  Then each round of the
+    AR+RMSNorm's all-reduce at the layer's shape, on the kernel and as the
+    index path (``round_reference``), bit for bit, and timed: a reduce
+    round and a store round against their bytes bound (3C and 2C for C
+    bytes gathered).  No library has a kernel for a round."""
+    from repro_torch import spans
+    from repro_torch.comm import exec_engine as E
+    from repro_torch.comm import fusion
+    from repro_torch.kernels.rounds import round_reference, stacked_round
+
+    x, comm = r["x"], r["comm"]
+    nbytes = float(TOKENS * D_MODEL * x.element_size())
+    torch.cuda.synchronize()
+    with spans.tracing():
+        comm.all_reduce(x)
+        shard = comm.reduce_scatter(x)
+        comm.all_gather(shard)
+        comm.all_to_all(x)
+        fusion.fused_all_reduce_rmsnorm(comm, x, r["gamma"], eps=EPS)
+        torch.cuda.synchronize()
+    routes = [s.attrs["route"] for s in spans.records() if s.name == "round"]
+    a2a = comm.axis_schedule("all_to_all", nbytes)
+    compact = E.compile_all_to_all(a2a, TP, tuple(range(TP))) is not None
+    want = {"inplace": routes.count("inplace"), "staged": 2 * routes.count("staged"),
+            "copy": 2 + int(compact)}
+    log(f"  round kernel on path 1: launches by route {path1_rounds}; the same calls under the "
+        f"spans: rounds by route {dict((k, routes.count(k)) for k in sorted(set(routes)))}, "
+        f"so {want} launches (all_to_all {a2a.algorithm}, compact {compact})")
+    check("torch" not in routes, "a round of path 1's engine calls took torch's indexing")
+    check(path1_rounds == want, f"path 1 launched the round kernel {path1_rounds}, not {want}")
+
+    sched = comm.axis_schedule("all_reduce", nbytes)
+    compiled = E.compile_schedule(sched)
+    tables = E.device_tables(compiled, x.device)
+    buf = x.reshape(TP, TP, -1).clone()
+    shape = list(buf.shape)
+    row = E.chunk_bytes(buf)
+    timed = {}
+    for i, rnd in enumerate(tables.rounds):
+        want_buf = buf.clone()
+        round_reference(want_buf, tables.rows, rnd)
+        route = stacked_round(buf, tables.rows, rnd)
+        check(route == ("staged" if rnd.staged else "inplace"), f"round {i} took {route}")
+        check(torch.equal(buf.view(torch.int16), want_buf.view(torch.int16)),
+              f"round {i} ({'reduce' if rnd.reduce else 'store'}) differs from round_reference")
+        del want_buf
+        mode = "reduce" if rnd.reduce else "store"
+        if mode in timed:
+            continue
+        scratch, plain = buf.clone(), buf.clone()
+        ms = time_ms(torch, lambda: stacked_round(scratch, tables.rows, rnd), 10)
+        plain_ms = time_ms(torch, lambda: round_reference(plain, tables.rows, rnd), 5)
+        gathered = rnd.src_ids.numel() * row
+        bound_ms = (3 if rnd.reduce else 2) * gathered / PEAK_BYTES_PER_S * 1e3
+        timed[mode] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by="bytes", library_ms=None, shape=shape,
+                           gathered_bytes=gathered, round=i)
+        log(f"  round[bfloat16] {mode} round {i} of {sched.algorithm} all_reduce, {shape}, "
+            f"{gathered / 1e6:.1f} MB gathered: kernel {ms:.3f} ms, index path {plain_ms:.3f} ms, "
+            f"bound {bound_ms:.3f} ms (bytes), {100 * bound_ms / ms:.1f} % of it")
+        del scratch, plain
+    log(f"  round[bfloat16] every round of the {sched.algorithm} all_reduce "
+        f"({compiled.num_rounds}) bit for bit round_reference's")
+    check(set(timed) == {"reduce", "store"}, f"the all_reduce had no {'reduce' if 'reduce' not in timed else 'store'} round")
+    return {"algorithm": sched.algorithm, "rounds": compiled.num_rounds, **timed}
 
 
 def warm_timings(torch, r) -> None:
@@ -2498,7 +2573,7 @@ def verified_path(torch, gen, device, reset_counts, read_counts) -> dict:
           "main path 10 never launched K1 or K2")
     gates = kernel_gate_counts()
     log(f"  kernel lint gate (misses = analyses, hits = memo) under PCCL_VERIFY=1: {gates}")
-    for kernel in ("matmul", "rmsnorm"):
+    for kernel in ("matmul", "rmsnorm", "round"):
         gated = sum(g["misses"] + g["hits"] for label, g in gates.items()
                     if label.startswith(kernel + ":"))
         check(gated == counts[kernel], f"{kernel}: {counts[kernel]} launches but {gated} passed "
@@ -3523,6 +3598,7 @@ def main() -> int:
     results = main_path(torch, gen, torch.device("cuda"))
     path1 = read_counts()
     routes1 = LAUNCHES.by_route("matmul")
+    rounds1 = LAUNCHES.by_route("round")
     log(f"  phase main path 1: {time.perf_counter() - t:.3f} s; kernel launches {path1}")
     check(path1["matmul"] > 0, "main path 1 never launched K1")
     check(path1["rmsnorm"] > 0, "main path 1 never launched K2")
@@ -3532,6 +3608,12 @@ def main() -> int:
     t = time.perf_counter()
     check_main_path(torch, results)
     log(f"  phase checks: {time.perf_counter() - t:.3f} s")
+    log("== the round kernel on path 1: its launches, and each round of the all-reduce at the "
+        "layer's shape against round_reference")
+    t = time.perf_counter()
+    round_stats = round_phase(torch, results, rounds1)
+    torch.cuda.empty_cache()
+    log(f"  phase round kernel: {time.perf_counter() - t:.3f} s")
     log("== warm timings of the main path")
     t = time.perf_counter()
     warm_timings(torch, results)
@@ -3793,6 +3875,18 @@ def main() -> int:
                                          "zamba2_mesh": path11["ssd"]}
             entry["at_train"] = kernels["bfloat16"]["ssd_train"]
         record["kernels"].append(entry)
+    # the round kernel replaces no TPU kernel: the JAX package leaves a round to XLA
+    record["kernels"].append({
+        "name": "round", "route": "cuda", "source": "src/repro_torch/kernels/rounds/csrc/rounds.cu",
+        "replaces": None, "launches": path1["round"] + path10["round"],
+        "launches_by_route": rounds1,
+        "launches_by_path": {"collectives": path1["round"], "dp_training": path8["round"],
+                             "verified": path10["round"]},
+        **{k: round_stats["reduce"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                 "bound_by", "library_ms", "shape")},
+        "dtype": "bfloat16", "algorithm": round_stats["algorithm"],
+        "store_round": round_stats["store"],
+    })
     print(smi)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

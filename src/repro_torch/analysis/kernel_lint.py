@@ -1008,13 +1008,20 @@ def shipped_kernel_cases() -> List[Case]:
     kernel, at shapes that reach its edges: ragged tiles, a raster group
     shorter than ``GROUP_M``, head dims that are not powers of two, GQA,
     causal and not, a ragged last chunk, P-tiles and N-slices (fewer
-    N-slices than ring stages), and the recurrence's flat range crossing
-    from one (b, h) to the next."""
+    N-slices than ring stages), the recurrence's flat range crossing
+    from one (b, h) to the next, and the round kernel's row moves in
+    16-byte units with a ragged tile and one element a thread, by identity
+    tables, by the sending rank's and slot's tables and by a receive-slot
+    table.  The round kernel's cases are copies and stores: the card's NaN
+    probe cannot read a reduce, which keeps the NaN it adds to.  The probe
+    makes each table a permutation of its row's entries, so the tables
+    stay in range and a receive-slot table writes every slot once."""
     import torch
 
     from repro_torch.kernels.flash.kernel import flash_attention_cuda
     from repro_torch.kernels.matmul.kernel import matmul_cuda
     from repro_torch.kernels.rmsnorm.kernel import rmsnorm_triton
+    from repro_torch.kernels.rounds.kernel import stacked_round_cuda
     from repro_torch.kernels.ssd.kernel import ssd_cuda
 
     bf16, f32 = torch.bfloat16, torch.float32
@@ -1074,6 +1081,18 @@ def shipped_kernel_cases() -> List[Case]:
          {"chunk": 128, "initial_state": m(1, 3, 128, 72)}),
         ("ssd fma P=300 per head: two column tiles a head", ssd_cuda,
          (m(1, 100, 2, 300), m(1, 100, 2), m(1, 100, 2, 70), m(1, 100, 2, 70)), {"chunk": 48}),
+        # rows of 16-byte units: 1500 units, a whole tile of 1024 and a ragged one
+        ("round copy bf16 16-byte units, ragged last tile", stacked_round_cuda,
+         (m(2, 8, 12000, dtype=bf16), None, None, None, 2, 8), {}),
+        ("round copy bf16 rows of 3 elements, one element a thread", stacked_round_cuda,
+         (m(8, 4, 3, dtype=bf16), None, None, None, 8, 4), {}),
+        # a staged round's gather: the sending rank's and slot's tables
+        ("round gather fp16 rows of 13 elements by rank and slot tables", stacked_round_cuda,
+         (m(8, 3, 13, dtype=torch.float16), m(8, dtype=torch.int64), m(8, 3, dtype=torch.int64),
+          None, 8, 3), {}),
+        # a staged round's store: the receive slots' table, 16-byte units, a ragged tile
+        ("round store fp32 rows by a receive-slot table", stacked_round_cuda,
+         (m(8, 2, 2052), None, None, m(8, 2, dtype=torch.int64), 8, 2), {}),
     ]
     return cases
 
@@ -1084,18 +1103,24 @@ def main_path_cases() -> List[Case]:
     all-reduced activation, K3 at Zamba2's, OLMoE's and Whisper's prefill
     and Whisper's train microbatch (and on its fp32 route at Zamba2's and
     OLMoE's, the parity prefills), K4 at Zamba2's prefill and the mLSTM's
-    (and on its fp32 route at Zamba2's widths, batch 1)."""
+    (and on its fp32 route at Zamba2's widths, batch 1), and the round
+    kernel at the layer cell's all-reduce rounds and the bucket mix's staged
+    all-to-all round."""
     import torch
 
     from repro_torch.kernels.flash.kernel import flash_attention_cuda
     from repro_torch.kernels.matmul.kernel import matmul_cuda
     from repro_torch.kernels.rmsnorm.kernel import rmsnorm_triton
+    from repro_torch.kernels.rounds.kernel import stacked_round_cuda
     from repro_torch.kernels.ssd.kernel import ssd_cuda
 
     bf16, f32 = torch.bfloat16, torch.float32
 
     def m(*shape, dtype=bf16):
         return _meta(torch, shape, dtype)
+
+    def i64(*shape):
+        return m(*shape, dtype=torch.int64)
 
     def attention(B, S, H, K, D, dtype=bf16):
         return (m(B, S, H, D, dtype=dtype), m(B, S, K, D, dtype=dtype), m(B, S, K, D, dtype=dtype))
@@ -1130,6 +1155,24 @@ def main_path_cases() -> List[Case]:
         ("main ssd Zamba2 X (1, 4096, 80, 64) fp32", ssd_cuda,
          (m(1, 4096, 80, 64, dtype=f32), m(1, 4096, 80, dtype=f32), m(1, 4096, 64, dtype=f32),
           m(1, 4096, 64, dtype=f32)), {"chunk": 64, "initial_state": m(1, 80, 64, 64, dtype=f32)}),
+        # the layer cell's all-reduce of (8, 4096, 12288): 8 chunks a rank of 6,291,456
+        # elements, bucket2d's reduce round of 4 chunks a rank and a store round of one
+        ("main round reduce bf16 (8 x 4 pairs of 6291456)", stacked_round_cuda,
+         (m(8, 8, 6291456), i64(8), i64(8, 4), i64(8, 4), 8, 4),
+         {"out": m(8, 8, 6291456), "reduce": True}),
+        ("main round store bf16 (8 x 1 pairs of 6291456)", stacked_round_cuda,
+         (m(8, 8, 6291456), i64(8), i64(8, 1), i64(8, 1), 8, 1),
+         {"out": m(8, 8, 6291456), "reduce": False}),
+        # the bucket mix's 16 MiB all-to-all (dex, staged): the gather into scratch, the store
+        ("main round staged gather bf16 (8 x 4 pairs of 1048576)", stacked_round_cuda,
+         (m(8, 8, 1048576), i64(8), i64(8, 4), None, 8, 4),
+         {"out": m(8, 4, 1048576), "reduce": False}),
+        ("main round staged store bf16 (8 x 4 pairs of 1048576)", stacked_round_cuda,
+         (m(8, 4, 1048576), None, None, i64(8, 4), 8, 4),
+         {"out": m(8, 8, 1048576), "reduce": False}),
+        ("main round reduce fp32 (8 x 1 pairs of 131072)", stacked_round_cuda,
+         (m(8, 8, 131072, dtype=f32), i64(8), i64(8, 1), i64(8, 1), 8, 1),
+         {"out": m(8, 8, 131072, dtype=f32), "reduce": True}),
     ]
 
 

@@ -23,9 +23,9 @@ module gives each launch a pure-Python mirror, with no device execution:
   the reference's semantics (the tests hold the copied checks to it);
 * :func:`capture_call_sites` maps a kernel wrapper of the port
   (``matmul_cuda``, ``rmsnorm_triton``, ``flash_attention_cuda``,
-  ``ssd_cuda``) to the call sites its launch model builds (each kernel
-  package's ``launch.py``), reading only shapes, dtypes and statics, so
-  CPU and meta tensors serve.
+  ``ssd_cuda``, ``stacked_round_cuda``) to the call sites its launch model
+  builds (each kernel package's ``launch.py``), reading only shapes,
+  dtypes and statics, so CPU and meta tensors serve.
 
 The launch models are tied to the real launchers twice: their tile
 constants are read from the ``.cu`` sources (:func:`source_constants`,
@@ -335,6 +335,7 @@ LAUNCH_MODELS = {
     "repro_torch.kernels.rmsnorm.kernel.rmsnorm_triton": "repro_torch.kernels.rmsnorm.launch",
     "repro_torch.kernels.flash.kernel.flash_attention_cuda": "repro_torch.kernels.flash.launch",
     "repro_torch.kernels.ssd.kernel.ssd_cuda": "repro_torch.kernels.ssd.launch",
+    "repro_torch.kernels.rounds.kernel.stacked_round_cuda": "repro_torch.kernels.rounds.launch",
 }
 
 

@@ -57,14 +57,18 @@ def geometry_mismatches(
 
 
 def materialize(torch, args, kwargs, device, generator):
-    """Tensors on ``device`` in place of (meta) tensors: uniform in
-    (-0.5, 0], so every kernel's output is finite (K4's log decays are
-    negative)."""
+    """Tensors on ``device`` in place of (meta) tensors: floating ones
+    uniform in (-0.5, 0], so every kernel's output is finite (K4's log
+    decays are negative); integer ones, the round kernel's index tables, a
+    random permutation along their last dim, so a table of ``k`` entries a
+    row addresses only slots below ``k`` and writes each of them once."""
     def real(a):
-        if isinstance(a, torch.Tensor):
-            return -0.5 * torch.rand(tuple(a.shape), generator=generator,
-                                     device=device).to(a.dtype)
-        return a
+        if not isinstance(a, torch.Tensor):
+            return a
+        noise = torch.rand(tuple(a.shape), generator=generator, device=device)
+        if a.dtype.is_floating_point:
+            return -0.5 * noise.to(a.dtype)
+        return noise.argsort(dim=-1).to(a.dtype)
 
     return tuple(real(a) for a in args), {k: real(v) for k, v in kwargs.items()}
 

@@ -204,11 +204,13 @@ def _grouped_collective(comm: "Communicator", collective: str, x, sched):
     if collective in ("reduce_scatter", "all_reduce", "all_to_all"):
         _check_divisible(comm, x, m)
     if collective == "reduce_scatter":
-        chunks = x.reshape((S, m, x.shape[1] // m) + rest).clone()
+        chunks = x.reshape((S, m, x.shape[1] // m) + rest).clone(
+            memory_format=torch.contiguous_format)
         chunks = execute_schedule(chunks, sched)
         return chunks[ranks, me_local]
     if collective == "all_reduce":
-        chunks = x.reshape((S, m, x.shape[1] // m) + rest).clone()
+        chunks = x.reshape((S, m, x.shape[1] // m) + rest).clone(
+            memory_format=torch.contiguous_format)
         if sched.algorithm == "ring_ef8":
             from repro_torch.comm.fusion import execute_compiled_quantized
 
@@ -222,7 +224,8 @@ def _grouped_collective(comm: "Communicator", collective: str, x, sched):
         chunks = execute_schedule(chunks, sched)
         return chunks.reshape((S, m * x.shape[1]) + rest)
     if collective == "all_to_all":
-        blocks = x.reshape((S, m, x.shape[1] // m) + rest).clone()
+        blocks = x.reshape((S, m, x.shape[1] // m) + rest).clone(
+            memory_format=torch.contiguous_format)
         local_of = tuple(int(v) for v in comm.local_index_table())
         compact = compile_all_to_all(sched, m, local_of)
         if compact is not None:

@@ -19,12 +19,25 @@ and each round is
   index, since ``got[dst] = payload[src]``), then
 * a gather–add–scatter (reduce) or a scatter (store) into ``recv_ids``.
 
-Advanced-index gathers and ``index_put_`` without accumulation are used
-instead of ``index_add_`` (atomics on CUDA): with distinct ``recv_ids`` per
-rank every receiver sees the same adds in the same order as the reference,
-so fp32 results are bit-identical to it.  A :class:`RoundGroup` is a Python
-loop over its rounds; the per-round index tensors are uploaded to the
-device once per ``(CompiledSchedule, device)`` and cached.
+On a CUDA buffer, which must be contiguous, a round is one hand-written
+CUDA pass (:mod:`repro_torch.kernels.rounds`): a block takes one
+(receiver, slot) pair and a tile of the chunk, reads the sending rank's
+row and, for a reduce, the receiver's slot, and writes the slot once, with
+no atomics.  Each receive slot is written by one pair (``recv_ids`` are
+distinct per rank), and a reduce adds each element once in fp32 and rounds
+once, as torch's ``a + b`` does, so results are bit-identical to the
+reference.  The pass is in place only where no rank's send slots and
+receive slots meet within the round; compiling marks every other round
+*staged* (:attr:`RoundGroup.staged`), and a staged round gathers its
+payload rows into a scratch buffer first, then adds or stores from it.  The
+compact all-to-all's final gather and the reduce-scatter's and
+all-gather's diagonal copies are row copies of the same kernel.  A CPU
+buffer, and the ``ring_ef8`` wire (whose ``transform`` rewrites the
+payload), run the rounds as PyTorch's advanced-index gathers and
+``index_put_``, the plain version.  A :class:`RoundGroup` is a Python loop
+over its rounds; the per-round index tables, which the kernel reads as
+they are, are uploaded to the device once per ``(CompiledSchedule,
+device)`` and cached, so no round uploads anything.
 
 **One process per rank.**  Given a ``torch.distributed`` process group,
 :func:`execute_compiled` runs the same tables on the rank's *local*
@@ -71,6 +84,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.schedules import Round, Schedule
+from repro_torch.kernels.rounds.ops import on_card, put_rows, stacked_round, take_rows
 from repro_torch.spans import span
 
 from .errors import ScheduleExecutionError
@@ -88,7 +102,9 @@ __all__ = [
     "execute_compiled",
     "note_fallback_dispatch",
     "note_fused_dispatch",
+    "put_diagonal",
     "round_tables",
+    "take_diagonal",
     "transport_route",
 ]
 
@@ -149,12 +165,18 @@ def _ctx(schedule: Schedule, i: int) -> str:
 
 @dataclass(frozen=True)
 class RoundGroup:
-    """Consecutive rounds sharing ``(perm, reduce, k)``, tables stacked."""
+    """Consecutive rounds sharing ``(perm, reduce, k)``, tables stacked.
+
+    ``staged[i]`` is True where some rank's send slots and receive slots
+    meet in round ``i``: a single pass in place could then overwrite a row
+    before it is read, so the round goes through a scratch buffer.
+    """
 
     perm: Tuple[Tuple[int, int], ...]
     reduce: bool
     send_ids: np.ndarray  # (rounds, n, k) int32, read-only
     recv_ids: np.ndarray  # (rounds, n, k) int32, read-only
+    staged: np.ndarray    # (rounds,) bool, read-only
 
     @property
     def rounds(self) -> int:
@@ -184,6 +206,13 @@ def _freeze(a: np.ndarray) -> np.ndarray:
     return a
 
 
+def _is_staged(send_ids: np.ndarray, recv_ids: np.ndarray) -> bool:
+    """Whether a round's ``(n, k)`` tables make some rank send from a slot it
+    also receives into: the round must then read every payload before it
+    writes any slot."""
+    return bool((send_ids[:, :, None] == recv_ids[:, None, :]).any())
+
+
 def _fold_groups(
     tables: List[Tuple[List[Tuple[int, int]], np.ndarray, np.ndarray, bool]]
 ) -> Tuple[RoundGroup, ...]:
@@ -204,6 +233,7 @@ def _fold_groups(
                 reduce=reduce,
                 send_ids=_freeze(np.stack([t[1] for t in tables[i:j]])),
                 recv_ids=_freeze(np.stack([t[2] for t in tables[i:j]])),
+                staged=_freeze(np.array([_is_staged(t[1], t[2]) for t in tables[i:j]])),
             )
         )
         i = j
@@ -363,9 +393,11 @@ class DeviceRound:
     ``src_rows[d]`` is the rank that sends to rank ``d`` and ``src_ids[d]``
     the chunk ids it sends, so ``buf[src_rows, src_ids]`` is the permuted
     payload every receiver gets; ``recv_ids[d]`` are its receive slots.
+    The round kernel reads the same tables.
     """
 
     reduce: bool
+    staged: bool
     src_rows: torch.Tensor  # (n, 1) int64
     src_ids: torch.Tensor   # (n, k) int64
     recv_ids: torch.Tensor  # (n, k) int64
@@ -393,6 +425,7 @@ def _upload(compiled: CompiledSchedule, device: torch.device) -> DeviceTables:
             rounds.append(
                 DeviceRound(
                     reduce=grp.reduce,
+                    staged=bool(grp.staged[i]),
                     src_rows=dev(src_of[:, None]),
                     src_ids=dev(grp.send_ids[i][src_of]),
                     recv_ids=dev(grp.recv_ids[i]),
@@ -423,19 +456,17 @@ def device_tables(compiled: CompiledSchedule, device: torch.device) -> DeviceTab
 
 
 def apply_round(buf: torch.Tensor, rows: torch.Tensor, rnd: DeviceRound,
-                transform=None) -> None:
-    """Run one round on the rank-stacked ``(n, n_chunks, …)`` buffer, in place.
+                transform=None) -> str:
+    """Run one round on the rank-stacked ``(n, n_chunks, …)`` buffer, in place,
+    and return its route: ``inplace`` or ``staged`` on the round kernel (a
+    CUDA buffer, no ``transform``), ``torch`` on PyTorch's indexing
+    (:func:`repro_torch.kernels.rounds.stacked_round`).
 
     ``transform`` (``None`` or a function of the payload) models the wire,
     e.g. int8 quantization; it sees the sending ranks' payloads in receiver
     order.
     """
-    got = buf[rnd.src_rows, rnd.src_ids]  # (n, k, …): gather + permutation
-    if transform is not None:
-        got = transform(got)
-    if rnd.reduce:
-        got = buf[rows, rnd.recv_ids] + got
-    buf[rows, rnd.recv_ids] = got
+    return stacked_round(buf, rows, rnd, transform)
 
 
 def execute_compiled(chunks: torch.Tensor, compiled: CompiledSchedule,
@@ -454,12 +485,33 @@ def execute_compiled(chunks: torch.Tensor, compiled: CompiledSchedule,
         raise ScheduleExecutionError(
             f"buffer has {chunks.shape[0]} ranks, schedule spans {compiled.n}"
         )
+    if on_card(chunks) and not chunks.is_contiguous():
+        raise ScheduleExecutionError(
+            f"a CUDA buffer must be contiguous, got {tuple(chunks.shape)} of strides "
+            f"{chunks.stride()}: clone it with memory_format=torch.contiguous_format"
+        )
     tables = device_tables(compiled, chunks.device)
     row = chunk_bytes(chunks)
     for i, rnd in enumerate(tables.rounds):
-        with span("round", chunks, index=i, reduce=rnd.reduce, bytes=rnd.src_ids.numel() * row):
-            apply_round(chunks, tables.rows, rnd)
+        with span("round", chunks, index=i, reduce=rnd.reduce,
+                  bytes=rnd.src_ids.numel() * row) as sp:
+            sp.set(route=apply_round(chunks, tables.rows, rnd))
     return chunks
+
+
+def take_diagonal(chunks: torch.Tensor, compiled: CompiledSchedule) -> torch.Tensor:
+    """``chunks[r, r]`` of every rank ``r`` of a rank-stacked ``(n, n_chunks,
+    …)`` buffer, as a new ``(n, …)`` tensor (a row copy of the round kernel
+    on the card)."""
+    rows = device_tables(compiled, chunks.device).rows
+    return take_rows(chunks, rows)[:, 0]
+
+
+def put_diagonal(chunks: torch.Tensor, compiled: CompiledSchedule, x: torch.Tensor) -> None:
+    """``chunks[r, r] = x[r]`` for every rank ``r``, in place (a row copy of
+    the round kernel on the card)."""
+    rows = device_tables(compiled, chunks.device).rows
+    put_rows(chunks, rows, x.unsqueeze(1))
 
 
 def chunk_bytes(chunks: torch.Tensor) -> int:
@@ -482,8 +534,7 @@ def execute_all_to_all_compact(
     if group is not None:
         me = group_rank(group)
         return out[rank_tables(compiled, blocks.device, me).final_slots]
-    tables = device_tables(compiled, blocks.device)
-    return out[tables.rows, tables.final_slots]
+    return take_rows(out, device_tables(compiled, blocks.device).final_slots)
 
 
 def expected_eager_result_shape(

@@ -287,7 +287,7 @@ def _fused_mm_rs(prog: StreamProgram, x, w, blocks):
         with span("tile", x, step=s):
             buf[ranks, order[:, s]] = tiles(s)  # tile order[:, s] is done …
         t = s - 1  # … so round t, which only touches stored tiles, runs now
-        with span("round", x, index=t, reduce=True, bytes=row):
+        with span("round", x, index=t, reduce=True, bytes=row, route="torch"):
             got = buf[src_rows, send[t, src_rows]]
             buf[ranks, recv[t]] = buf[ranks, recv[t]] + got
     return buf[ranks, ranks]
@@ -414,8 +414,8 @@ def execute_compiled_quantized(chunks: torch.Tensor, compiled: CompiledSchedule,
     row = exec_engine.chunk_bytes(chunks)
     for i, rnd in enumerate(tables.rounds):
         with span("round", chunks, index=i, reduce=rnd.reduce, bytes=rnd.src_ids.numel() * row,
-                  wire="int8"):
-            exec_engine.apply_round(chunks, tables.rows, rnd, transform=wire)
+                  wire="int8") as sp:
+            sp.set(route=exec_engine.apply_round(chunks, tables.rows, rnd, transform=wire))
     return chunks
 
 

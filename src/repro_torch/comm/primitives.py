@@ -44,7 +44,9 @@ from .exec_engine import (
     execute_compiled,
     group_rank,
     partners,
+    put_diagonal,
     round_tables,
+    take_diagonal,
 )
 
 Group = Optional[dist.ProcessGroup]
@@ -132,6 +134,11 @@ def split_local(x: torch.Tensor, n: int) -> torch.Tensor:
     return x.reshape((n, x.shape[0] // n) + tuple(x.shape[1:]))
 
 
+def _own(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``x``, the buffer the engine updates in place."""
+    return x.clone(memory_format=torch.contiguous_format)
+
+
 def _ranks(x: torch.Tensor) -> torch.Tensor:
     return torch.arange(x.shape[0], device=x.device)
 
@@ -143,9 +150,10 @@ def reduce_scatter(x: torch.Tensor, schedule: Schedule, group: Group = None) -> 
     if group is not None:
         chunks = execute_schedule(split_local(x, schedule.n).clone(), schedule, group)
         return chunks[group_rank(group)]
-    # the engine updates its buffer in place: give it a copy, not x
-    chunks = execute_schedule(_split_chunks(x, schedule.n).clone(), schedule)
-    return chunks[_ranks(x), _ranks(x)]
+    # the engine updates its buffer in place: give it a contiguous copy, not x
+    compiled = compile_schedule(schedule)
+    chunks = execute_compiled(_own(_split_chunks(x, schedule.n)), compiled)
+    return take_diagonal(chunks, compiled)
 
 
 def all_gather(x: torch.Tensor, schedule: Schedule, group: Group = None) -> torch.Tensor:
@@ -157,9 +165,10 @@ def all_gather(x: torch.Tensor, schedule: Schedule, group: Group = None) -> torc
         chunks[group_rank(group)] = x
         chunks = execute_schedule(chunks, schedule, group)
         return chunks.reshape((n * x.shape[0],) + tuple(x.shape[1:]))
+    compiled = compile_schedule(schedule)
     chunks = x.new_zeros((x.shape[0], n) + tuple(x.shape[1:]))
-    chunks[_ranks(x), _ranks(x)] = x
-    chunks = execute_schedule(chunks, schedule)
+    put_diagonal(chunks, compiled, x)
+    chunks = execute_compiled(chunks, compiled)
     return chunks.reshape((x.shape[0], n * x.shape[1]) + tuple(x.shape[2:]))
 
 
@@ -171,7 +180,7 @@ def all_reduce(x: torch.Tensor, schedule: Schedule, group: Group = None) -> torc
     if group is not None:
         chunks = execute_schedule(split_local(x, schedule.n).clone(), schedule, group)
         return chunks.reshape(x.shape)
-    chunks = execute_schedule(_split_chunks(x, schedule.n).clone(), schedule)
+    chunks = execute_schedule(_own(_split_chunks(x, schedule.n)), schedule)
     return chunks.reshape(x.shape)
 
 
@@ -187,7 +196,7 @@ def all_to_all(x: torch.Tensor, schedule: Schedule, group: Group = None) -> torc
     if group is not None:
         blocks = split_local(x, n).clone()  # (n, blk, …) dest-major
         return execute_all_to_all_compact(blocks, compact, group).reshape(x.shape)
-    blocks = _split_chunks(x, n).clone()  # (S, n, blk, …) dest-major
+    blocks = _own(_split_chunks(x, n))  # (S, n, blk, …) dest-major
     return execute_all_to_all_compact(blocks, compact).reshape(x.shape)
 
 

@@ -1,4 +1,5 @@
-"""Hand-written Hopper kernels of the port, one package per TPU kernel.
+"""Hand-written Hopper kernels of the port: one package per TPU kernel, and
+the collective engine's round kernel.
 
 Each package keeps the reference's ``kernel / ops / ref`` split: ``kernel``
 wraps the CUDA C++ or Triton kernel and counts its launches, ``ref`` is the
@@ -16,6 +17,10 @@ CPU tensor to the plain version.
   P = N = chunk = 64 on the tensor cores (``ssd/csrc/ssd_sm90.cu``), the
   rest on the CUDA cores (``ssd/csrc/ssd.cu``); the recurrence pass both
   share is in ``ssd/csrc/ssd_common.cuh``.
+
+* ``rounds``  — no TPU kernel: one rank-stacked round of the collective
+  engine (gather, permute, add or store) in one pass, CUDA C++
+  (``rounds/csrc/rounds.cu``), in place of PyTorch's advanced indexing.
 
 ``csrc/sm90.cuh`` holds the Hopper building blocks (TMA, mbarriers, wgmma
 descriptors, tensor maps) the three tensor-core kernels share.

@@ -168,10 +168,12 @@ class LaunchCounts:
 
 # K1 and K3 have a tensor-core and a CUDA-core route, K4 two tensor-core
 # routes (P = N = 64, and P-tiles with N-slices) and a CUDA-core one; K2 is
-# one Triton kernel
+# one Triton kernel; the round kernel counts a launch by the mode of what it
+# runs: a round in place, each launch of a staged round, a row copy
 LAUNCHES = LaunchCounts({
     "matmul": ("wgmma", "fma"),
     "rmsnorm": ("triton",),
     "flash": ("wgmma", "fma"),
     "ssd": ("wgmma", "wgmma_tiled", "fma"),
+    "round": ("inplace", "staged", "copy"),
 })

@@ -17,6 +17,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from repro.comm import exec_engine
 from repro.comm.errors import ScheduleExecutionError
@@ -378,6 +379,281 @@ def test_session_exec_stats_surface():
     assert stats.executable_hits == 0 and stats.traces == 0
     exec_engine.compile_schedule(S.ring_all_gather(4, 64.0))
     assert s.exec_stats().compiled_misses == 1
+
+
+# ------------------------------------- the port: the round kernel's tables
+
+# The port's engine (repro_torch) runs a rank-stacked round on a contiguous
+# CUDA buffer as one pass of its round kernel, or two through a scratch
+# buffer where a round is "staged"; on the CPU, and on the int8 wire, as
+# PyTorch's indexing.  The kernel itself runs only on the card
+# (tests/test_torch_cuda.py); here the tables it reads, the staged flags
+# and the dispatch are held to the index path, with the kernel replaced by a
+# CPU stand-in that moves one pair's row at a time, last pair first.
+
+from repro_torch.comm import exec_engine as port  # noqa: E402
+from repro_torch.comm import primitives as port_prims  # noqa: E402
+from repro_torch.core import schedules as PS  # noqa: E402
+from repro_torch.kernels.build import LAUNCHES  # noqa: E402
+from repro_torch.kernels.rounds import ops as round_ops  # noqa: E402
+
+REAL_ON_CARD = round_ops.on_card
+
+PORT_CASES = {  # (collective, algorithm) at n = 8: the schedule and whether every round is staged
+    ("all_reduce", "bucket2d"): (lambda: PS.bucket_all_reduce((2, 4), 4096.0), False),
+    ("reduce_scatter", "bucket2d"): (lambda: PS.bucket_reduce_scatter((2, 4), 4096.0), False),
+    ("all_gather", "bucket2d"): (lambda: PS.bucket_all_gather((2, 4), 4096.0), False),
+    ("all_reduce", "ring"): (lambda: PS.ring_all_reduce(8, 4096.0), False),
+    ("reduce_scatter", "ring"): (lambda: PS.ring_reduce_scatter(8, 4096.0), False),
+    ("all_gather", "ring"): (lambda: PS.ring_all_gather(8, 4096.0), False),
+    ("all_to_all", "dex"): (lambda: PS.dex_all_to_all(8, 4096.0), True),
+    ("all_to_all", "direct"): (lambda: PS.direct_all_to_all(8, 4096.0), True),
+}
+PORT_IDS = [f"{c}-{a}" for c, a in PORT_CASES]
+
+
+def _port_compiled(sched):
+    if sched.collective == "all_to_all":
+        return port.compile_all_to_all(sched, sched.n, tuple(range(sched.n)))
+    return port.compile_schedule(sched)
+
+
+def _operand(sched, dtype, chunk=(3, 2), seed=0):
+    """A rank-stacked operand of the collective, values from numpy."""
+    n = sched.n
+    lead = 2 if sched.collective == "all_gather" else 2 * n
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, lead) + chunk).astype(np.float32)
+    return torch.from_numpy(x).to(dtype)
+
+
+@pytest.mark.parametrize("case", list(PORT_CASES), ids=PORT_IDS)
+def test_port_staged_flag_at_compile(case):
+    """A round is staged exactly where some rank's send and receive slots
+    meet: none for bucket2d and ring, every round for the compact dex and
+    direct all-to-all (its slot compile reuses a slot freed in the round)."""
+    make, every = PORT_CASES[case]
+    compiled = _port_compiled(make())
+    flags = [bool(f) for g in compiled.groups for f in g.staged]
+    assert len(flags) == compiled.num_rounds
+    assert flags == [every] * compiled.num_rounds
+    for g in compiled.groups:
+        for i in range(g.rounds):
+            meet = any(set(g.send_ids[i, r].tolist()) & set(g.recv_ids[i, r].tolist())
+                       for r in range(compiled.n))
+            assert bool(g.staged[i]) == meet
+
+
+def _index_path(buf, rows, rnd):
+    """The engine's round before the kernel, as it was written."""
+    got = buf[rnd.src_rows, rnd.src_ids]
+    if rnd.reduce:
+        got = buf[rows, rnd.recv_ids] + got
+    buf[rows, rnd.recv_ids] = got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=lambda d: str(d).rsplit(".", 1)[1])
+@pytest.mark.parametrize("case", list(PORT_CASES), ids=PORT_IDS)
+def test_port_plain_round_equals_the_index_path(case, dtype):
+    """``ops.round_reference``, and the engine's ``apply_round`` on a CPU
+    buffer, are the index path bit for bit, round after round; every round
+    takes route ``torch`` and nothing launches."""
+    compiled = _port_compiled(PORT_CASES[case][0]())
+    rng = np.random.default_rng(3)
+    buf = torch.from_numpy(rng.standard_normal((8, 8, 3, 2)).astype(np.float32)).to(dtype)
+    tables = port.device_tables(compiled, buf.device)
+    a, b, c = buf.clone(), buf.clone(), buf.clone()
+    before = LAUNCHES.by_route("round")
+    for rnd in tables.rounds:
+        _index_path(a, tables.rows, rnd)
+        round_ops.round_reference(b, tables.rows, rnd)
+        assert port.apply_round(c, tables.rows, rnd) == "torch"
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+        assert torch.equal(a.view(torch.uint8), c.view(torch.uint8))
+    assert LAUNCHES.by_route("round") == before
+
+
+def _pairs(src_ranks, src_ids, dst_ids, n, k):
+    """The kernel's rows, pair by pair: ((sending rank, slot), receive slot)."""
+    ranks = list(range(n)) if src_ranks is None else src_ranks.reshape(-1).tolist()
+    sent = None if src_ids is None else src_ids.reshape(-1).tolist()
+    recv = None if dst_ids is None else dst_ids.reshape(-1).tolist()
+    for d in range(n):
+        for j in range(k):
+            p = d * k + j
+            yield d, (ranks[d], j if sent is None else sent[p]), j if recv is None else recv[p]
+
+
+def _stand_in(calls):
+    """The round kernel's contract on the CPU: pair by pair, last first, each
+    reads its source row and adds it into or stores it over its destination
+    row at once, so a round run in place that needed staging would show."""
+    def fake(src, src_ranks, src_ids, dst_ids, n, k, *, out, reduce=False, route="copy"):
+        calls.append(route)
+        assert src.ndim == out.ndim == 3 and src.is_contiguous() and out.is_contiguous()
+        for d, (r, s), t in reversed(list(_pairs(src_ranks, src_ids, dst_ids, n, k))):
+            row = src[r, s].clone()
+            out[d, t] = out[d, t] + row if reduce else row
+        return out
+    return fake
+
+
+@pytest.fixture
+def kernel_stand_in(monkeypatch):
+    calls = []
+    monkeypatch.setattr(round_ops, "stacked_round_cuda", _stand_in(calls))
+    monkeypatch.setattr(round_ops, "on_card", lambda t: True)
+    monkeypatch.setattr(port, "on_card", lambda t: True)
+    port.clear_exec_caches()
+    yield calls
+    port.clear_exec_caches()
+
+
+def _expected_launches(compiled):
+    flags = [bool(f) for g in compiled.groups for f in g.staged]
+    routes = [r for f in flags for r in (("staged", "staged") if f else ("inplace",))]
+    if compiled.collective in ("reduce_scatter", "all_to_all"):
+        routes.append("copy")  # the diagonal gather, the final slots' gather
+    if compiled.collective == "all_gather":
+        routes.insert(0, "copy")  # the diagonal store
+    return routes
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=lambda d: str(d).rsplit(".", 1)[1])
+@pytest.mark.parametrize("case", list(PORT_CASES), ids=PORT_IDS)
+def test_port_kernel_path_equals_the_reference(case, dtype, kernel_stand_in):
+    """Every collective through the kernel's path (its flat tables, the
+    staged rounds' scratch, the copies), with the kernel's contract run on
+    the CPU, is bit for bit the per-round reference interpreter, with the
+    launches the compiled flags predict."""
+    sched = PORT_CASES[case][0]()
+    x = _operand(sched, dtype, seed=1)
+    got = getattr(port_prims, sched.collective)(x, sched)
+    want = port_prims.run_reference(sched.collective, x, sched)
+    assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+    assert kernel_stand_in == _expected_launches(_port_compiled(sched))
+
+
+@pytest.mark.parametrize("case", [c for c in PORT_CASES if PORT_CASES[c][1]],
+                         ids=[i for i, c in zip(PORT_IDS, PORT_CASES) if PORT_CASES[c][1]])
+def test_port_staged_rounds_need_their_scratch(case, kernel_stand_in, monkeypatch):
+    """The staged flag is needed: run every round of the compact all-to-all
+    in place, in one order of the pairs or the other, and the result is
+    wrong."""
+    sched = PORT_CASES[case][0]()
+    x = _operand(sched, torch.float32, seed=2)
+    want = port_prims.run_reference("all_to_all", x, sched)
+    wrong = []
+    for order in (lambda p: p, lambda p: p[::-1]):
+        def in_place(src, src_ranks, src_ids, dst_ids, n, k, *, out, reduce=False, route="copy",
+                     order=order):
+            for d, (r, s), t in order(list(_pairs(src_ranks, src_ids, dst_ids, n, k))):
+                out[d, t] = src[r, s]
+            return out
+
+        monkeypatch.setattr(round_ops, "stacked_round_cuda", in_place)
+        compiled = _port_compiled(sched)
+        for g in compiled.groups:
+            object.__setattr__(g, "staged", np.zeros_like(g.staged))
+        got = port_prims.all_to_all(x, sched)
+        wrong.append(not torch.equal(got, want))
+        port.clear_exec_caches()
+    assert any(wrong)
+
+
+def test_port_transform_and_cpu_take_the_plain_path(kernel_stand_in, monkeypatch):
+    """A round with a wire ``transform`` never reaches the kernel, and a CPU
+    buffer never does (the real ``on_card``); a card buffer does (here a
+    CPU one, through the stand-in), and one that is not contiguous is
+    refused, by the engine and by the round itself, before anything
+    launches."""
+    sched = PS.ring_all_reduce(8, 4096.0)
+    compiled = port.compile_schedule(sched)
+    buf = _operand(sched, torch.float32).reshape(8, 8, -1).clone()
+    tables = port.device_tables(compiled, buf.device)
+    rnd = tables.rounds[0]
+    assert port.apply_round(buf, tables.rows, rnd, transform=lambda p: p) == "torch"
+    assert kernel_stand_in == []
+    assert port.apply_round(buf, tables.rows, rnd) == "inplace"
+    assert kernel_stand_in == ["inplace"]
+    strided = buf.transpose(0, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        port.apply_round(strided, tables.rows, rnd)
+    with pytest.raises(port.ScheduleExecutionError, match="contiguous"):
+        port.execute_compiled(strided, compiled)
+    with pytest.raises(ValueError, match="contiguous"):
+        port.take_diagonal(strided, compiled)
+    assert kernel_stand_in == ["inplace"]
+    # the collectives hand the engine contiguous copies of a strided operand
+    x = _operand(sched, torch.float32).transpose(0, 1).contiguous().transpose(0, 1)
+    assert not x.is_contiguous()
+    got = port_prims.all_reduce(x, sched)
+    assert torch.equal(got, port_prims.run_reference("all_reduce", x, sched))
+    assert kernel_stand_in == ["inplace"] * (1 + compiled.num_rounds)
+    # the real dispatch: a CPU buffer takes torch's indexing
+    monkeypatch.setattr(round_ops, "on_card", REAL_ON_CARD)
+    assert port.apply_round(buf, tables.rows, rnd) == "torch"
+    assert kernel_stand_in == ["inplace"] * (1 + compiled.num_rounds)
+
+
+def test_port_cpu_collectives_launch_nothing():
+    """On the CPU (the real dispatch), the collectives, the compact
+    all-to-all and the int8 wire launch no kernel and take route ``torch``."""
+    from repro_torch.comm.fusion import all_reduce_quantized
+    from repro_torch.kernels.rounds.ops import on_card
+
+    before = LAUNCHES.by_route("round")
+    for make, _ in PORT_CASES.values():
+        sched = make()
+        x = _operand(sched, torch.float32)
+        assert not on_card(x)
+        getattr(port_prims, sched.collective)(x, sched)
+    all_reduce_quantized(_operand(PS.ring_ef8_all_reduce(8, 1.0), torch.float32),
+                         PS.ring_ef8_all_reduce(8, 1.0))
+    assert LAUNCHES.by_route("round") == before == {
+        "inplace": before["inplace"], "staged": before["staged"], "copy": before["copy"]}
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bool, torch.complex64],
+                         ids=lambda d: str(d).rsplit(".", 1)[1])
+def test_port_kernel_refuses_a_reduce_it_cannot_add(dtype):
+    """The round kernel adds float32, float64, float16, bfloat16, int32 and
+    int64; a reduce in any other dtype raises before anything launches (a
+    store moves any dtype: its check passes and the device check raises)."""
+    from repro_torch.kernels.rounds.kernel import stacked_round_cuda
+
+    t = torch.zeros((2, 2, 8), dtype=dtype)
+    with pytest.raises(ValueError, match="no reduce in"):
+        stacked_round_cuda(t, None, None, None, 2, 2, out=t, reduce=True)
+    with pytest.raises(ValueError, match="CUDA device"):
+        stacked_round_cuda(t, None, None, None, 2, 2, out=t)
+
+
+@pytest.mark.parametrize("stand_in", [False, True], ids=["cpu", "kernel-stand-in"])
+def test_port_round_spans_carry_the_route(stand_in, request):
+    """Each ``round`` span names the route its round took: ``torch`` on the
+    CPU and on the int8 wire, the kernel's mode where the kernel runs."""
+    from repro_torch import spans
+    from repro_torch.comm.fusion import all_reduce_quantized
+
+    calls = request.getfixturevalue("kernel_stand_in") if stand_in else None
+    runs = [PORT_CASES[("all_reduce", "bucket2d")][0](), PORT_CASES[("all_to_all", "dex")][0]()]
+    for sched in runs:
+        x = _operand(sched, torch.float32)
+        with spans.tracing():
+            getattr(port_prims, sched.collective)(x, sched)
+        routes = [s.attrs["route"] for s in spans.records() if s.name == "round"]
+        flags = [bool(f) for g in _port_compiled(sched).groups for f in g.staged]
+        want = [("staged" if f else "inplace") if stand_in else "torch" for f in flags]
+        assert routes == want
+    ef8 = PS.ring_ef8_all_reduce(8, 1.0)
+    with spans.tracing():
+        all_reduce_quantized(_operand(ef8, torch.float32), ef8)
+    assert {s.attrs["route"] for s in spans.records() if s.name == "round"} == {"torch"}
+    if stand_in:
+        assert "torch" not in calls
 
 
 # ------------------------------------------------------- device subprocess

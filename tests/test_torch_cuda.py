@@ -890,20 +890,20 @@ def test_launch_counts_are_one_locked_object_of_every_kernel(dev):
     from repro_torch.kernels.ssd import ssd
 
     assert isinstance(LAUNCHES, LaunchCounts)
-    assert set(LAUNCHES.totals()) == {"matmul", "rmsnorm", "flash", "ssd"}
+    assert set(LAUNCHES.totals()) == {"matmul", "rmsnorm", "flash", "ssd", "round"}
     g = torch.Generator(device=dev).manual_seed(11)
     x = torch.randn(128, 64, generator=g, device=dev).to(torch.bfloat16)
     w = torch.randn(64, 64, generator=g, device=dev).to(torch.bfloat16)
     q, k, v = _flash_inputs(dev, 1, 64, 2, 2, 64, torch.bfloat16)
     X, la, Bm, Cm, _ = _ssd_inputs(dev, 1, 64, 2, 64, 64, torch.bfloat16, False)
     LAUNCHES.reset()
-    assert LAUNCHES.totals() == {"matmul": 0, "rmsnorm": 0, "flash": 0, "ssd": 0}
+    assert LAUNCHES.totals() == {"matmul": 0, "rmsnorm": 0, "flash": 0, "ssd": 0, "round": 0}
     matmul(x, w)
     rmsnorm(x, torch.ones(64, device=dev))
     flash_attention(q, k, v, causal=True)
     ssd(X, la, Bm, Cm, chunk=64)
     torch.cuda.synchronize()
-    assert LAUNCHES.totals() == {"matmul": 1, "rmsnorm": 1, "flash": 1, "ssd": 1}
+    assert LAUNCHES.totals() == {"matmul": 1, "rmsnorm": 1, "flash": 1, "ssd": 1, "round": 0}
     assert {name: LAUNCHES.by_route(name) for name in ("matmul", "rmsnorm", "flash", "ssd")} == {
         "matmul": {"wgmma": 1, "fma": 0}, "rmsnorm": {"triton": 1},
         "flash": {"wgmma": 1, "fma": 0}, "ssd": {"wgmma": 1, "wgmma_tiled": 0, "fma": 0}}
@@ -1275,3 +1275,244 @@ def test_a_traced_cell_reads_the_spans_device_metrics(dev, workload, device_metr
     r = json.loads(out.stdout.strip().splitlines()[-1])
     assert r["correct"] is True
     assert device_metrics | {"plan_us.coll", "enqueue_us.round"} <= set(r["metrics"]), r["metrics"]
+
+
+# -- the round kernel: a rank-stacked round in one pass ----------------------
+
+def _round_schedules():
+    from repro_torch.core import schedules as S
+
+    return {
+        "all_reduce-bucket2d": S.bucket_all_reduce((2, 4), 1.0),
+        "reduce_scatter-bucket2d": S.bucket_reduce_scatter((2, 4), 1.0),
+        "all_gather-bucket2d": S.bucket_all_gather((2, 4), 1.0),
+        "all_to_all-dex": S.dex_all_to_all(8, 1.0),
+        "all_to_all-direct": S.direct_all_to_all(8, 1.0),
+        "all_reduce-ring": S.ring_all_reduce(8, 1.0),
+        "reduce_scatter-ring": S.ring_reduce_scatter(8, 1.0),
+        "all_gather-ring": S.ring_all_gather(8, 1.0),
+    }
+
+
+ROUND_CASES = ["all_reduce-bucket2d", "reduce_scatter-bucket2d", "all_gather-bucket2d",
+               "all_to_all-dex", "all_to_all-direct", "all_reduce-ring", "reduce_scatter-ring",
+               "all_gather-ring"]
+# a chunk's shape: 8 KiB in bf16 (16-byte units), and 3 elements (one element a thread)
+ROUND_CHUNKS = {"units16": (4, 1024), "ragged": (1, 3)}
+ROUND_DTYPES = [torch.bfloat16, torch.float16, torch.float32]
+
+
+def _round_operand(sched, chunk, dtype, dev, seed=0):
+    """The collective's rank-stacked operand: a chunk a rank of ``chunk``
+    elements (an all-gather's shard is one chunk)."""
+    lead = chunk[0] if sched.collective == "all_gather" else chunk[0] * sched.n
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn((sched.n, lead, chunk[1]), generator=g, device=dev).to(dtype)
+
+
+def _round_compiled(sched):
+    from repro_torch.comm import exec_engine as E
+
+    if sched.collective == "all_to_all":
+        return E.compile_all_to_all(sched, sched.n, tuple(range(sched.n)))
+    return E.compile_schedule(sched)
+
+
+def _round_launches(compiled):
+    """The round kernel's launches by route one call of the collective makes."""
+    flags = [bool(f) for g in compiled.groups for f in g.staged]
+    copies = 1 if compiled.collective != "all_reduce" else 0  # the diagonal, the final gather
+    return {"inplace": flags.count(False), "staged": 2 * flags.count(True), "copy": copies}
+
+
+def _bits(t):
+    return t.contiguous().view(torch.uint8)
+
+
+@pytest.mark.parametrize("dtype", ROUND_DTYPES, ids=lambda d: str(d).rsplit(".", 1)[1])
+@pytest.mark.parametrize("chunk", list(ROUND_CHUNKS), ids=list(ROUND_CHUNKS))
+@pytest.mark.parametrize("case", ROUND_CASES)
+def test_round_kernel_collectives_bit_for_bit(dev, case, chunk, dtype):
+    """Each collective through the round kernel equals the per-round
+    reference interpreter on the card and the index path on the CPU, bit
+    for bit, with the launches the compiled tables predict."""
+    from repro_torch.comm import primitives as P
+
+    sched = _round_schedules()[case]
+    x = _round_operand(sched, ROUND_CHUNKS[chunk], dtype, dev)
+    before = LAUNCHES.by_route("round")
+    got = getattr(P, sched.collective)(x, sched)
+    torch.cuda.synchronize()
+    after = LAUNCHES.by_route("round")
+    assert {r: after[r] - before[r] for r in after} == _round_launches(_round_compiled(sched))
+    want = P.run_reference(sched.collective, x, sched)
+    assert torch.equal(_bits(got), _bits(want))
+    on_cpu = getattr(P, sched.collective)(x.cpu(), sched)
+    assert torch.equal(_bits(got.cpu()), _bits(on_cpu))
+
+
+@pytest.mark.parametrize("case", ROUND_CASES)
+def test_round_kernel_takes_a_strided_operand(dev, case):
+    """An operand that is not contiguous (a transposed view) still runs
+    every round on the kernel: the collectives hand the engine a contiguous
+    copy.  The engine refuses a strided CUDA buffer of its own."""
+    from repro_torch.comm import exec_engine as E
+    from repro_torch.comm import primitives as P
+
+    sched = _round_schedules()[case]
+    x = _round_operand(sched, ROUND_CHUNKS["units16"], torch.bfloat16, dev, seed=5)
+    strided = x.transpose(0, 1).contiguous().transpose(0, 1)
+    assert not strided.is_contiguous() and torch.equal(strided, x)
+    before = LAUNCHES.by_route("round")
+    got = getattr(P, sched.collective)(strided, sched)
+    torch.cuda.synchronize()
+    after = LAUNCHES.by_route("round")
+    assert {r: after[r] - before[r] for r in after} == _round_launches(_round_compiled(sched))
+    assert torch.equal(_bits(got), _bits(P.run_reference(sched.collective, x, sched)))
+    if sched.collective != "all_to_all":
+        buf = torch.zeros((8, 8, 16), dtype=torch.bfloat16, device=dev).transpose(1, 2)
+        with pytest.raises(E.ScheduleExecutionError, match="contiguous"):
+            E.execute_compiled(buf, _round_compiled(sched))
+
+
+def _guarded(torch, shape, dtype, dev, guard=4096):
+    """A NaN-filled flat tensor and a view of ``shape`` inside it, with
+    ``guard`` elements on each side."""
+    n = math.prod(shape)
+    flat = torch.full((n + 2 * guard,), float("nan"), dtype=dtype, device=dev)
+    return flat, flat[guard:guard + n].view(shape), guard
+
+
+@pytest.mark.parametrize("chunk", list(ROUND_CHUNKS), ids=list(ROUND_CHUNKS))
+@pytest.mark.parametrize("case", ROUND_CASES)
+def test_round_kernel_touches_no_guard(dev, case, chunk):
+    """The engine's buffer between NaN guard bands: every round, and the
+    compact all-to-all's final gather, writes what the reference writes and
+    no guard element (the tables address only the buffer's rows)."""
+    from repro_torch.comm import exec_engine as E
+    from repro_torch.comm import primitives as P
+
+    sched = _round_schedules()[case]
+    compiled = _round_compiled(sched)
+    x = _round_operand(sched, ROUND_CHUNKS[chunk], torch.bfloat16, dev, seed=1)
+    n = sched.n
+    if sched.collective == "all_gather":
+        state = x.new_zeros((n, n) + tuple(x.shape[1:]))
+        state[torch.arange(n), torch.arange(n)] = x
+    else:
+        state = x.reshape((n, n, -1) + tuple(x.shape[2:]))
+    flat, buf, guard = _guarded(torch, tuple(state.shape), state.dtype, dev)
+    buf.copy_(state)
+    if sched.collective == "all_to_all":
+        out = E.execute_all_to_all_compact(buf, compiled)
+        assert torch.equal(_bits(out.reshape(x.shape)), _bits(P.run_reference("all_to_all", x, sched)))
+    else:
+        E.execute_compiled(buf, compiled)
+        assert torch.equal(_bits(buf), _bits(P.execute_schedule_reference(state, sched)))
+    torch.cuda.synchronize()
+    assert torch.isnan(flat[:guard]).all() and torch.isnan(flat[guard + buf.numel():]).all()
+
+
+@pytest.mark.parametrize("dtype, coll", [(torch.bfloat16, "all_reduce"), (torch.int8, "all_gather")],
+                         ids=["bf16-all_reduce", "int8-all_gather"])
+def test_round_kernel_past_two_to_the_31_elements(dev, dtype, coll):
+    """A stacked buffer of more than 2**31 elements, moved one element a
+    thread (a chunk of an odd number of elements), so that the element
+    offsets pass 32 bits: bit for bit the per-round reference."""
+    from repro_torch.comm import primitives as P
+    from repro_torch.core import schedules as S
+
+    c = 2**25 + 3  # elements a chunk; 64 chunks make 2**31 + 192
+    g = torch.Generator(device=dev).manual_seed(2)
+    if coll == "all_reduce":
+        sched = S.bucket_all_reduce((2, 4), 1.0)
+        x = torch.randn((8, 8 * c), generator=g, device=dev).to(dtype)
+    else:
+        sched = S.bucket_all_gather((2, 4), 1.0)
+        x = torch.randint(-128, 128, (8, c), generator=g, device=dev, dtype=dtype)
+    assert 64 * c > 2**31
+    before = LAUNCHES.by_route("round")
+    got = getattr(P, coll)(x, sched)
+    torch.cuda.synchronize()
+    assert sum(LAUNCHES.by_route("round").values()) > sum(before.values())
+    want = P.run_reference(coll, x, sched)
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.float16, torch.bfloat16,
+                                   torch.int32, torch.int64],
+                         ids=lambda d: str(d).rsplit(".", 1)[1])
+def test_round_kernel_reduce_in_every_dtype_it_takes(dev, dtype):
+    """A reduce round in each dtype the kernel adds, in 16-byte units and one
+    element a thread, equals torch's ``a + b`` bit for bit; its launch is
+    what the geometry export reports; a dtype it cannot add raises."""
+    from repro_torch.analysis.kernel_lint import DEFAULT_SMEM_BUDGET
+    from repro_torch.analysis.launch_probe import geometry_mismatches
+    from repro_torch.kernels.rounds.kernel import stacked_round_cuda
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    size = torch.empty(0, dtype=dtype).element_size()
+    for elements in (4096 // size, 3):
+        if dtype.is_floating_point:
+            a, b = (torch.randn((16, elements), generator=g, device=dev).to(dtype) for _ in "ab")
+        else:
+            a, b = (torch.randint(-2**20, 2**20, (16, elements), generator=g, device=dev,
+                                  dtype=dtype) for _ in "ab")
+        ranks = torch.arange(4, device=dev).flip(0)  # receiver d reads rank 3 - d ...
+        src_ids = torch.arange(8, device=dev).view(4, 2) % 2 + 2  # ... slots 2 and 3 ...
+        dst_ids = torch.arange(8, device=dev).view(4, 2).flip(1) % 2  # ... into slots 1 and 0
+        a, b = a.view(4, 4, elements), b.view(4, 4, elements)
+        rows = torch.arange(4, device=dev)[:, None]
+        want = a.clone()
+        want[rows, dst_ids] = a[rows, dst_ids] + b[ranks[:, None], src_ids]
+        stacked_round_cuda(b, ranks, src_ids, dst_ids, 4, 2, out=a, reduce=True, route="inplace")
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(a), _bits(want)), elements
+        _, _, problems = geometry_mismatches(stacked_round_cuda, (b, ranks, src_ids, dst_ids, 4, 2),
+                                             {"reduce": True}, DEFAULT_SMEM_BUDGET)
+        assert not problems, problems
+    with pytest.raises(ValueError, match="no reduce"):
+        t = torch.zeros((1, 2, 16), dtype=torch.int8, device=dev)
+        stacked_round_cuda(t, None, None, None, 1, 1, out=t, reduce=True)
+
+
+def test_round_kernel_runs_every_engine_round_of_the_layer_seams(dev):
+    """The layer cell's calls at a small width: the AR+RMSNorm and the
+    all-gather run every round on the kernel (their spans say so), the
+    fused mm+RS's rounds stay on torch's indexing."""
+    from repro_torch import PcclSession, spans
+    from repro_torch.comm import fusion
+    from repro_torch.core import cost_model as cm
+
+    session = PcclSession(cm.H100_DGX, device=dev)
+    comm = session.communicator("x", 8)
+    ring = session.communicator("x", 8, algorithm="ring")  # the mm+RS streams its rounds
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn(8, 256, 512, generator=g, device=dev).to(torch.bfloat16)
+    xm = torch.randn(8, 256, 128, generator=g, device=dev).to(torch.bfloat16)
+    w = (torch.randn(128, 512, generator=g, device=dev) / 16).to(torch.bfloat16)
+    gamma = torch.ones(512, device=dev)
+    fusion.fused_all_reduce_rmsnorm(comm, x, gamma)  # warm: plans and tables
+    shard = fusion.fused_matmul_reduce_scatter(ring, xm, w)
+    comm.all_gather(shard)
+    torch.cuda.synchronize()
+    before = LAUNCHES.by_route("round")
+    with spans.tracing():
+        fusion.fused_all_reduce_rmsnorm(comm, x, gamma)
+        shard = fusion.fused_matmul_reduce_scatter(ring, xm, w)
+        comm.all_gather(shard)
+        torch.cuda.synchronize()
+    recs = spans.records()
+    after = LAUNCHES.by_route("round")
+    ops = {i: s.attrs["op"] for i, s in enumerate(recs) if s.name == "collective"}
+    rounds = {}
+    for s in recs:
+        if s.name == "round":
+            rounds.setdefault(ops[s.root], []).append(s.attrs["route"])
+    assert set(rounds["ar_rmsnorm"]) <= {"inplace", "staged"}
+    assert set(rounds["all_gather"]) <= {"inplace", "staged"}
+    assert set(rounds["mm_rs"]) == {"torch"}
+    kernel_rounds = rounds["ar_rmsnorm"] + rounds["all_gather"]
+    assert after["inplace"] - before["inplace"] == kernel_rounds.count("inplace")
+    assert after["staged"] - before["staged"] == 2 * kernel_rounds.count("staged")
+    assert after["copy"] - before["copy"] == 1  # the all-gather's diagonal store

@@ -35,6 +35,7 @@ from repro.comm import exec_engine as ref_engine
 from repro_torch.analysis import kernel_lint as lint
 from repro_torch.analysis import launch_model as model
 from repro_torch.comm import exec_engine
+from repro_torch.kernels.build import verify_launch
 from repro_torch.kernels.flash import launch as k3_launch
 from repro_torch.kernels.flash.kernel import flash_attention_cuda
 from repro_torch.kernels.matmul import launch as k1_launch
@@ -42,6 +43,8 @@ from repro_torch.kernels.matmul.kernel import matmul_cuda
 from repro_torch.kernels.rmsnorm import kernel as k2
 from repro_torch.kernels.rmsnorm import launch as k2_launch
 from repro_torch.kernels.rmsnorm.kernel import rmsnorm_triton
+from repro_torch.kernels.rounds import launch as round_launch
+from repro_torch.kernels.rounds.kernel import stacked_round_cuda
 from repro_torch.kernels.ssd import launch as k4_launch
 from repro_torch.kernels.ssd.kernel import ssd_cuda
 
@@ -186,6 +189,13 @@ PROBES = {
         ((_meta(1, 300, 3, 128), _meta(1, 300, 3), _meta(1, 300, 72), _meta(1, 300, 72)),
          {"chunk": 128}),
     ],
+    round_launch: [
+        # 16-byte units, a ragged last tile; one element a thread; a reduce by every table
+        ((_meta(2, 8, 12000, dtype=BF16), None, None, None, 2, 8), {}),
+        ((_meta(8, 4, 3, dtype=BF16), None, None, None, 8, 4), {}),
+        ((_meta(8, 8, 2052), _meta(8, dtype=torch.int64), _meta(8, 2, dtype=torch.int64),
+          _meta(8, 2, dtype=torch.int64), 8, 2), {"reduce": True}),
+    ]
 }
 
 # (module, category, name, old text, new text, occurrence): one edit of a
@@ -386,6 +396,15 @@ MODEL_MUTANTS = [
      "Footprint(las)", 2),
     (k4_launch, "input", "fma outputs scores one column over",
      "else Box((b, ch, t0, 0), (1, 1, T, L))", "else Box((b, ch, t0, 0), (1, 1, T, L + 1))", 0),
+    # the round kernel
+    (round_launch, "grid", "round tiles ceil->floor",
+     "tiles = cdiv(E * size // unit,", "tiles = (E * size // unit) // (", 0),
+    (round_launch, "output", "round tile of one unit a thread",
+     'tile = c["THREADS"] * c["UNROLL"] * unit // size', 'tile = c["THREADS"] * unit // size', 0),
+    (round_launch, "grid", "round receivers and slots swapped", "grid=(tiles, k, n)",
+     "grid=(tiles, n, k)", 0),
+    (round_launch, "mask", "round ragged tile unmasked", "out_blocks=(Footprint(pair, masked=(2,)),)",
+     "out_blocks=(Footprint(pair),)", 0),
 ]
 
 # (source, kernel, name, old, new, occurrence): one edit of a kernel body
@@ -443,6 +462,9 @@ BODY_MUTANTS = [
     ("ssd/csrc/ssd_sm90_tiled.cu", "ssd_states_sm90_tiled_kernel",
      "wgmma_tiled states dead parameter", "int N, int nc,\n                             int bc_per_head) {",
      "int N, int nc,\n                             int bc_per_head, int chunk) {", 0),
+    ("rounds/csrc/rounds.cu", "stacked_round_kernel", "round dead parameter",
+     "long long dst_slots, long long row_units) {",
+     "long long dst_slots, long long row_units, int k) {", 0),
 ]
 
 TRITON_MUTANTS = [
@@ -627,6 +649,7 @@ MODEL_CONSTANTS = {
     "ssd/csrc/ssd_sm90_tiled.cu": ("L", "THREADS", "STATES_STAGES", "OUTPUTS_STAGES", "OUT_ROW",
                                    "PAIR_VEC"),
     "ssd/csrc/ssd_common.cuh": ("RECURRENCE_THREADS",),
+    "rounds/csrc/rounds.cu": ("THREADS", "UNROLL"),
 }
 
 
@@ -636,7 +659,7 @@ def test_model_constants_are_literals_in_the_sources(source, tmp_path):
     found = model.source_constants(path, MODEL_CONSTANTS[source])
     assert all(isinstance(v, int) and v > 0 for v in found.values())
     # every source_constants call of the launch models asks only for these
-    for module in (k1_launch, k3_launch, k4_launch):
+    for module in (k1_launch, k3_launch, k4_launch, round_launch):
         text = inspect.getsource(module)
         for names in re.findall(r"source_constants\(\w+, \(([^)]*)\)\)", text):
             asked = set(re.findall(r'"(\w+)"', names))
@@ -747,7 +770,7 @@ def test_shipped_cases_reach_every_launch_site():
         "matmul_sm90_kernel", "matmul_kernel", "_rmsnorm_kernel", "flash_sm90_kernel",
         "flash_fwd_kernel", "ssd_states_kernel", "ssd_outputs_kernel", "ssd_states_sm90_kernel",
         "ssd_outputs_sm90_kernel", "ssd_recurrence_kernel", "ssd_states_sm90_tiled_kernel",
-        "ssd_recurrence_pair_kernel", "ssd_outputs_sm90_tiled_kernel"}
+        "ssd_recurrence_pair_kernel", "ssd_outputs_sm90_tiled_kernel", "stacked_round_kernel"}
 
 
 def test_main_path_shapes_are_clean_in_time():
@@ -784,6 +807,10 @@ def _cpu_cases():
          {"causal": True}),
         ("ssd:fma", ssd_cuda, (r(1, 20, 2, 4), r(1, 20, 2), r(1, 20, 3), r(1, 20, 3)),
          {"chunk": 8}),
+        ("round:inplace", stacked_round_cuda,
+         (r(4, 4, 24), torch.arange(4).flip(0), torch.arange(8).view(4, 2) % 2 + 2,
+          torch.arange(8).view(4, 2) % 2, 4, 2),
+         {"out": r(4, 4, 24), "reduce": True, "route": "inplace"}),
     ]
 
 
@@ -825,6 +852,26 @@ def test_gate_is_off_without_the_variable(monkeypatch):
         with pytest.raises(ValueError, match="CUDA device"):
             fn(*args, **kwargs)
     assert lint.gate_counts() == {}
+
+
+ROUND_MAIN = [c for c in lint.main_path_cases() if c[1] is stacked_round_cuda]
+
+
+@pytest.mark.parametrize("case", ROUND_MAIN, ids=[c[0] for c in ROUND_MAIN])
+def test_main_path_round_cases_meet_the_gate_as_the_wrapper_does(case, monkeypatch):
+    """``chip_smoke.py`` path 13d times the gate's hits with a main-path
+    case's own arguments: for the round kernel they must be the ones its
+    wrapper hands the gate, so the first call is the one miss and the
+    case's replay a hit."""
+    label, fn, args, kwargs = case
+    monkeypatch.setenv("PCCL_VERIFY", "1")
+    lint.clear_verified_cache()
+    with pytest.raises(ValueError, match="CUDA device"):
+        fn(*args, **kwargs)
+    [gate] = lint.gate_counts()
+    verify_launch(gate, fn, args, kwargs)
+    assert lint.gate_counts() == {gate: {"misses": 1, "hits": 1}}
+    lint.clear_verified_cache()
 
 
 def test_gate_memo_is_bounded_and_cleared_by_clear_exec_caches(monkeypatch):
